@@ -2,11 +2,12 @@
 """Drive the PyTorch port (keras_object_detection_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # from the repository root
-    python3 chip_smoke.py --profile DIR   # also a torch.profiler trace in DIR
+    python3 chip_smoke.py --profile DIR   # also torch.profiler traces in DIR
 
 Phases, each of which fails the run (non-zero exit) when it goes wrong:
 
-1. build   - compile ops/csrc/nms.cu with nvcc for sm_90a;
+1. build   - compile ops/csrc/{nms,yolo_loss,bn_stats}.cu with nvcc for
+             sm_90a, one nvcc each, all started together;
 2. nms     - the NMS kernel against its plain PyTorch version on the card,
              bit-equal (torch.equal) on rows and masks at every shape the
              serving path can give it, plus tied and all-filtered inputs;
@@ -18,7 +19,26 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
              and batch-32 requests through InferenceModel; the NMS launch
              count of those requests, predict() == the plain NMS of
              predict_decoded() on the card, p50 latency, images/s, peak
-             memory and a per-stage breakdown.
+             memory and a per-stage breakdown;
+5. loss    - the fused-loss kernels (forward K4, backward K5) against their
+             plain versions at the train step's (64*49, 30) rows, at
+             (2*49, 20) rows with B=3, and at hand-built tie and clip-bound
+             rows, both noobj modes; times and bounds;
+6. bn      - the BN-statistics kernels (K2, K3) against their plain versions
+             at the shape of each of the flagship's 25 BatchNorms at batch
+             64, in bf16 and f32, and at odd shapes; times, bounds and
+             torch.var_mean's time beside K2;
+7. train-check - a small model's train step (darknet_micro @56, both
+             kernel switches on, SGD, float32, TF32 off) on the GPU against
+             the same step on the CPU from the same weights and draws: loss
+             and running statistics to 1e-4, each parameter tensor's update
+             to 1e-2 in norm;
+8. train   - the flagship train step at full width and batch 64 (nadam,
+             use_pallas_loss=True, bn_mode="fused"): launches of each kernel
+             per step (K2 25, K3 25, K4 1, K5 1), step p50, images/s, peak
+             memory, a finite loss; the same numbers for the plain path
+             (both switches off); one step of each path from the same state
+             and draws, compared in loss and BN running statistics.
 
 Then one JSON line describing each kernel, one line with the card's name and
 power limit from nvidia-smi, and as the last line
@@ -29,8 +49,12 @@ power limit from nvidia-smi, and as the last line
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import dataclasses
+import gzip
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -44,6 +68,8 @@ F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # dense bf16 on the tensor cores
 
 NMS_SHAPES = [(1, 49), (32, 49), (32, 98), (4, 196), (8, 512), (2, 1024)]
+KERNEL_SOURCES = ("nms", "yolo_loss", "bn_stats")
+TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 
 
 def log(msg: str) -> None:
@@ -116,11 +142,13 @@ def nms_bound_ms(rows: torch.Tensor) -> tuple:
 def phase_build() -> None:
     from keras_object_detection_torch.ops import _build
 
-    lib, seconds, output = _build.build("nms")
-    log(f"[build] {lib.name}: {seconds:.2f} s")
-    for line in output.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        built = list(pool.map(_build.build, KERNEL_SOURCES))
+    for lib, seconds, output in built:
+        log(f"[build] {lib.name}: {seconds:.2f} s")
+        for line in output.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"[build] {line.strip()}")
 
 
 def phase_nms(dev) -> dict:
@@ -305,10 +333,427 @@ def phase_serve(dev, profile_dir) -> dict:
     return {"launches": launches}
 
 
+def loss_rows(seed: int, n: int, c: int, b: int):
+    """(n, C + 5B) y_true / y_pred rows: about 30 % object cells."""
+    rng = np.random.RandomState(seed)
+    d = c + 5 * b
+    t = np.zeros((n, d), np.float32)
+    obj = rng.uniform(size=n) < 0.3
+    t[np.arange(n), rng.randint(c, size=n)] = obj
+    t[:, c] = obj
+    t[:, c + 1:c + 5] = rng.uniform([0, 0, 0.02, 0.02], [1, 1, 0.6, 0.6],
+                                    (n, 4)) * obj[:, None]
+    p = rng.uniform(-0.3, 1.0, (n, d)).astype(np.float32)
+    return t, p
+
+
+def tie_rows():
+    """C=3, B=2 rows with slot 0 responsible and its IoU chain on a tie:
+    row 0 at the clip bound (boxes touching along x, intersection width
+    exactly 0), row 1 on a corner tie (equal left corners)."""
+    t, p = loss_rows(7, 49, 3, 2)
+    t[:2] = 0.0
+    t[:2, [0, 3]] = 1.0
+    t[0, 4:8] = [0.25, 0.5, 0.25, 0.5]
+    p[0, 3:8] = [0.7, 0.75, 0.6, 0.25, 0.5]
+    t[1, 4:8] = [0.5, 0.5, 0.5, 0.5]
+    p[1, 3:8] = [0.3, 0.75, 0.55, 0.75, 0.4]
+    p[:2, 8:13] = [0.2, 0.9, 0.9, 0.1, 0.1]
+    return t, p
+
+
+def loss_bound_ms(n: int, c: int, b: int, backward: bool) -> tuple:
+    """Least time of one loss kernel: bytes (both row sets read once, the 5
+    sums or the gradient rows written once) against float32 operations
+    (per row about 30 per slot for its IoU and select, 4 per class, 30 for
+    the terms; the backward about 60 more per slot)."""
+    d = c + 5 * b
+    nbytes = 2 * n * d * 4 + (n * d * 4 if backward else 5 * 4)
+    ops = n * (b * (90 if backward else 30) + 4 * c + 30)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_loss(dev) -> dict:
+    from keras_object_detection_torch.ops import yolo_loss as yl
+
+    cases = [("64x49 C20 B2", *loss_rows(1, 64 * 49, 20, 2), 20, 2),
+             ("2x49 C5 B3", *loss_rows(2, 2 * 49, 5, 3), 5, 3),
+             ("ties C3 B2", *tie_rows(), 3, 2)]
+    g = torch.tensor(1.0, device=dev)
+    fwd_err = bwd_err = 0.0
+    bit_equal = True
+    for name, t_np, p_np, c, b in cases:
+        t = torch.from_numpy(t_np).to(dev)
+        p = torch.from_numpy(p_np).to(dev)
+        for mode in ("selected", "all"):
+            got = yl.cuda_yolo_v1_loss_forward(t, p, c, b, noobj_mode=mode)
+            want = yl.yolo_v1_loss_forward_plain(t, p, c, b, noobj_mode=mode)
+            dp = yl.cuda_yolo_v1_loss_backward(t, p, g, c, b, noobj_mode=mode)
+            want_dp = yl.yolo_v1_loss_backward_plain(t, p, g, c, b,
+                                                     noobj_mode=mode)
+            torch.cuda.synchronize()
+            rel = ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
+            derr = (dp - want_dp).abs().max().item()
+            same = torch.equal(dp, want_dp)
+            fwd_err = max(fwd_err, (got - want).abs().max().item())
+            bwd_err = max(bwd_err, derr)
+            bit_equal = bit_equal and same
+            log(f"[loss] {name} {mode}: forward max rel err {rel:.3e}, "
+                f"backward bit-equal={same} max abs err {derr:.3e}")
+            if rel > 1e-6:
+                raise SystemExit(f"loss forward kernel disagrees at {name} {mode}")
+            if not same and not torch.allclose(dp, want_dp, rtol=1e-6, atol=1e-6):
+                raise SystemExit(f"loss backward kernel disagrees at {name} {mode}")
+    log("[loss] backward: " + ("bit-equal everywhere (the same operations in "
+                               "the same order, -fmad=false)" if bit_equal else
+                               "within 1e-6 (the last bit differs where torch "
+                               "and nvcc round a library call differently)"))
+
+    t, p = (torch.from_numpy(x).to(dev) for x in loss_rows(3, 64 * 49, 20, 2))
+    timing = {}
+    for name, kernel, plain, backward in [
+            ("forward", lambda: yl.cuda_yolo_v1_loss_forward(t, p, 20, 2),
+             lambda: yl.yolo_v1_loss_forward_plain(t, p, 20, 2), False),
+            ("backward", lambda: yl.cuda_yolo_v1_loss_backward(t, p, g, 20, 2),
+             lambda: yl.yolo_v1_loss_backward_plain(t, p, g, 20, 2), True)]:
+        k_ms = graph_ms(kernel)
+        call_ms = cuda_ms(kernel, 200)
+        p_ms = cuda_ms(plain, 20)
+        bound, bound_by = loss_bound_ms(64 * 49, 20, 2, backward)
+        timing[name] = (k_ms, call_ms, p_ms, bound, bound_by)
+        log(f"[loss] {name} at 3136x30: kernel {k_ms:.5f} ms on the device "
+            f"({call_ms:.5f} ms per call with launch), plain {p_ms:.4f} ms, "
+            f"bound {bound:.3e} ms ({bound_by}); no single PyTorch call "
+            f"computes this loss, so no library time")
+    return {"forward_err": fwd_err, "backward_err": bwd_err, "timing": timing}
+
+
+def flagship_bn_shapes(dev, batch: int = 64) -> list:
+    """(N, C, H, W) of each of voc_full_config's 25 BatchNorm inputs."""
+    from keras_object_detection_torch.config import voc_full_config
+    from keras_object_detection_torch.models import build_model
+    from keras_object_detection_torch.models.layers import BatchNorm
+
+    model = build_model(voc_full_config(), torch.Generator().manual_seed(0))
+    model = model.to(dev, memory_format=torch.channels_last)
+    shapes = []
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out: shapes.append((batch,) + tuple(inp[0].shape[1:])))
+        for m in model.modules() if isinstance(m, BatchNorm)]
+    with torch.inference_mode():
+        model(torch.zeros(1, 448, 448, 3, device=dev))
+    for h in hooks:
+        h.remove()
+    del model
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def bn_bound_ms(shape, itemsize: int, grad: bool) -> tuple:
+    """Least time of one BN-statistics launch: its inputs read once (x; dy
+    and x for the gradient statistics) and the (2, C) sums written, against
+    3 (5) float32 operations per element."""
+    n, c, h, w = shape
+    elems = n * c * h * w
+    nbytes = elems * itemsize * (2 if grad else 1) + 2 * c * 4
+    ops = elems * (5 if grad else 3)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_bn(dev) -> dict:
+    from keras_object_detection_torch.ops import bn
+
+    shapes = flagship_bn_shapes(dev)
+    log(f"[bn] the flagship's {len(shapes)} BatchNorm inputs at batch 64: "
+        + ", ".join(f"{c}x{h}x{w}" for _, c, h, w in shapes))
+    if len(shapes) != 25:
+        raise SystemExit("the flagship does not have 25 BatchNorms")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    max_rel = {"stats": 0.0, "grad": 0.0}
+    max_abs = {"stats": 0.0, "grad": 0.0}
+    tot = {k: 0.0 for k in ("k2", "k3", "p2", "p3", "b2", "b3", "lib2")}
+    largest = None
+    odd = [(5, 32, 13, 11), (3, 24, 7, 7), (7, 24, 9, 5)]
+    for shape in [*shapes, *odd]:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(shape, generator=gen, device=dev) * 2 + 0.5
+            dy = torch.randn(shape, generator=gen, device=dev)
+            x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+            dy = dy.to(dtype).contiguous(memory_format=torch.channels_last)
+            m = x.numel() // shape[1]
+            got = bn.cuda_bn_stats_sums(x)
+            want = bn.bn_stats_sums_plain(x)
+            mean = want[0] / m
+            rstd = torch.rsqrt(torch.clamp_min(want[1] / m - mean * mean, 0.0)
+                               + 1e-3)
+            got_g = bn.cuda_bn_grad_sums(dy, x, mean, rstd)
+            want_g = bn.bn_grad_sums_plain(dy, x, mean, rstd)
+            torch.cuda.synchronize()
+            for key, a, w in (("stats", got, want), ("grad", got_g, want_g)):
+                scale = w.abs().amax(dim=1, keepdim=True).clamp_min(1.0)
+                rel = ((a - w).abs() / scale).max().item()
+                max_rel[key] = max(max_rel[key], rel)
+                max_abs[key] = max(max_abs[key], (a - w).abs().max().item())
+                if rel > 1e-5:
+                    raise SystemExit(f"BN {key} kernel disagrees at {shape} "
+                                     f"{dtype}: {rel:.3e}")
+            if dtype != torch.bfloat16 or shape not in shapes:
+                continue
+            # timing: the step's launches are bf16 at these shapes
+            k2 = graph_ms(lambda: bn.cuda_bn_stats_sums(x), reps=20, replays=5)
+            k3 = graph_ms(lambda: bn.cuda_bn_grad_sums(dy, x, mean, rstd),
+                          reps=20, replays=5)
+            p2 = cuda_ms(lambda: bn.bn_stats_sums_plain(x), 5, warmup=1)
+            p3 = cuda_ms(lambda: bn.bn_grad_sums_plain(dy, x, mean, rstd), 5,
+                         warmup=1)
+            lib2 = cuda_ms(lambda: torch.var_mean(x, dim=(0, 2, 3),
+                                                  correction=0), 5, warmup=1)
+            b2, _ = bn_bound_ms(shape, 2, False)
+            b3, _ = bn_bound_ms(shape, 2, True)
+            for key, v in (("k2", k2), ("k3", k3), ("p2", p2), ("p3", p3),
+                           ("b2", b2), ("b3", b3), ("lib2", lib2)):
+                tot[key] += v
+            if largest is None or x.numel() > largest["elems"]:
+                largest = {"shape": list(shape), "elems": x.numel(), "k2": k2,
+                           "k3": k3, "p2": p2, "p3": p3, "b2": b2, "b3": b3,
+                           "lib2": lib2}
+            del x, dy
+    log(f"[bn] kernels vs plain over {len(shapes)} + {len(odd)} shapes, bf16 "
+        f"and f32: stats max rel err {max_rel['stats']:.3e} (max abs "
+        f"{max_abs['stats']:.3e}), grad stats max rel err {max_rel['grad']:.3e} "
+        f"(max abs {max_abs['grad']:.3e}); relative to each sum's largest "
+        f"channel, float32 sums in another order")
+    L = largest
+    log(f"[bn] largest {L['shape']} bf16: K2 {L['k2']:.5f} ms (plain "
+        f"{L['p2']:.4f}, torch.var_mean {L['lib2']:.4f}, bound {L['b2']:.5f} "
+        f"bytes), K3 {L['k3']:.5f} ms (plain {L['p3']:.4f}, bound "
+        f"{L['b3']:.5f} bytes)")
+    log(f"[bn] a step's 25 launches, bf16, summed device ms: K2 {tot['k2']:.5f} "
+        f"(plain {tot['p2']:.4f}, torch.var_mean {tot['lib2']:.4f}, bound "
+        f"{tot['b2']:.5f}), K3 {tot['k3']:.5f} (plain {tot['p3']:.4f}, bound "
+        f"{tot['b3']:.5f}); K3 has no single PyTorch call that computes it")
+    return {"max_rel": max_rel, "max_abs": max_abs, "total": tot,
+            "largest": largest}
+
+
+def train_config(kernels: bool):
+    from keras_object_detection_torch.config import voc_full_config
+
+    cfg = voc_full_config()
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model,
+                                       bn_mode="fused" if kernels else "flax"),
+        train=dataclasses.replace(cfg.train, use_pallas_loss=kernels))
+
+
+def synthetic_batch(batch: int, size: int, max_boxes: int, dev):
+    """bench.py's synthetic batch: random pixels, two boxes per image."""
+    rng = np.random.RandomState(0)
+    images = rng.randint(0, 255, size=(batch, size, size, 3), dtype=np.uint8)
+    boxes = np.zeros((batch, max_boxes, 5), np.float32)
+    boxes[:, 0] = [0.5, 0.5, 0.3, 0.3, 1.0]
+    boxes[:, 1] = [0.2, 0.25, 0.2, 0.3, 7.0]
+    valid = np.zeros((batch, max_boxes), bool)
+    valid[:, :2] = True
+    return (torch.from_numpy(images).to(dev), torch.from_numpy(boxes).to(dev),
+            torch.from_numpy(valid).to(dev))
+
+
+def kernel_counts() -> dict:
+    from keras_object_detection_torch.ops import bn, yolo_loss
+
+    return {"bn_stats": bn.STATS_LAUNCHES,
+            "bn_grad_stats": bn.GRAD_STATS_LAUNCHES,
+            "yolo_loss_forward": yolo_loss.FORWARD_LAUNCHES,
+            "yolo_loss_backward": yolo_loss.BACKWARD_LAUNCHES}
+
+
+def reset_kernel_counts() -> None:
+    from keras_object_detection_torch.ops import bn, yolo_loss
+
+    bn.STATS_LAUNCHES = bn.GRAD_STATS_LAUNCHES = bn.DY_LAYOUT_COPIES = 0
+    yolo_loss.FORWARD_LAUNCHES = yolo_loss.BACKWARD_LAUNCHES = 0
+
+
+def tiny_train_config():
+    """tiny_cpu_config cut to darknet_micro @56 (C=3), both kernel switches
+    on, SGD. SGD makes the update linear in the gradient (adam's first
+    update is lr * sign(g)); darknet_micro because darknet_tiny @224 at a
+    random init is ill-conditioned: a 1e-6 relative change of its weights
+    moves some of its SGD updates by more than 1e-2 on the CPU alone, where
+    darknet_micro's move by less than 1e-3
+    (tests/test_torch_train.py::test_step_conditioning)."""
+    from keras_object_detection_torch.config import tiny_cpu_config
+
+    cfg = tiny_cpu_config()
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, backbone="darknet_micro",
+                                       image_size=56, bn_mode="fused"),
+        train=dataclasses.replace(cfg.train, use_pallas_loss=True,
+                                  optimizer="sgd"))
+
+
+def phase_train_check(dev) -> None:
+    from keras_object_detection_torch.train import (create_train_state,
+                                                    make_train_step)
+
+    cfg = tiny_train_config()
+    images, boxes, valid = synthetic_batch(4, 56, 8, "cpu")
+    step = make_train_step(cfg)
+    gpu = create_train_state(cfg, torch.Generator().manual_seed(2))
+    cpu = create_train_state(cfg, torch.Generator().manual_seed(2), "cpu")
+    before = {k: v.clone() for k, v in cpu.model.state_dict().items()}
+    gpu, m_gpu = step(gpu, images, boxes, valid, 11)
+    cpu, m_cpu = step(cpu, images, boxes, valid, 11)
+    torch.cuda.synchronize()
+    loss_gpu, loss_cpu = m_gpu["total"].item(), m_cpu["total"].item()
+    loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    stats_err = update_err = 0.0
+    worst = ""
+    for k, after in cpu.model.state_dict().items():
+        got = gpu.model.state_dict()[k].cpu()
+        if "running" in k:
+            stats_err = max(stats_err, ((got - after).abs()
+                                        / (after.abs() + 1.0)).max().item())
+        elif not k.endswith("conv.bias"):  # zero-gradient: BN follows
+            want = after - before[k]
+            err = (torch.linalg.vector_norm(got - before[k] - want)
+                   / torch.linalg.vector_norm(want)).item()
+            if err > update_err:
+                update_err, worst = err, k
+    log(f"[train-check] darknet_micro @56 float32 SGD step, GPU (kernels) vs "
+        f"CPU (plain versions): loss {loss_gpu:.6f} vs {loss_cpu:.6f} (rel "
+        f"{loss_rel:.3e}, tolerance 1e-4), running stats max rel err "
+        f"{stats_err:.3e} (tolerance 1e-4), parameter updates: largest "
+        f"relative error in norm {update_err:.3e} ({worst}; tolerance 1e-2: "
+        f"the update is a discontinuous function of the forward, whose two "
+        f"devices' values differ by about 1e-5, see test_step_conditioning)")
+    if not (loss_rel <= 1e-4 and stats_err <= 1e-4 and update_err <= 1e-2):
+        raise SystemExit("the GPU train step disagrees with the CPU step")
+
+
+def time_steps(state, step, batch, seed: int) -> tuple:
+    """TRAIN_WARMUP steps, then TRAIN_STEPS timed ones, each ended by a
+    synchronize. Returns (host ms per timed step, metrics of the last,
+    kernel launch counts of the timed steps)."""
+    for _ in range(TRAIN_WARMUP):
+        state, metrics = step(state, *batch, seed)
+    torch.cuda.synchronize()
+    reset_kernel_counts()  # the main path: counts at 0 just before
+    times = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, *batch, seed)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, metrics, kernel_counts()  # ... read just after
+
+
+def phase_train(dev, profile_dir) -> dict:
+    from keras_object_detection_torch.ops import bn
+    from keras_object_detection_torch.train import (create_train_state,
+                                                    make_train_step)
+
+    out = {}
+    for kernels in (True, False):
+        name = "kernels" if kernels else "plain"
+        cfg = train_config(kernels)
+        torch.cuda.reset_peak_memory_stats(dev)
+        state = create_train_state(cfg, torch.Generator().manual_seed(0))
+        n_values = sum(v.numel() for v in state.model.state_dict().values())
+        if n_values != 69_681_758:
+            raise SystemExit("the flagship model is not at full width")
+        b = cfg.data.batch_size
+        batch = synthetic_batch(b, cfg.model.image_size,
+                                cfg.data.max_boxes_per_image, dev)
+        step = make_train_step(cfg)
+        times, metrics, counts = time_steps(state, step, batch, seed=1)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        p50 = float(np.median(times))
+        loss = metrics["total"].item()
+        log(f"[train] {name}: voc_full_config {cfg.model.backbone} "
+            f"{cfg.model.image_size}² batch {b} {cfg.train.optimizer}, "
+            f"use_pallas_loss={cfg.train.use_pallas_loss} "
+            f"bn_mode={cfg.model.bn_mode}, {n_values} values")
+        log(f"[train] {name}: step p50 {p50:.3f} ms (min {min(times):.3f}, "
+            f"max {max(times):.3f}), {b / p50 * 1e3:.1f} images/s, peak device "
+            f"memory {peak:.3f} GiB, loss {loss:.4f}")
+        per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
+        log(f"[train] {name}: kernel launches over {TRAIN_STEPS} steps "
+            f"{counts}, dy layout copies {bn.DY_LAYOUT_COPIES} "
+            f"(of {counts['bn_grad_stats']} K3 launches)")
+        want = ({"bn_stats": 25, "bn_grad_stats": 25, "yolo_loss_forward": 1,
+                 "yolo_loss_backward": 1} if kernels else
+                dict.fromkeys(per_step, 0))
+        if per_step != want:
+            raise SystemExit(f"{name} path launched {per_step} per step, "
+                             f"expected {want}")
+        if not np.isfinite(loss):
+            raise SystemExit(f"non-finite loss on the {name} path")
+        out[name] = {"p50_ms": p50, "images_per_s": b / p50 * 1e3,
+                     "peak_gib": peak, "loss": loss, "counts": counts,
+                     "dy_copies": bn.DY_LAYOUT_COPIES}
+        if kernels and profile_dir:
+            profile_train(state, step, batch, profile_dir)
+        del state, step, batch
+        torch.cuda.empty_cache()
+
+    # one step of each path from the same weights and draws
+    losses, stats = {}, {}
+    for kernels in (True, False):
+        cfg = train_config(kernels)
+        state = create_train_state(cfg, torch.Generator().manual_seed(3))
+        batch = synthetic_batch(cfg.data.batch_size, cfg.model.image_size,
+                                cfg.data.max_boxes_per_image, dev)
+        state, metrics = make_train_step(cfg)(state, *batch, 5)
+        losses[kernels] = metrics["total"].item()
+        stats[kernels] = torch.cat([v.reshape(-1) for k, v in
+                                    state.model.state_dict().items()
+                                    if "running" in k])
+        del state, batch
+        torch.cuda.empty_cache()
+    loss_rel = abs(losses[True] - losses[False]) / abs(losses[False])
+    stat_err = ((stats[True] - stats[False]).abs()
+                / (stats[False].abs() + 1e-2)).max().item()
+    log(f"[train] one step from the same state and draws: loss kernels "
+        f"{losses[True]:.5f} vs plain {losses[False]:.5f} (rel {loss_rel:.3e}, "
+        f"tolerance 2e-2), running stats max rel err {stat_err:.3e} "
+        f"(tolerance 1e-2: bf16 activations, the two paths' sums round "
+        f"differently)")
+    if not (loss_rel <= 2e-2 and stat_err <= 1e-2):
+        raise SystemExit("the kernel path's step disagrees with the plain path's")
+    out["compare"] = {"loss_rel": loss_rel, "stats_rel": stat_err}
+    return out
+
+
+def profile_train(state, step, batch, profile_dir: str) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            state, _ = step(state, *batch, 1)
+        torch.cuda.synchronize()
+    trace = os.path.join(profile_dir, "train_b64.json")
+    prof.export_chrome_trace(trace)
+    with open(trace, "rb") as src, gzip.open(trace + ".gz", "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    os.remove(trace)
+    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=25)
+    with open(os.path.join(profile_dir, "train_b64.txt"), "w") as f:
+        f.write(table)
+    log(table)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", default="",
-                        help="write a torch.profiler trace of batch-32 serving here")
+                        help="write torch.profiler traces of batch-32 serving "
+                        "and of 3 flagship train steps here")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -326,8 +771,14 @@ def main() -> int:
     nms = phase_nms(dev)
     phase_check(dev)
     serve = phase_serve(dev, args.profile)
+    loss = phase_loss(dev)
+    bn = phase_bn(dev)
+    phase_train_check(dev)
+    train = phase_train(dev, args.profile)
     k_ms, call_ms, p_ms, bound, bound_by = nms["timing"][(32, 49)]
     k512, _, p512, b512, _ = nms["timing"][(8, 512)]
+    counts = train["kernels"]["counts"]
+    no_library = ("no single PyTorch call computes this function")
     kernels = [{
         "name": "nms", "route": "cuda",
         "source": "keras_object_detection_torch/ops/csrc/nms.cu",
@@ -338,6 +789,39 @@ def main() -> int:
         "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
         "ms_8x512": k512, "plain_ms_8x512": p512, "bound_ms_8x512": b512,
     }]
+    for name, key, line in (("yolo_loss_forward", "forward", 107),
+                            ("yolo_loss_backward", "backward", 149)):
+        lk, lcall, lp, lb, lby = loss["timing"][key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "keras_object_detection_torch/ops/csrc/yolo_loss.cu",
+            "replaces": f"keras_object_detection_tpu/ops/pallas_loss.py:{line}",
+            "checked": True, "launches": counts[name],
+            "max_abs_err": loss[f"{key}_err"], "shape": [3136, 30],
+            "ms": lk, "call_ms": lcall, "plain_ms": lp, "bound_ms": lb,
+            "bound_by": lby, "library_ms": None, "library_note": no_library})
+    tot, big = bn["total"], bn["largest"]
+    for name, key, line, k, p, b_, lib in (
+            ("bn_stats", "stats", 66, "k2", "p2", "b2", "lib2"),
+            ("bn_grad_stats", "grad", 81, "k3", "p3", "b3", None)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "keras_object_detection_torch/ops/csrc/bn_stats.cu",
+            "replaces": f"keras_object_detection_tpu/ops/pallas_bn.py:{line}",
+            "checked": True, "launches": counts[name],
+            "max_abs_err": bn["max_abs"][key], "max_rel_err": bn["max_rel"][key],
+            "shape": "the step's 25 BatchNorm inputs, bf16, batch 64",
+            "ms": tot[k], "plain_ms": tot[p], "bound_ms": tot[b_],
+            "bound_by": "bytes", "library_ms": tot[lib] if lib else None,
+            **({"library_call": "torch.var_mean(x, dim=(0, 2, 3), correction=0)"}
+               if lib else {"library_note": no_library}),
+            "largest_shape": big["shape"], "ms_largest": big[k],
+            "plain_ms_largest": big[p], "bound_ms_largest": big[b_],
+            "library_ms_largest": big[lib] if lib else None})
+    log(f"[train] kernels path p50 {train['kernels']['p50_ms']:.3f} ms, "
+        f"{train['kernels']['images_per_s']:.1f} images/s; plain path p50 "
+        f"{train['plain']['p50_ms']:.3f} ms, "
+        f"{train['plain']['images_per_s']:.1f} images/s")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -4,7 +4,8 @@ the port never imports the JAX package. A ``config.json`` written next to a
 JAX checkpoint loads here unchanged.
 
 Field meanings are documented at the JAX package's definitions; the comments
-here only mark what this port implements so far.
+here only mark what this port implements so far. ``check_ported`` raises on a
+switch whose value the port does not implement yet, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -59,6 +60,7 @@ class ModelConfig:
     head_dense_units: int = 4960
     head_batchnorm: bool = True
     activation: str = "relu"  # or "leaky_relu" = LeakyReLU(0.1)
+    # "flax" (plain torch) | "fused" (the hand-written BN-statistics kernels)
     bn_mode: str = "flax"
     dropout_rate: float = 0.5
     remat: bool = False
@@ -129,6 +131,7 @@ class ScheduleConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     epochs: int = 1000
+    # The port trains with adam | nadam | sgd so far.
     optimizer: str = "nadam"
     schedule: ScheduleConfig = dataclasses.field(default_factory=ScheduleConfig)
     checkpoint_dir: str = "checkpoints"
@@ -141,7 +144,9 @@ class TrainConfig:
     lambda_coord: float = 5.0
     lambda_noobj: float = 0.5
     noobj_mode: str = "selected"
+    # True: the fused loss with its hand-written forward/backward kernels
     use_pallas_loss: bool = False
+    # The port implements "mse" so far.
     box_loss_mode: str = "mse"
     ignore_threshold: Optional[float] = None
     obj_target: str = "one"
@@ -224,6 +229,63 @@ class Config:
             mesh=build(MeshConfig, d.get("mesh", {})),
             eval=build(EvalConfig, d.get("eval", {})),
         )
+
+
+# switch value -> the ROADMAP item that ports it
+_BN_MODES_TO_PORT = {"mxu": "1.9"}
+_OPTIMIZERS_TO_PORT = {"adamw": "1.7", "sgdw": "1.7"}
+_BOX_LOSSES_TO_PORT = {"diou": "1.16", "ciou": "1.16", "alpha_iou": "1.16"}
+
+
+def check_bn_mode(bn_mode: str) -> None:
+    """``flax`` and ``fused`` are ported; ``mxu`` and ``flax@N`` raise."""
+    if bn_mode in ("flax", "fused"):
+        return
+    if bn_mode in _BN_MODES_TO_PORT or bn_mode.startswith("flax@"):
+        raise NotImplementedError(
+            f"bn_mode {bn_mode!r} is not ported yet (ROADMAP 1.9)")
+    raise ValueError(f"unknown bn_mode {bn_mode!r}; options: flax, fused")
+
+
+def check_ported(config: "Config", training: bool = False) -> None:
+    """Raise on a switch of ``config`` that the port does not implement yet
+    (``NotImplementedError`` naming its ROADMAP item) or that is unknown
+    (``ValueError``). ``training`` adds the train step's switches."""
+    m, d, t = config.model, config.data, config.train
+    check_bn_mode(m.bn_mode)
+    if not training:
+        return
+    if t.optimizer in _OPTIMIZERS_TO_PORT:
+        raise NotImplementedError(
+            f"optimizer {t.optimizer!r} is not ported yet (ROADMAP "
+            f"{_OPTIMIZERS_TO_PORT[t.optimizer]})")
+    if t.optimizer not in ("adam", "nadam", "sgd"):
+        raise ValueError(f"unknown optimizer {t.optimizer!r}; options: "
+                         "adam, nadam, sgd")
+    if t.box_loss_mode in _BOX_LOSSES_TO_PORT:
+        raise NotImplementedError(
+            f"box_loss_mode {t.box_loss_mode!r} is not ported yet (ROADMAP "
+            f"{_BOX_LOSSES_TO_PORT[t.box_loss_mode]})")
+    if t.box_loss_mode != "mse":
+        raise ValueError(f"unknown box_loss_mode {t.box_loss_mode!r}")
+    if t.noobj_mode not in ("selected", "all"):
+        raise ValueError(f"noobj_mode must be 'selected' or 'all', got "
+                         f"{t.noobj_mode!r}")
+    if m.remat:
+        # a recomputed forward would update the BN running stats twice
+        raise NotImplementedError("remat is not ported yet (ROADMAP 1.7)")
+    if m.freeze_backbone:
+        raise NotImplementedError(
+            "freeze_backbone is not ported yet (ROADMAP 1.7)")
+    for name, on in (("mosaic_prob", d.mosaic_prob > 0),
+                     ("mixup_prob", d.mixup_prob > 0),
+                     ("multiscale_sizes", bool(t.multiscale_sizes))):
+        if on:
+            raise NotImplementedError(
+                f"{name} is not ported yet (ROADMAP 1.12)")
+    if t.ignore_threshold is not None or t.obj_target != "one":
+        raise ValueError("ignore_threshold / obj_target are anchor/fpn-family "
+                         "knobs; the v1 loss has neither")
 
 
 def tiny_cpu_config(data_dir: str = "") -> Config:

@@ -18,6 +18,7 @@ import torch
 
 from keras_object_detection_torch.config import Config
 from keras_object_detection_torch.core.grid import decode_grid
+from keras_object_detection_torch.data.augment import preprocess_eval_batch
 from keras_object_detection_torch.models.yolo import build_model
 from keras_object_detection_torch.ops.cuda_nms import \
     auto_batched_non_max_suppression
@@ -62,7 +63,7 @@ class InferenceModel:
         return torch.as_tensor(images_u8).to(self.device)
 
     def _forward(self, images_u8: torch.Tensor) -> torch.Tensor:
-        return self.model(images_u8.to(torch.float32) / 255.0)
+        return self.model(preprocess_eval_batch(images_u8))
 
     def _decode(self, grid: torch.Tensor) -> torch.Tensor:
         g = self.config.grid

@@ -15,8 +15,10 @@ from keras_object_detection_torch.models.darknet import (
 
 def _darknet(table):
     def build(dtype: torch.dtype, activation: str = "relu", *,
-              generator: torch.Generator) -> DarknetBackbone:
-        return DarknetBackbone(table, activation, dtype, generator=generator)
+              generator: torch.Generator,
+              bn_mode: str = "flax") -> DarknetBackbone:
+        return DarknetBackbone(table, activation, dtype, generator=generator,
+                               bn_mode=bn_mode)
 
     return build
 

@@ -77,7 +77,8 @@ class DarknetBackbone(nn.Module):
     def __init__(self, architecture: Sequence[Any] = ARCHITECTURE_CONFIG,
                  activation: str = "relu", dtype: torch.dtype = torch.float32,
                  in_channels: int = 3, *, generator: torch.Generator,
-                 return_tap: bool = False, return_taps: int = 0):
+                 return_tap: bool = False, return_taps: int = 0,
+                 bn_mode: str = "flax"):
         super().__init__()
         if return_tap or return_taps:
             raise NotImplementedError(
@@ -92,7 +93,8 @@ class DarknetBackbone(nn.Module):
             k, f, s, p = entry
             self.plan.append(len(self.blocks))
             self.blocks.append(ConvBlock(channels, f, k, s, p, activation,
-                                         dtype, generator=generator))
+                                         dtype, generator=generator,
+                                         bn_mode=bn_mode))
             channels = f
 
         for entry in architecture:

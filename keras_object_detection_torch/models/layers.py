@@ -1,5 +1,6 @@
 """Conv building blocks (counterpart of
-``keras_object_detection_tpu/models/layers.py`` ``ConvBlock`` and
+``keras_object_detection_tpu/models/layers.py`` ``ConvBlock``,
+``make_batch_norm`` for the ``flax`` and ``fused`` modes, and
 ``max_pool_2x2``).
 
 Tensors run NCHW (in ``channels_last`` memory where the caller asks for it).
@@ -16,6 +17,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from keras_object_detection_torch.config import check_bn_mode
+from keras_object_detection_torch.ops.bn import fused_bn_train
+
 
 def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     """(low, high) zero padding of XLA's ``"SAME"``: the output has
@@ -27,31 +31,57 @@ def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm in the arithmetic of the installed flax's
-    ``_normalize``: ``y = (x.float() - mean) * (rsqrt(var + eps) * scale)
-    + bias``, all in float32, cast to the input dtype once at the end.
+    """BatchNorm in the arithmetic of the installed flax
+    (``flax.linen.normalization``): float32 statistics, the normalise
+    ``y = (x.float() - mean) * (rsqrt(var + eps) * scale) + bias`` in float32
+    and one cast to the input dtype at the end.
 
-    Training-mode statistics, and their running update (flax's biased
-    variance, not ``nn.BatchNorm2d``'s unbiased one), belong to the training
-    slice (ROADMAP 1.7)."""
+    In eval mode it normalises with the running statistics. In training
+    mode it normalises with the batch's, computed by ``bn_mode``:
 
-    def __init__(self, features: int, eps: float = 1e-3):
+    - ``"flax"``: plain torch autograd; ``mean = E[x]`` and the fast
+      variance ``var = max(0, E[x^2] - E[x]^2)``;
+    - ``"fused"``: ``ops.bn.FusedBNTrain``, the hand-written statistics
+      kernels on the GPU.
+
+    Both then update the running statistics as flax does, without gradient:
+    ``r = momentum * r + (1 - momentum) * batch_stat`` with the biased
+    variance (not ``nn.BatchNorm2d``'s unbiased one)."""
+
+    momentum = 0.99  # Keras's BN momentum, as the JAX ConvBlock sets it
+
+    def __init__(self, features: int, eps: float = 1e-3, bn_mode: str = "flax"):
         super().__init__()
+        check_bn_mode(bn_mode)
         self.eps = eps
+        self.bn_mode = bn_mode
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "training-mode BatchNorm is not ported yet (ROADMAP 1.7); "
-                "call .eval() for inference")
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean[:, None, None]) * mul[:, None, None]
+    def _normalize(self, x, mean, var):
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x.float() - mean[:, None, None]) * mul[:, None, None]
         y = y + self.bias[:, None, None]
         return y.to(x.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return self._normalize(x, self.running_mean, self.running_var)
+        if self.bn_mode == "fused":
+            y, mean, var = fused_bn_train(x, self.weight, self.bias, self.eps)
+        else:
+            xf = x.float()
+            mean = xf.mean(dim=(0, 2, 3))
+            mean2 = (xf * xf).mean(dim=(0, 2, 3))
+            var = torch.maximum(mean2 - mean * mean, torch.zeros_like(mean))
+            y = self._normalize(x, mean, var)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        return y
 
 
 class Conv2d(nn.Module):
@@ -88,7 +118,7 @@ class ConvBlock(nn.Module):
                  strides: int = 1, padding: Union[int, str] = 0,
                  activation: str = "relu",
                  dtype: torch.dtype = torch.float32, *,
-                 generator: torch.Generator):
+                 generator: torch.Generator, bn_mode: str = "flax"):
         super().__init__()
         if activation not in ("relu", "leaky_relu"):
             raise ValueError(f"unknown activation {activation!r}")
@@ -100,7 +130,7 @@ class ConvBlock(nn.Module):
         self.activation = activation
         self.dtype = dtype
         self.conv = Conv2d(in_channels, filters, kernel_size, generator)
-        self.bn = BatchNorm(filters)
+        self.bn = BatchNorm(filters, bn_mode=bn_mode)
 
     def forward(self, x: torch.Tensor,
                 strides: Optional[int] = None) -> torch.Tensor:

@@ -33,11 +33,12 @@ class ConvHead(nn.Module):
 
     def __init__(self, in_channels: int, cell_depth: int, grid: int = 7,
                  dtype: torch.dtype = torch.float32, *,
-                 generator: torch.Generator):
+                 generator: torch.Generator, bn_mode: str = "flax"):
         super().__init__()
         self.grid = grid
         self.block = ConvBlock(in_channels, 1024, 3, padding="SAME",
-                               dtype=dtype, generator=generator)
+                               dtype=dtype, generator=generator,
+                               bn_mode=bn_mode)
         self.conv = Conv2d(1024, cell_depth, 1, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -52,14 +53,16 @@ class YoloV1(nn.Module):
     def __init__(self, backbone: str = "darknet24", grid: int = 7,
                  num_classes: int = 20, num_boxes: int = 2,
                  compute_dtype: torch.dtype = torch.float32,
-                 activation: str = "relu", *, generator: torch.Generator):
+                 activation: str = "relu", *, generator: torch.Generator,
+                 bn_mode: str = "flax"):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.backbone = BACKBONES[backbone](compute_dtype, activation,
-                                            generator=generator)
+                                            generator=generator,
+                                            bn_mode=bn_mode)
         self.head = ConvHead(self.backbone.out_channels,
                              num_classes + 5 * num_boxes, grid, compute_dtype,
-                             generator=generator)
+                             generator=generator, bn_mode=bn_mode)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         # NHWC -> NCHW view: its strides are channels_last, which the convs keep
@@ -71,7 +74,8 @@ class YoloV1(nn.Module):
 
 def build_model(config: Config,
                 generator: Optional[torch.Generator] = None) -> YoloV1:
-    """Build the model of ``config`` on the CPU in eval mode, its weights
+    """Build the model of ``config`` on the CPU in eval mode (``.train()``
+    for training-mode BatchNorm, by ``config.model.bn_mode``), its weights
     drawn from ``generator`` (default: seeded with ``config.train.seed``).
     Move it with ``.to(device)``."""
     m, g = config.model, config.grid
@@ -81,13 +85,11 @@ def build_model(config: Config,
             f"(ROADMAP {_HEADS_TO_PORT.get(m.head, '1.9')})")
     if m.passthrough:
         raise NotImplementedError("passthrough is not ported yet (ROADMAP 1.10)")
-    if m.bn_mode != "flax":
-        raise NotImplementedError(
-            f"bn_mode {m.bn_mode!r} is not ported yet (ROADMAP 1.9)")
     if m.compute_dtype not in _DTYPES:
         raise ValueError(f"unknown compute_dtype {m.compute_dtype!r}")
     if generator is None:
         generator = torch.Generator().manual_seed(config.train.seed)
     model = YoloV1(m.backbone, g.grid, g.num_classes, g.num_boxes,
-                   _DTYPES[m.compute_dtype], m.activation, generator=generator)
+                   _DTYPES[m.compute_dtype], m.activation, generator=generator,
+                   bn_mode=m.bn_mode)
     return model.eval()

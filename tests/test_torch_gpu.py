@@ -1,6 +1,7 @@
-"""Tests of the PyTorch port that need an NVIDIA GPU: the CUDA NMS kernel
-has no CPU mode. They skip without a card. This file imports neither JAX nor
-the JAX package, so on a machine without JAX it runs alone:
+"""Tests of the PyTorch port that need an NVIDIA GPU: the CUDA kernels (NMS,
+the fused loss forward and backward, the BN statistics forward and backward)
+have no CPU mode. They skip without a card. This file imports neither JAX
+nor the JAX package, so on a machine without JAX it runs alone:
 
     python -m pytest --noconftest tests/test_torch_gpu.py -q -m gpu
 """
@@ -12,8 +13,12 @@ import torch
 from keras_object_detection_torch.config import tiny_cpu_config
 from keras_object_detection_torch.eval import InferenceModel
 from keras_object_detection_torch.models import build_model
-from keras_object_detection_torch.ops import cuda_nms
+import dataclasses
+
+from keras_object_detection_torch.ops import bn, cuda_nms, yolo_loss
 from keras_object_detection_torch.ops.nms import batched_non_max_suppression
+from keras_object_detection_torch.train import (create_train_state,
+                                                make_train_step)
 
 pytestmark = pytest.mark.gpu
 
@@ -21,7 +26,7 @@ pytestmark = pytest.mark.gpu
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the NMS kernel is CUDA only")
+        pytest.skip("needs an NVIDIA GPU: the kernels are CUDA only")
     return torch.device("cuda")
 
 
@@ -84,3 +89,134 @@ def test_serving_on_the_gpu_goes_through_the_kernel(cuda):
         model.predict_decoded(images))
     assert torch.equal(got_valid, want_valid)
     assert torch.equal(got_rows, want_rows)
+
+
+def loss_rows(seed, n, c=20, b=2):
+    rng = np.random.RandomState(seed)
+    d = c + 5 * b
+    t = np.zeros((n, d), np.float32)
+    obj = rng.uniform(size=n) < 0.3
+    t[np.arange(n), rng.randint(c, size=n)] = obj
+    t[:, c] = obj
+    t[:, c + 1:c + 5] = rng.uniform([0, 0, 0.02, 0.02], [1, 1, 0.6, 0.6],
+                                    (n, 4)) * obj[:, None]
+    p = rng.uniform(-0.3, 1.0, (n, d)).astype(np.float32)
+    return t, p
+
+
+@pytest.mark.parametrize("n,c,b", [(64 * 49, 20, 2), (2 * 49, 5, 3), (1, 3, 2)])
+@pytest.mark.parametrize("noobj_mode", ["selected", "all"])
+def test_loss_kernels_match_plain_versions(cuda, n, c, b, noobj_mode):
+    t, p = (torch.from_numpy(x).to(cuda) for x in loss_rows(n, n, c, b))
+    g = torch.tensor(0.75, device=cuda)
+    before = (yolo_loss.FORWARD_LAUNCHES, yolo_loss.BACKWARD_LAUNCHES)
+    got = yolo_loss.cuda_yolo_v1_loss_forward(t, p, c, b, noobj_mode=noobj_mode)
+    dp = yolo_loss.cuda_yolo_v1_loss_backward(t, p, g, c, b,
+                                              noobj_mode=noobj_mode)
+    assert (yolo_loss.FORWARD_LAUNCHES, yolo_loss.BACKWARD_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    want = yolo_loss.yolo_v1_loss_forward_plain(t, p, c, b,
+                                                noobj_mode=noobj_mode)
+    want_dp = yolo_loss.yolo_v1_loss_backward_plain(t, p, g, c, b,
+                                                    noobj_mode=noobj_mode)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    # the same operations in the same order, no FMA contraction
+    torch.testing.assert_close(dp, want_dp, rtol=1e-6, atol=1e-7)
+
+
+def test_fused_loss_on_the_gpu_goes_through_the_kernels(cuda):
+    t, p = (torch.from_numpy(x).to(cuda).reshape(2, 7, 7, 30)
+            for x in loss_rows(9, 98))
+    p.requires_grad_(True)
+    before = (yolo_loss.FORWARD_LAUNCHES, yolo_loss.BACKWARD_LAUNCHES)
+    yolo_loss.fused_yolo_v1_loss(t, p, 20).backward()
+    assert (yolo_loss.FORWARD_LAUNCHES, yolo_loss.BACKWARD_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    cpu = p.detach().cpu().requires_grad_(True)
+    yolo_loss.fused_yolo_v1_loss(t.cpu(), cpu, 20).backward()
+    torch.testing.assert_close(p.grad.cpu(), cpu.grad, rtol=1e-5, atol=1e-6)
+
+
+BN_SHAPES = [(64, 64, 56, 56), (8, 192, 28, 28), (3, 24, 7, 7), (5, 32, 13, 11),
+             (2, 1024, 7, 7), (7, 20, 5, 3)]
+
+
+@pytest.mark.parametrize("shape", BN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bn_kernels_match_plain_versions(cuda, shape, dtype):
+    gen = torch.Generator().manual_seed(1)
+    x = (torch.randn(shape, generator=gen) * 2 + 0.5).to(cuda, dtype)
+    dy = torch.randn(shape, generator=gen).to(cuda, dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    dy = dy.contiguous(memory_format=torch.channels_last)
+    before = (bn.STATS_LAUNCHES, bn.GRAD_STATS_LAUNCHES)
+    m = x.numel() // shape[1]
+    got = bn.cuda_bn_stats_sums(x)
+    mean = got[0] / m
+    rstd = torch.rsqrt(torch.clamp_min(got[1] / m - mean * mean, 0.0) + 1e-3)
+    got_g = bn.cuda_bn_grad_sums(dy, x, mean, rstd)
+    assert (bn.STATS_LAUNCHES, bn.GRAD_STATS_LAUNCHES) == (before[0] + 1,
+                                                           before[1] + 1)
+    want = bn.bn_stats_sums_plain(x)
+    want_g = bn.bn_grad_sums_plain(dy, x, mean, rstd)
+    scale = want.abs().amax(dim=1, keepdim=True) + 1
+    torch.testing.assert_close(got / scale, want / scale, rtol=1e-5, atol=1e-5)
+    scale = want_g.abs().amax(dim=1, keepdim=True) + 1
+    torch.testing.assert_close(got_g / scale, want_g / scale, rtol=1e-5,
+                               atol=1e-5)
+    again = bn.cuda_bn_stats_sums(x)
+    assert torch.equal(again, got)  # a fixed summation order
+
+
+def test_bn_kernels_reject_other_layouts(cuda):
+    x = torch.randn(2, 16, 5, 5, device=cuda)  # NCHW-contiguous
+    with pytest.raises(ValueError, match="channels_last"):
+        bn.cuda_bn_stats_sums(x)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        bn.cuda_bn_stats_sums(x.half().contiguous(
+            memory_format=torch.channels_last))
+
+
+def test_train_step_on_the_gpu_goes_through_the_kernels(cuda):
+    """darknet_micro @56: 4 backbone ConvBlocks + the head's, so 5 launches
+    of each BN kernel and one of each loss kernel per step; the step agrees
+    with the same step on the CPU (float32, TF32 off) from the same weights
+    and draws. SGD keeps the update linear in the gradient, and
+    darknet_micro is well conditioned where darknet_tiny @224 at a random
+    init is not (see chip_smoke.tiny_train_config)."""
+    cfg = tiny_cpu_config()
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, backbone="darknet_micro",
+                                       image_size=56, bn_mode="fused"),
+        train=dataclasses.replace(cfg.train, use_pallas_loss=True,
+                                  optimizer="sgd"))
+    rng = np.random.RandomState(3)
+    images = rng.randint(0, 256, (4, 56, 56, 3), np.uint8)
+    boxes = np.zeros((4, 8, 5), np.float32)
+    boxes[:, :3] = [[0.5, 0.5, 0.3, 0.3, 1], [0.2, 0.3, 0.2, 0.3, 2],
+                    [0.8, 0.7, 0.25, 0.2, 0]]
+    valid = np.zeros((4, 8), bool)
+    valid[:, :3] = True
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        gpu = create_train_state(cfg, torch.Generator().manual_seed(0))
+        cpu = create_train_state(cfg, torch.Generator().manual_seed(0), "cpu")
+        step = make_train_step(cfg)
+
+        def counts():
+            return (bn.STATS_LAUNCHES, bn.GRAD_STATS_LAUNCHES,
+                    yolo_loss.FORWARD_LAUNCHES, yolo_loss.BACKWARD_LAUNCHES)
+
+        before = counts()
+        gpu, m_gpu = step(gpu, images, boxes, valid, 5)
+        torch.cuda.synchronize()
+        assert [a - b for a, b in zip(counts(), before)] == [5, 5, 1, 1]
+        cpu, m_cpu = step(cpu, images, boxes, valid, 5)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    torch.testing.assert_close(m_gpu["total"].cpu(), m_cpu["total"], rtol=1e-4,
+                               atol=1e-4)
+    for (k, a), b in zip(gpu.model.state_dict().items(),
+                         cpu.model.state_dict().values()):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4, msg=k)

@@ -1,5 +1,6 @@
 """The PyTorch port and chip_smoke.py stand alone: they import no JAX, flax,
-optax or orbax, and nothing of the JAX package."""
+optax or orbax, and nothing of the JAX package. With those blocked, the port
+serves and takes a train step on both paths."""
 
 import pathlib
 import re
@@ -23,7 +24,22 @@ from keras_object_detection_torch.config import tiny_cpu_config
 from keras_object_detection_torch.eval import InferenceModel
 from keras_object_detection_torch.models import build_model
 import keras_object_detection_torch.ops._build
+import dataclasses
+from keras_object_detection_torch.train import create_train_state, make_train_step
 cfg = tiny_cpu_config()
+for kernels in (False, True):
+    tc = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, backbone="darknet_micro",
+                                       image_size=56,
+                                       bn_mode="fused" if kernels else "flax"),
+        train=dataclasses.replace(cfg.train, use_pallas_loss=kernels))
+    state = create_train_state(tc, device="cpu")
+    boxes = np.zeros((2, 4, 5), np.float32)
+    boxes[:, 0] = [0.5, 0.5, 0.3, 0.3, 1]
+    state, metrics = make_train_step(tc)(
+        state, np.zeros((2, 56, 56, 3), np.uint8), boxes,
+        np.ones((2, 4), bool), 0)
+    assert torch.isfinite(metrics["total"])
 sd = build_model(cfg, torch.Generator().manual_seed(0)).state_dict()
 images = np.random.RandomState(0).randint(0, 256, (2, 224, 224, 3), np.uint8)
 rows, valid = InferenceModel(cfg, sd, device="cpu").predict(images)

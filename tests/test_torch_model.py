@@ -150,10 +150,39 @@ def test_eval_bn_runs_in_float32_like_installed_flax():
 
 
 def test_training_mode_bn_raises():
-    model = build_model(tconfig.tiny_cpu_config())
-    model.train()
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.7"):
-        model(torch.zeros(1, 224, 224, 3))
+    """Training-mode BatchNorm is ported for bn_mode flax and fused; the
+    modes not ported yet raise, naming their ROADMAP item."""
+    for mode in ("mxu", "flax@4"):
+        cfg = tconfig.tiny_cpu_config()
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, bn_mode=mode))
+        with pytest.raises(NotImplementedError, match="ROADMAP 1.9"):
+            build_model(cfg).train()
+
+
+@pytest.mark.parametrize("bn_mode", ["flax", "fused"])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+def test_training_mode_forward_matches_jax(bn_mode, dtype, tol):
+    """The whole model in training mode: outputs and the updated running
+    statistics of every BatchNorm against the JAX model's."""
+    cfg = _cfg("darknet_micro", 56, dtype)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, bn_mode=bn_mode))
+    jmodel, variables = jax_model_and_variables(cfg, seed=7)
+    images = np.random.RandomState(8).uniform(0, 1, (3, 56, 56, 3)).astype(
+        np.float32)
+    want, updates = jmodel.apply(variables, jnp.asarray(images), train=True,
+                                 mutable=["batch_stats"])
+    model = port_model(cfg, variables).train()
+    got = model(torch.from_numpy(images))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=tol, atol=tol)
+    stats = flax_to_torch(variables["params"],
+                          jax.device_get(updates["batch_stats"]), model)
+    for k, v in model.state_dict().items():
+        if "running" in k:
+            np.testing.assert_allclose(v.numpy(), stats[k].numpy(), rtol=tol,
+                                       atol=tol, err_msg=k)
 
 
 @pytest.mark.parametrize("override,item", [
