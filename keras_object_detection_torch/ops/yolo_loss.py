@@ -4,8 +4,9 @@ step under ``TrainConfig.use_pallas_loss=True``.
 
 ``fused_yolo_v1_loss`` sends a CUDA tensor to the hand-written kernels of
 ``ops/csrc/yolo_loss.cu`` and a CPU tensor to their plain versions here,
-``yolo_v1_loss_forward_plain`` and ``yolo_v1_loss_backward_plain``. Both
-work on the ``(N, C + 5B)`` row view of the grids.
+``yolo_v1_loss_forward_plain`` (the sums of the plain autograd loss,
+``losses/yolo.py``) and ``yolo_v1_loss_backward_plain``. Both work on the
+``(N, C + 5B)`` row view of the grids.
 
 The backward is the analytic gradient of ``_backward_kernel``, not autograd.
 ``y_true`` is a constant (its gradient is None). At ties it follows that
@@ -26,6 +27,8 @@ import functools
 from typing import Dict, List, Tuple
 
 import torch
+
+from keras_object_detection_torch.losses.yolo import yolo_v1_loss_terms
 
 _EPS_IOU = 1e-6
 _EPS_SQRT = 1e-6
@@ -68,7 +71,8 @@ def _split(t: torch.Tensor, p: torch.Tensor, num_classes: int, num_boxes: int):
 
 def _select_best(tbox, slots) -> Tuple[List[torch.Tensor], List[dict]]:
     """One-hot of the responsible slot per row (argmax IoU, strict '>', so
-    ties keep the lower slot) and each slot's IoU parts."""
+    ties keep the lower slot, as ``torch.argmax`` in the forward) and each
+    slot's IoU parts."""
     parts = [_iou_parts(tbox, box) for _, box in slots]
     best = parts[0]["iou"]
     best_idx = torch.zeros_like(best)
@@ -80,45 +84,18 @@ def _select_best(tbox, slots) -> Tuple[List[torch.Tensor], List[dict]]:
     return onehots, parts
 
 
-def yolo_v1_loss_row_terms(t: torch.Tensor, p: torch.Tensor, num_classes: int,
-                           num_boxes: int = 2,
-                           noobj_mode: str = "selected") -> torch.Tensor:
-    """Per-row ``(N, 4)`` terms ``[box (xy + wh), object, no_object,
-    class]`` of the rows ``t``, ``p`` (``(N, C + 5B)`` float32)."""
-    tcls, pcls, obj, tbox, slots = _split(t, p, num_classes, num_boxes)
-    noobj = 1.0 - obj
-    onehots, parts = _select_best(tbox, slots)
-    conf_sel = sum(o * s[0] for o, s in zip(onehots, slots))
-    iou_sel = sum(o * q["iou"] for o, q in zip(onehots, parts))
-    box_sel = [sum(o * s[1][k] for o, s in zip(onehots, slots)) for k in range(4)]
-
-    xy = obj * ((tbox[0] - box_sel[0]) ** 2 + (tbox[1] - box_sel[1]) ** 2)
-    swh_t = [torch.sqrt(tbox[2]), torch.sqrt(tbox[3])]
-    swh_p = [torch.sign(box_sel[2 + k]) * torch.sqrt(torch.abs(box_sel[2 + k])
-                                                     + _EPS_SQRT)
-             for k in range(2)]
-    wh = obj * ((swh_t[0] - swh_p[0]) ** 2 + (swh_t[1] - swh_p[1]) ** 2)
-    objl = obj * (iou_sel - conf_sel) ** 2
-    if noobj_mode == "selected":
-        noobjl = noobj * conf_sel ** 2
-    else:
-        noobjl = noobj * sum(s[0] ** 2 for s in slots)
-    classl = torch.sum(obj[:, None] * (tcls - pcls) ** 2, dim=1)
-    return torch.stack([xy + wh, objl, noobjl, classl], dim=1)
-
-
 def yolo_v1_loss_forward_plain(t: torch.Tensor, p: torch.Tensor,
                                num_classes: int, num_boxes: int = 2,
                                lambda_coord: float = 5.0,
                                lambda_noobj: float = 0.5,
                                noobj_mode: str = "selected") -> torch.Tensor:
     """The 5 sums ``[total, box, object, no_object, class]`` (float32, on
-    the rows' device) of the per-row terms."""
-    sums = yolo_v1_loss_row_terms(t, p, num_classes, num_boxes,
-                                  noobj_mode).sum(dim=0)
-    total = (lambda_coord * sums[0] + sums[1] + lambda_noobj * sums[2]
-             + sums[3])
-    return torch.cat([total[None], sums])
+    the rows' device) of the rows ``t``, ``p``: the plain loss
+    ``losses.yolo.yolo_v1_loss_terms``, whose forward is this one's."""
+    terms = yolo_v1_loss_terms(t, p, num_classes, num_boxes, lambda_coord,
+                               lambda_noobj, noobj_mode)
+    return torch.stack([terms[k] for k in ("total", "box_loss", "object_loss",
+                                           "no_object_loss", "class_loss")])
 
 
 def yolo_v1_loss_backward_plain(t: torch.Tensor, p: torch.Tensor,

@@ -177,46 +177,139 @@ def test_bn_kernels_reject_other_layouts(cuda):
             memory_format=torch.channels_last))
 
 
-def test_train_step_on_the_gpu_goes_through_the_kernels(cuda):
-    """darknet_micro @56: 4 backbone ConvBlocks + the head's, so 5 launches
-    of each BN kernel and one of each loss kernel per step; the step agrees
-    with the same step on the CPU (float32, TF32 off) from the same weights
-    and draws. SGD keeps the update linear in the gradient, and
-    darknet_micro is well conditioned where darknet_tiny @224 at a random
-    init is not (see chip_smoke.tiny_train_config)."""
+def _micro_config():
+    """darknet_micro @56 (4 backbone ConvBlocks + the head's: 5 launches of
+    each BN kernel and one of each loss kernel per step), both kernel
+    switches on, SGD (an update linear in the gradient). darknet_micro is
+    well conditioned where darknet_tiny @224 at a random init is not (see
+    chip_smoke.tiny_train_config)."""
     cfg = tiny_cpu_config()
-    cfg = dataclasses.replace(
+    return dataclasses.replace(
         cfg, model=dataclasses.replace(cfg.model, backbone="darknet_micro",
                                        image_size=56, bn_mode="fused"),
         train=dataclasses.replace(cfg.train, use_pallas_loss=True,
                                   optimizer="sgd"))
-    rng = np.random.RandomState(3)
+
+
+def _micro_batch(seed):
+    rng = np.random.RandomState(seed)
     images = rng.randint(0, 256, (4, 56, 56, 3), np.uint8)
     boxes = np.zeros((4, 8, 5), np.float32)
     boxes[:, :3] = [[0.5, 0.5, 0.3, 0.3, 1], [0.2, 0.3, 0.2, 0.3, 2],
                     [0.8, 0.7, 0.25, 0.2, 0]]
     valid = np.zeros((4, 8), bool)
     valid[:, :3] = True
+    return images, boxes, valid
+
+
+@pytest.fixture
+def no_tf32():
     flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        gpu = create_train_state(cfg, torch.Generator().manual_seed(0))
-        cpu = create_train_state(cfg, torch.Generator().manual_seed(0), "cpu")
-        step = make_train_step(cfg)
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
 
-        def counts():
-            return (bn.STATS_LAUNCHES, bn.GRAD_STATS_LAUNCHES,
-                    yolo_loss.FORWARD_LAUNCHES, yolo_loss.BACKWARD_LAUNCHES)
 
-        before = counts()
-        gpu, m_gpu = step(gpu, images, boxes, valid, 5)
-        torch.cuda.synchronize()
-        assert [a - b for a, b in zip(counts(), before)] == [5, 5, 1, 1]
-        cpu, m_cpu = step(cpu, images, boxes, valid, 5)
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+def _counts():
+    return (bn.STATS_LAUNCHES, bn.GRAD_STATS_LAUNCHES,
+            yolo_loss.FORWARD_LAUNCHES, yolo_loss.BACKWARD_LAUNCHES)
+
+
+def test_train_step_on_the_gpu_goes_through_the_kernels(cuda, no_tf32):
+    """The whole step on the GPU agrees with the same step on the CPU
+    (float32, TF32 off) from the same weights and draws. The augmentation
+    differs by up to ~1e-5 between the devices (the crop windows' exp and
+    sqrt round differently), which can flip a max-pool near-tie and move
+    a window's gradient to its neighbour; at this seed none flips.
+    test_train_gradients_match_the_cpu_on_identical_inputs checks the
+    gradients over several seeds from identical inputs."""
+    cfg = _micro_config()
+    images, boxes, valid = _micro_batch(3)
+    gpu = create_train_state(cfg, torch.Generator().manual_seed(0))
+    cpu = create_train_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    step = make_train_step(cfg)
+    before = _counts()
+    gpu, m_gpu = step(gpu, images, boxes, valid, 5)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_counts(), before)] == [5, 5, 1, 1]
+    cpu, m_cpu = step(cpu, images, boxes, valid, 5)
     torch.testing.assert_close(m_gpu["total"].cpu(), m_cpu["total"], rtol=1e-4,
                                atol=1e-4)
     for (k, a), b in zip(gpu.model.state_dict().items(),
                          cpu.model.state_dict().values()):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4, msg=k)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_whole_train_step_loss_and_stats_match_the_cpu(cuda, no_tf32, seed):
+    """Loss and BN running statistics, continuous in the augmented
+    inputs, agree to 1e-4 after the whole step at every seed."""
+    cfg = _micro_config()
+    images, boxes, valid = _micro_batch(10 + seed)
+    step = make_train_step(cfg)
+    gpu, m_gpu = step(create_train_state(cfg, torch.Generator().manual_seed(seed)),
+                      images, boxes, valid, seed)
+    cpu, m_cpu = step(create_train_state(cfg, torch.Generator().manual_seed(seed),
+                                         "cpu"), images, boxes, valid, seed)
+    torch.testing.assert_close(m_gpu["total"].cpu(), m_cpu["total"], rtol=1e-4,
+                               atol=0)
+    want = cpu.model.state_dict()
+    for k, v in gpu.model.state_dict().items():
+        if "running" in k:
+            torch.testing.assert_close(v.cpu(), want[k], rtol=1e-4, atol=1e-4,
+                                       msg=k)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_train_gradients_match_the_cpu_on_identical_inputs(cuda, no_tf32, seed):
+    """From the same augmented images and grid, the GPU's forward (K2),
+    loss (K4), backward (K5, K3) and running statistics agree with the
+    CPU's plain versions: loss, y_pred and every parameter's gradient in
+    norm to 1e-4 (conv biases, zero up to rounding under a training-mode
+    BatchNorm, left out). The GPU follows the CPU's ReLU and max-pool
+    routing (chip_smoke.routing): at a near-tie the two devices' rounding
+    may pick different elements, which moves a gradient to a neighbour."""
+    from chip_smoke import routing
+    from keras_object_detection_torch.core.grid import encode_grid
+    from keras_object_detection_torch.data.augment import (augment_batch,
+                                                           sample_augment_draws)
+    cfg = _micro_config()
+    g, d, t = cfg.grid, cfg.data, cfg.train
+    images, boxes, valid = (torch.from_numpy(x) for x in _micro_batch(20 + seed))
+    draws = sample_augment_draws(4, torch.Generator().manual_seed(seed),
+                                 tuple(d.color_jitter), tuple(d.crop_scale),
+                                 tuple(d.crop_ratio))
+    x, aboxes, avalid = augment_batch(
+        images, boxes, valid, draws, hflip_prob=d.hflip_prob,
+        color_strengths=tuple(d.color_jitter), crop_ratio=tuple(d.crop_ratio),
+        min_visibility=d.min_visibility, out_size=56)
+    y_true = encode_grid(aboxes, avalid, g.num_classes, g.num_boxes, g.grid)
+    out, route = {}, []
+    for dev in ("cpu", cuda):
+        state = create_train_state(cfg, torch.Generator().manual_seed(seed), dev)
+        before = _counts()
+        with routing(route, replay=dev != "cpu"):
+            y_pred = state.model(x.to(dev))
+        loss = yolo_loss.fused_yolo_v1_loss(y_true.to(dev), y_pred, g.num_classes,
+                                            g.num_boxes, t.lambda_coord,
+                                            t.lambda_noobj, t.noobj_mode)
+        loss.backward()
+        launched = [a - b for a, b in zip(_counts(), before)]
+        out[str(dev)] = (loss.detach().cpu(), y_pred.detach().cpu(),
+                         {k: p.grad.cpu() for k, p in
+                          state.model.named_parameters()},
+                         {k: v.cpu() for k, v in state.model.state_dict().items()
+                          if "running" in k}, launched)
+    (c_loss, c_pred, c_grad, c_stats, c_n), (g_loss, g_pred, g_grad, g_stats,
+                                            g_n) = out["cpu"], out[str(cuda)]
+    assert c_n == [0, 0, 0, 0] and g_n == [5, 5, 1, 1]
+    torch.testing.assert_close(g_loss, c_loss, rtol=1e-4, atol=0)
+    assert ((g_pred - c_pred).abs().max() / c_pred.abs().max()).item() <= 1e-4
+    for k, want in c_grad.items():
+        if k.endswith("conv.bias"):
+            continue
+        err = (torch.linalg.vector_norm(g_grad[k] - want)
+               / torch.linalg.vector_norm(want)).item()
+        assert err <= 1e-4, (k, err)
+    for k, want in c_stats.items():
+        torch.testing.assert_close(g_stats[k], want, rtol=1e-4, atol=1e-4, msg=k)

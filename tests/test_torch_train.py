@@ -267,3 +267,54 @@ def test_step_conditioning():
     up to rounding and is left out."""
     assert _sgd_update_spread("darknet_micro", 56, 4) < 1e-3
     assert _sgd_update_spread("darknet_tiny", 224, 8) > 1e-2
+
+
+def test_routing_replay_removes_a_max_pool_flip():
+    """chip_smoke.routing, which the GPU-vs-CPU gradient checks use: a 1e-7
+    relative change of the input flips one max-pool near-tie of this batch
+    (1 of 652,288 ReLU and max-pool decisions), which moves that window's
+    gradient to a neighbouring pixel and the first conv's weight gradient
+    by over 1e-3 in norm; replaying the first forward's routing brings
+    every gradient back within 1e-5."""
+    from chip_smoke import (routing, routing_differences, synthetic_batch,
+                            tiny_train_config)
+    from keras_object_detection_torch.core.grid import encode_grid
+    from keras_object_detection_torch.data.augment import (augment_batch,
+                                                           sample_augment_draws)
+    from keras_object_detection_torch.ops.yolo_loss import fused_yolo_v1_loss
+    from keras_object_detection_torch.train.loop import step_generator
+
+    cfg = tiny_train_config()
+    g, d, t = cfg.grid, cfg.data, cfg.train
+    images, boxes, valid = synthetic_batch(4, 56, 8, "cpu")
+    draws = sample_augment_draws(4, step_generator(11, 0), tuple(d.color_jitter),
+                                 tuple(d.crop_scale), tuple(d.crop_ratio))
+    x, aboxes, avalid = augment_batch(
+        images, boxes, valid, draws, hflip_prob=d.hflip_prob,
+        color_strengths=tuple(d.color_jitter), crop_ratio=tuple(d.crop_ratio),
+        min_visibility=d.min_visibility, out_size=56)
+    y_true = encode_grid(aboxes, avalid, g.num_classes, g.num_boxes, g.grid)
+    nudged = x * (1 + 1e-7 * torch.randn(
+        x.shape, generator=torch.Generator().manual_seed(5)))
+
+    def grads(images, route, replay):
+        state = create_train_state(cfg, torch.Generator().manual_seed(1),
+                                   device="cpu")
+        with routing(route, replay):
+            y_pred = state.model(images)
+        fused_yolo_v1_loss(y_true, y_pred, g.num_classes, g.num_boxes,
+                           t.lambda_coord, t.lambda_noobj,
+                           t.noobj_mode).backward()
+        return {k: p.grad for k, p in state.model.named_parameters()
+                if not k.endswith("conv.bias")}
+
+    def worst(a, b):
+        return max((torch.linalg.vector_norm(a[k] - b[k])
+                    / torch.linalg.vector_norm(b[k])).item() for k in b)
+
+    route, own = [], []
+    want = grads(x, route, False)
+    flipped = grads(nudged, own, False)
+    assert routing_differences(own, route) == (1, 652288)
+    assert worst(flipped, want) > 1e-3
+    assert worst(grads(nudged, route, True), want) < 1e-5
