@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py                 # from the repository root
     python3 chip_smoke.py --profile DIR   # also torch.profiler traces in DIR
+    python3 chip_smoke.py --parent DIR    # also time DIR's loss kernels (a
+                                          # checkout of another commit)
 
 Phases, each of which fails the run (non-zero exit) when it goes wrong:
 
@@ -21,9 +23,13 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
              predict_decoded() on the card, p50 latency, images/s, peak
              memory and a per-stage breakdown;
 5. loss    - the fused-loss kernels (forward K4, backward K5) against their
-             plain versions at the train step's (64*49, 30) rows, at
-             (2*49, 20) rows with B=3, and at hand-built tie and clip-bound
-             rows, both noobj modes; times and bounds;
+             plain versions at N = 1, 97, 3135, 3136, 3137 and 12544 rows of
+             C20/B2, C5/B3 and hand-built tie and clip-bound rows (C3/B2),
+             both noobj modes: K4 within 1e-6 relative and bit-equal from
+             call to call, K5 bit-equal; offset (unaligned) rows; CUDA-graph
+             replay; blocks (>= 132); times and bounds at the step's
+             3136x30, with --parent in turns with the other checkout's
+             kernels (parent, new, new, parent);
 6. bn      - the BN-statistics kernels (K2, K3) against their plain versions
              at the shape of each of the flagship's 25 BatchNorms at batch
              64, in bf16 and f32, and at odd shapes; times, bounds, and
@@ -48,7 +54,10 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
              parameter's gradient; the gradients against the float32 step,
              from which the kernel path must lie about as far as the plain
              path does (bf16 gradients of the early layers are mostly
-             rounding at a random init).
+             rounding at a random init);
+9. launches - CUDA launches per call of K4 and K5 (1 each) and of the
+             other checkout's, from a torch.profiler trace, after the train
+             phase so that no profiler hook slows the timed steps.
 
 Then one JSON line describing each kernel, one line with the card's name and
 power limit from nvidia-smi, and as the last line
@@ -374,6 +383,64 @@ def tie_rows():
     return t, p
 
 
+LOSS_SIZES = (1, 97, 3135, 3136, 3137, 12544)
+LOSS_KINDS = ("C20 B2", "C5 B3", "ties C3 B2")
+
+
+def loss_case(kind: str, n: int):
+    """(t, p, C, B): ``n`` rows of one of LOSS_KINDS. The tie rows of
+    ``tie_rows`` (C + 5B = 13, an odd width) repeat to fill ``n``."""
+    if kind == "ties C3 B2":
+        t, p = tie_rows()
+        reps = -(-n // len(t))
+        return np.tile(t, (reps, 1))[:n], np.tile(p, (reps, 1))[:n], 3, 2
+    c, b = {"C20 B2": (20, 2), "C5 B3": (5, 3)}[kind]
+    return (*loss_rows(n + 10 * b, n, c, b), c, b)
+
+
+def cuda_launches(fn, tries: int = 3) -> list:
+    """Names of the kernels that one call of ``fn`` runs on the device,
+    from a torch.profiler trace (the kernels of a ctypes library too).
+    Every ``fn`` here launches at least one kernel, so a trace without any
+    device event has lost its events; it is taken again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+        log("[profile] a trace recorded no device event; taking it again")
+    raise SystemExit(f"torch.profiler recorded no device event in {tries} traces")
+
+
+def parent_loss_module(parent: str):
+    """``ops/yolo_loss.py`` of another checkout at ``parent`` (the parent
+    commit's tree), with its kernels built from that checkout's source, to
+    time beside this tree's."""
+    import ctypes
+    import importlib.util
+    import pathlib
+
+    from keras_object_detection_torch.ops import _build
+
+    ops = pathlib.Path(parent) / "keras_object_detection_torch" / "ops"
+    lib_path, _, _ = _build.build("yolo_loss", ops / "csrc")
+    spec = importlib.util.spec_from_file_location("parent_yolo_loss",
+                                                  ops / "yolo_loss.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with unittest.mock.patch.object(_build, "load_library",
+                                    lambda name: ctypes.CDLL(str(lib_path))):
+        mod._library()  # cached with its own argtypes
+    return mod
+
+
 def loss_bound_ms(n: int, c: int, b: int, backward: bool) -> tuple:
     """Least time of one loss kernel: bytes (both row sets read once, the 5
     sums or the gradient rows written once) against float32 operations
@@ -387,59 +454,158 @@ def loss_bound_ms(n: int, c: int, b: int, backward: bool) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_loss(dev) -> dict:
+def offset_view(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` one element into a fresh (aligned) buffer,
+    so that its data pointer is not 16-byte aligned."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view_as(x)
+    view.copy_(x)
+    return view
+
+
+def loss_graph_replays(yl, t, p, g, c: int, b: int) -> bool:
+    """Three forward and backward calls captured in one CUDA graph give the
+    eager results bit for bit on each of two replays (the forward's ticket
+    counter is back at 0 after every launch)."""
+    want = (yl.cuda_yolo_v1_loss_forward(t, p, c, b),
+            yl.cuda_yolo_v1_loss_backward(t, p, g, c, b))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [(yl.cuda_yolo_v1_loss_forward(t, p, c, b),
+                 yl.cuda_yolo_v1_loss_backward(t, p, g, c, b)) for _ in range(3)]
+    same = True
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        same = same and all(torch.equal(f, want[0]) and torch.equal(d, want[1])
+                            for f, d in outs)
+    return same
+
+
+def phase_loss(dev, parent: str = "") -> dict:
+    """The loss kernels against their plain versions at every size of
+    LOSS_SIZES and kind of LOSS_KINDS, both noobj modes; then their blocks,
+    CUDA launches per call, graph replay and times at the step's 3136x30,
+    beside the parent tree's kernels where ``parent`` names one."""
     from keras_object_detection_torch.ops import yolo_loss as yl
 
-    cases = [("64x49 C20 B2", *loss_rows(1, 64 * 49, 20, 2), 20, 2),
-             ("2x49 C5 B3", *loss_rows(2, 2 * 49, 5, 3), 5, 3),
-             ("ties C3 B2", *tie_rows(), 3, 2)]
-    g = torch.tensor(1.0, device=dev)
-    fwd_err = bwd_err = 0.0
-    bit_equal = True
-    for name, t_np, p_np, c, b in cases:
-        t = torch.from_numpy(t_np).to(dev)
-        p = torch.from_numpy(p_np).to(dev)
-        for mode in ("selected", "all"):
-            got = yl.cuda_yolo_v1_loss_forward(t, p, c, b, noobj_mode=mode)
-            want = yl.yolo_v1_loss_forward_plain(t, p, c, b, noobj_mode=mode)
-            dp = yl.cuda_yolo_v1_loss_backward(t, p, g, c, b, noobj_mode=mode)
-            want_dp = yl.yolo_v1_loss_backward_plain(t, p, g, c, b,
-                                                     noobj_mode=mode)
-            torch.cuda.synchronize()
-            rel = ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
-            derr = (dp - want_dp).abs().max().item()
-            same = torch.equal(dp, want_dp)
-            fwd_err = max(fwd_err, (got - want).abs().max().item())
-            bwd_err = max(bwd_err, derr)
-            bit_equal = bit_equal and same
-            log(f"[loss] {name} {mode}: forward max rel err {rel:.3e}, "
-                f"backward bit-equal={same} max abs err {derr:.3e}")
-            if rel > 1e-6:
-                raise SystemExit(f"loss forward kernel disagrees at {name} {mode}")
-            if not same and not torch.allclose(dp, want_dp, rtol=1e-6, atol=1e-6):
-                raise SystemExit(f"loss backward kernel disagrees at {name} {mode}")
-    log("[loss] backward: " + ("bit-equal everywhere (the same operations in "
-                               "the same order, -fmad=false)" if bit_equal else
-                               "within 1e-6 (the last bit differs where torch "
-                               "and nvcc round a library call differently)"))
+    g = torch.tensor(0.75, device=dev)
+    fwd_err = bwd_err = fwd_rel = 0.0
+    for kind in LOSS_KINDS:
+        for n in LOSS_SIZES:
+            t_np, p_np, c, b = loss_case(kind, n)
+            t, p = torch.from_numpy(t_np).to(dev), torch.from_numpy(p_np).to(dev)
+            for mode in ("selected", "all"):
+                got = yl.cuda_yolo_v1_loss_forward(t, p, c, b, noobj_mode=mode)
+                again = yl.cuda_yolo_v1_loss_forward(t, p, c, b, noobj_mode=mode)
+                want = yl.yolo_v1_loss_forward_plain(t, p, c, b, noobj_mode=mode)
+                dp = yl.cuda_yolo_v1_loss_backward(t, p, g, c, b, noobj_mode=mode)
+                want_dp = yl.yolo_v1_loss_backward_plain(t, p, g, c, b,
+                                                         noobj_mode=mode)
+                torch.cuda.synchronize()
+                rel = ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
+                fwd_rel = max(fwd_rel, rel)
+                fwd_err = max(fwd_err, (got - want).abs().max().item())
+                bwd_err = max(bwd_err, (dp - want_dp).abs().max().item())
+                if rel > 1e-6:
+                    raise SystemExit(f"loss forward kernel disagrees at {kind} "
+                                     f"N={n} {mode}: rel err {rel:.3e}")
+                if not torch.equal(got, again):
+                    raise SystemExit(f"loss forward kernel differs from run to "
+                                     f"run at {kind} N={n} {mode}")
+                if not torch.equal(dp, want_dp):
+                    raise SystemExit(f"loss backward kernel is not bit-equal to "
+                                     f"its plain version at {kind} N={n} {mode}")
+    log(f"[loss] {len(LOSS_KINDS)} kinds x N in {LOSS_SIZES} x 2 noobj modes: "
+        f"forward within {fwd_rel:.3e} relative of the plain sums and bit-equal "
+        f"from call to call, backward bit-equal (torch.equal) to its plain "
+        f"version")
 
-    t, p = (torch.from_numpy(x).to(dev) for x in loss_rows(3, 64 * 49, 20, 2))
+    # offset views (the kernels' unaligned copy path) give the same bits
+    t_np, p_np, c, b = loss_case("C20 B2", 3137)
+    t, p = torch.from_numpy(t_np).to(dev), torch.from_numpy(p_np).to(dev)
+    ts, ps = offset_view(t), offset_view(p)
+    same = (torch.equal(yl.cuda_yolo_v1_loss_forward(ts, ps, c, b),
+                        yl.cuda_yolo_v1_loss_forward(t, p, c, b))
+            and torch.equal(yl.cuda_yolo_v1_loss_backward(ts, ps, g, c, b),
+                            yl.cuda_yolo_v1_loss_backward(t, p, g, c, b)))
+    log(f"[loss] rows at data_ptr % 16 == {ts.data_ptr() % 16}: the same bits "
+        f"as aligned rows: {same}")
+    if not same or ts.data_ptr() % 16 == 0:
+        raise SystemExit("the loss kernels' unaligned path gives other bits")
+
+    for n in (97, 3136, 12544):
+        t_np, p_np, c, b = loss_case("C20 B2", n)
+        t, p = torch.from_numpy(t_np).to(dev), torch.from_numpy(p_np).to(dev)
+        replayed = loss_graph_replays(yl, t, p, g, c, b)
+        log(f"[loss] N={n}: a CUDA graph of 3 forward + backward calls replays "
+            f"to the eager results bit for bit: {replayed}")
+        if not replayed:
+            raise SystemExit(f"the loss kernels differ under graph replay at N={n}")
+
+    n = 64 * 49
+    t, p = (torch.from_numpy(x).to(dev) for x in loss_rows(3, n, 20, 2))
+    modules = {"new": yl}
+    if parent:
+        modules["parent"] = parent_loss_module(parent)
+    calls = {tag: {"forward": lambda m=m: m.cuda_yolo_v1_loss_forward(t, p, 20, 2),
+                   "backward": lambda m=m: m.cuda_yolo_v1_loss_backward(
+                       t, p, g, 20, 2)}
+             for tag, m in modules.items()}
     timing = {}
-    for name, kernel, plain, backward in [
-            ("forward", lambda: yl.cuda_yolo_v1_loss_forward(t, p, 20, 2),
-             lambda: yl.yolo_v1_loss_forward_plain(t, p, 20, 2), False),
-            ("backward", lambda: yl.cuda_yolo_v1_loss_backward(t, p, g, 20, 2),
-             lambda: yl.yolo_v1_loss_backward_plain(t, p, g, 20, 2), True)]:
-        k_ms = graph_ms(kernel)
-        call_ms = cuda_ms(kernel, 200)
-        p_ms = cuda_ms(plain, 20)
-        bound, bound_by = loss_bound_ms(64 * 49, 20, 2, backward)
-        timing[name] = (k_ms, call_ms, p_ms, bound, bound_by)
-        log(f"[loss] {name} at 3136x30: kernel {k_ms:.5f} ms on the device "
-            f"({call_ms:.5f} ms per call with launch), plain {p_ms:.4f} ms, "
-            f"bound {bound:.3e} ms ({bound_by}); no single PyTorch call "
-            f"computes this loss, so no library time")
-    return {"forward_err": fwd_err, "backward_err": bwd_err, "timing": timing}
+    for name, backward in (("forward", False), ("backward", True)):
+        blocks = yl.kernel_blocks(n, backward)
+        log(f"[loss] {name} at {n}x30: {blocks} blocks ({n / blocks:g} rows "
+            f"each)")
+        if blocks < 132:
+            raise SystemExit(f"the loss {name} kernel runs {blocks} blocks, "
+                             f"fewer than the H100's 132 SMs")
+        # in turns: parent, new, new, parent (new alone without a parent)
+        order = ["parent", "new", "new", "parent"] if parent else ["new"]
+        runs = {tag: [] for tag in modules}
+        for tag in order:
+            fn = calls[tag][name]
+            # per call: the median of 5 runs of 200, the host being shared
+            runs[tag].append((graph_ms(fn), float(np.median(
+                [cuda_ms(fn, 200) for _ in range(5)]))))
+        p_ms = cuda_ms((lambda: yl.yolo_v1_loss_backward_plain(t, p, g, 20, 2))
+                       if backward else
+                       (lambda: yl.yolo_v1_loss_forward_plain(t, p, 20, 2)), 20)
+        bound, bound_by = loss_bound_ms(n, 20, 2, backward)
+        timing[name] = {
+            tag: {"ms": float(np.mean([r[0] for r in rs])),
+                  "call_ms": float(np.mean([r[1] for r in rs])),
+                  "runs": rs}
+            for tag, rs in runs.items()}
+        timing[name].update(plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
+                            blocks=blocks)
+        for tag, rs in runs.items():
+            log(f"[loss] {name} at {n}x30, {tag} kernels: "
+                + "; ".join(f"{k:.5f} ms on the device ({c_:.5f} per call with "
+                            f"launch)" for k, c_ in rs))
+        log(f"[loss] {name}: plain {p_ms:.4f} ms, bound {bound:.3e} ms "
+            f"({bound_by}); no single PyTorch call computes this loss, so no "
+            f"library time")
+    return {"forward_err": fwd_err, "backward_err": bwd_err, "timing": timing,
+            "calls": calls}
+
+
+def phase_launches(loss: dict) -> None:
+    """CUDA launches per call of each loss kernel (and of the parent's),
+    from a profiler trace, into ``loss["timing"]``. It runs after the train
+    phase: a profiler run leaves tracing hooks that may slow later
+    launches, and the step is timed without them."""
+    for name in ("forward", "backward"):
+        launched = {tag: cuda_launches(fns[name])
+                    for tag, fns in loss["calls"].items()}
+        log(f"[loss] {name}: CUDA launches per call: " + ", ".join(
+            f"{tag} {len(v)} {v}" for tag, v in launched.items()))
+        if len(launched["new"]) != 1:
+            raise SystemExit(f"the loss {name} kernel takes "
+                             f"{len(launched['new'])} CUDA launches a call, not 1")
+        for tag, v in launched.items():
+            loss["timing"][name][tag]["cuda_launches"] = len(v)
 
 
 def flagship_bn_shapes(dev, batch: int = 64) -> list:
@@ -985,6 +1151,9 @@ def main() -> int:
     parser.add_argument("--profile", default="",
                         help="write torch.profiler traces of batch-32 serving "
                         "and of 3 flagship train steps here")
+    parser.add_argument("--parent", default="",
+                        help="a checkout of another commit (the parent's tree) "
+                        "whose loss kernels are timed in turns with these")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1002,10 +1171,11 @@ def main() -> int:
     nms = phase_nms(dev)
     phase_check(dev)
     serve = phase_serve(dev, args.profile)
-    loss = phase_loss(dev)
+    loss = phase_loss(dev, args.parent)
     bn = phase_bn(dev)
     phase_train_check(dev)
     train = phase_train(dev, args.profile)
+    phase_launches(loss)
     k_ms, call_ms, p_ms, bound, bound_by = nms["timing"][(32, 49)]
     k512, _, p512, b512, _ = nms["timing"][(8, 512)]
     counts = train["kernels"]["counts"]
@@ -1022,15 +1192,23 @@ def main() -> int:
     }]
     for name, key, line in (("yolo_loss_forward", "forward", 107),
                             ("yolo_loss_backward", "backward", 149)):
-        lk, lcall, lp, lb, lby = loss["timing"][key]
-        kernels.append({
+        lt = loss["timing"][key]
+        entry = {
             "name": name, "route": "cuda",
             "source": "keras_object_detection_torch/ops/csrc/yolo_loss.cu",
             "replaces": f"keras_object_detection_tpu/ops/pallas_loss.py:{line}",
             "checked": True, "launches": counts[name],
             "max_abs_err": loss[f"{key}_err"], "shape": [3136, 30],
-            "ms": lk, "call_ms": lcall, "plain_ms": lp, "bound_ms": lb,
-            "bound_by": lby, "library_ms": None, "library_note": no_library})
+            "ms": lt["new"]["ms"], "call_ms": lt["new"]["call_ms"],
+            "cuda_launches_per_call": lt["new"]["cuda_launches"],
+            "blocks": lt["blocks"], "plain_ms": lt["plain_ms"],
+            "bound_ms": lt["bound_ms"], "bound_by": lt["bound_by"],
+            "library_ms": None, "library_note": no_library}
+        if "parent" in lt:
+            entry.update(parent_ms=lt["parent"]["ms"],
+                         parent_call_ms=lt["parent"]["call_ms"],
+                         parent_cuda_launches_per_call=lt["parent"]["cuda_launches"])
+        kernels.append(entry)
     tot, big = bn["total"], bn["largest"]
     for name, key, line, k, p, b_, lib, call in (
             ("bn_stats", "stats", 66, "k2", "p2", "b2", "lib2",

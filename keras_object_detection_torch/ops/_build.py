@@ -36,11 +36,11 @@ def _nvcc() -> str:
                        "CUDA toolkit's nvcc on the machine with the GPU")
 
 
-def build(name: str) -> Tuple[pathlib.Path, float, str]:
-    """Compile ``csrc/<name>.cu`` if its hashed library is missing.
+def build(name: str, csrc: pathlib.Path = CSRC) -> Tuple[pathlib.Path, float, str]:
+    """Compile ``<csrc>/<name>.cu`` if its hashed library is missing.
     Returns (library path, build seconds, compiler output); seconds is 0.0
     when the library was already built."""
-    source = CSRC / f"{name}.cu"
+    source = csrc / f"{name}.cu"
     digest = hashlib.sha256(source.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"

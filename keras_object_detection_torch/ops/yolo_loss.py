@@ -17,7 +17,8 @@ kernel's rules, which are neither ``jax.grad``'s nor torch autograd's:
 - a tied corner (``max(t_x1, p_x1)`` with ``t_x1 == p_x1``) routes the whole
   gradient to the prediction (``jax.grad`` and torch: half).
 
-``FORWARD_LAUNCHES`` and ``BACKWARD_LAUNCHES`` count the kernel launches.
+``FORWARD_LAUNCHES`` and ``BACKWARD_LAUNCHES`` count the kernels' calls,
+one CUDA launch each.
 """
 
 from __future__ import annotations
@@ -171,15 +172,44 @@ def _library() -> ctypes.CDLL:
     from keras_object_detection_torch.ops._build import load_library
 
     lib = load_library("yolo_loss")
-    args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    for fn in (lib.kot_loss_forward, lib.kot_loss_backward):
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
-    lib.kot_loss_error_string.argtypes = [ctypes.c_int]
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # n, C, B, lambda_coord, lambda_noobj, noobj_all, stream
+    scalars = [i32, i32, i32, f32, f32, i32, ptr]
+    lib.kot_loss_forward.argtypes = [ptr] * 5 + scalars
+    lib.kot_loss_backward.argtypes = [ptr] * 4 + scalars
+    lib.kot_loss_blocks.argtypes = [i32, i32]
+    lib.kot_loss_error_string.argtypes = [i32]
     lib.kot_loss_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def kernel_blocks(n: int, backward: bool) -> int:
+    """Blocks the loss kernel launches for ``n`` rows, by the library's
+    chunk geometry."""
+    return _library().kot_loss_blocks(n, int(backward))
+
+
+_FORWARD_SCRATCH: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _forward_scratch(lib, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4's per-block partials and its ticket counter on ``device``, made at
+    the first call and kept, so that a CUDA graph captured later replays on
+    the same buffers. The kernel leaves the counter at 0 after each launch.
+    One stream at a time may use them: two forward launches in flight at
+    once on one card would share them."""
+    scratch = _FORWARD_SCRATCH.get(device.index)
+    if scratch is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the loss forward makes its scratch buffers at its "
+                               "first call on a device; make that call before "
+                               "capturing a CUDA graph")
+        scratch = (torch.empty(lib.kot_loss_forward_partials_floats(),
+                               dtype=torch.float32, device=device),
+                   torch.zeros(1, dtype=torch.int32, device=device))
+        torch.cuda.synchronize(device)  # the zero lands before any stream reads it
+        _FORWARD_SCRATCH[device.index] = scratch
+    return scratch
 
 
 def _check_rows(t: torch.Tensor, p: torch.Tensor, num_classes: int,
@@ -197,16 +227,28 @@ def _check_rows(t: torch.Tensor, p: torch.Tensor, num_classes: int,
             raise ValueError(f"the loss kernel takes contiguous rows ({name})")
     if t.shape != p.shape or t.device != p.device:
         raise ValueError("y_true and y_pred differ in shape or device")
-    if not 1 <= num_boxes <= 8:
-        raise ValueError(f"the loss kernel takes 1 to 8 box slots, got {num_boxes}")
     if t.shape[0] < 1:
         raise ValueError("the loss kernel takes at least one row")
 
 
+def _launch(fn, device: torch.device, *args) -> int:
+    """``fn(*args, stream)`` on ``device``'s current stream, switching the
+    current device only where it differs. The stream is the raw handle,
+    since ``torch.cuda.current_stream()`` builds a Stream object each
+    call."""
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(device):
+        return fn(*args, stream)
+
+
 def _raise_on(lib, err: int, what: str) -> None:
+    """A negative code is an input the kernel does not take (ValueError), a
+    positive one a CUDA error (RuntimeError)."""
     if err:
-        raise RuntimeError(f"{what} launch failed: "
-                           + lib.kot_loss_error_string(err).decode())
+        msg = f"{what}: " + lib.kot_loss_error_string(err).decode()
+        raise (ValueError if err < 0 else RuntimeError)(msg)
 
 
 def cuda_yolo_v1_loss_forward(t: torch.Tensor, p: torch.Tensor,
@@ -214,20 +256,17 @@ def cuda_yolo_v1_loss_forward(t: torch.Tensor, p: torch.Tensor,
                               lambda_coord: float = 5.0,
                               lambda_noobj: float = 0.5,
                               noobj_mode: str = "selected") -> torch.Tensor:
-    """K4 on the card: the 5 sums of ``yolo_v1_loss_forward_plain``."""
+    """K4 on the card, one launch: the 5 sums of
+    ``yolo_v1_loss_forward_plain``, the same bits on every call."""
     global FORWARD_LAUNCHES
     _check_rows(t, p, num_classes, num_boxes)
     lib = _library()
-    n = t.shape[0]
-    threads = 256  # KOT_LOSS_THREADS in yolo_loss.cu
-    partials = torch.empty(((n + threads - 1) // threads, 4),
-                           dtype=torch.float32, device=t.device)
+    partials, tickets = _forward_scratch(lib, t.device)
     out = torch.empty(5, dtype=torch.float32, device=t.device)
-    with torch.cuda.device(t.device):
-        err = lib.kot_loss_forward(
-            t.data_ptr(), p.data_ptr(), partials.data_ptr(), out.data_ptr(), n,
-            num_classes, num_boxes, float(lambda_coord), float(lambda_noobj),
-            int(noobj_mode == "all"), torch.cuda.current_stream().cuda_stream)
+    err = _launch(lib.kot_loss_forward, t.device, t.data_ptr(), p.data_ptr(),
+                  partials.data_ptr(), tickets.data_ptr(), out.data_ptr(),
+                  t.shape[0], num_classes, num_boxes, float(lambda_coord),
+                  float(lambda_noobj), int(noobj_mode == "all"))
     _raise_on(lib, err, "loss forward kernel")
     FORWARD_LAUNCHES += 1
     return out
@@ -247,11 +286,10 @@ def cuda_yolo_v1_loss_backward(t: torch.Tensor, p: torch.Tensor,
     g = g.contiguous()
     lib = _library()
     dp = torch.empty_like(p)
-    with torch.cuda.device(t.device):
-        err = lib.kot_loss_backward(
-            t.data_ptr(), p.data_ptr(), g.data_ptr(), dp.data_ptr(), t.shape[0],
-            num_classes, num_boxes, float(lambda_coord), float(lambda_noobj),
-            int(noobj_mode == "all"), torch.cuda.current_stream().cuda_stream)
+    err = _launch(lib.kot_loss_backward, t.device, t.data_ptr(), p.data_ptr(),
+                  g.data_ptr(), dp.data_ptr(), t.shape[0], num_classes,
+                  num_boxes, float(lambda_coord), float(lambda_noobj),
+                  int(noobj_mode == "all"))
     _raise_on(lib, err, "loss backward kernel")
     BACKWARD_LAUNCHES += 1
     return dp

@@ -91,23 +91,27 @@ def test_serving_on_the_gpu_goes_through_the_kernel(cuda):
     assert torch.equal(got_rows, want_rows)
 
 
-def loss_rows(seed, n, c=20, b=2):
-    rng = np.random.RandomState(seed)
-    d = c + 5 * b
-    t = np.zeros((n, d), np.float32)
-    obj = rng.uniform(size=n) < 0.3
-    t[np.arange(n), rng.randint(c, size=n)] = obj
-    t[:, c] = obj
-    t[:, c + 1:c + 5] = rng.uniform([0, 0, 0.02, 0.02], [1, 1, 0.6, 0.6],
-                                    (n, 4)) * obj[:, None]
-    p = rng.uniform(-0.3, 1.0, (n, d)).astype(np.float32)
-    return t, p
+def _loss_tensors(kind, n, device):
+    from chip_smoke import loss_case
+
+    t, p, c, b = loss_case(kind, n)
+    return torch.from_numpy(t).to(device), torch.from_numpy(p).to(device), c, b
 
 
-@pytest.mark.parametrize("n,c,b", [(64 * 49, 20, 2), (2 * 49, 5, 3), (1, 3, 2)])
+LOSS_SIZES = [1, 97, 3135, 3136, 3137, 12544]
+LOSS_KINDS = ["C20 B2", "C5 B3", "ties C3 B2"]
+
+
+@pytest.mark.parametrize("n", LOSS_SIZES)
+@pytest.mark.parametrize("kind", LOSS_KINDS)
 @pytest.mark.parametrize("noobj_mode", ["selected", "all"])
-def test_loss_kernels_match_plain_versions(cuda, n, c, b, noobj_mode):
-    t, p = (torch.from_numpy(x).to(cuda) for x in loss_rows(n, n, c, b))
+def test_loss_kernels_match_plain_versions(cuda, kind, n, noobj_mode):
+    """K4 within 1e-6 relative of its plain sums and the same bits on a
+    second call; K5 bit-equal to its plain version (the same operations in
+    the same order, no FMA contraction). Sizes around the flagship's 3,136
+    rows and batch 256's 12,544, and rows that are not a multiple of the
+    kernels' 16-row chunks."""
+    t, p, c, b = _loss_tensors(kind, n, cuda)
     g = torch.tensor(0.75, device=cuda)
     before = (yolo_loss.FORWARD_LAUNCHES, yolo_loss.BACKWARD_LAUNCHES)
     got = yolo_loss.cuda_yolo_v1_loss_forward(t, p, c, b, noobj_mode=noobj_mode)
@@ -119,14 +123,84 @@ def test_loss_kernels_match_plain_versions(cuda, n, c, b, noobj_mode):
                                                 noobj_mode=noobj_mode)
     want_dp = yolo_loss.yolo_v1_loss_backward_plain(t, p, g, c, b,
                                                     noobj_mode=noobj_mode)
-    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
-    # the same operations in the same order, no FMA contraction
-    torch.testing.assert_close(dp, want_dp, rtol=1e-6, atol=1e-7)
+    assert ((got - want).abs() <= 1e-6 * want.abs()).all(), (got, want)
+    assert torch.equal(dp, want_dp)
+    again = yolo_loss.cuda_yolo_v1_loss_forward(t, p, c, b, noobj_mode=noobj_mode)
+    assert torch.equal(again, got)  # a fixed summation order
+
+
+def test_loss_kernels_fill_the_card_in_one_launch_each(cuda):
+    """At the flagship's 3,136 rows each kernel runs at least one block per
+    SM of the H100 (132), and a call is one CUDA launch."""
+    from chip_smoke import cuda_launches
+
+    t, p, c, b = _loss_tensors("C20 B2", 3136, cuda)
+    g = torch.tensor(1.0, device=cuda)
+    assert yolo_loss.kernel_blocks(3136, backward=False) >= 132
+    assert yolo_loss.kernel_blocks(3136, backward=True) >= 132
+    assert len(cuda_launches(
+        lambda: yolo_loss.cuda_yolo_v1_loss_forward(t, p, c, b))) == 1
+    assert len(cuda_launches(
+        lambda: yolo_loss.cuda_yolo_v1_loss_backward(t, p, g, c, b))) == 1
+
+
+@pytest.mark.parametrize("n", [97, 3137])
+def test_loss_kernels_take_unaligned_rows(cuda, n):
+    """Rows whose data pointer is not 16-byte aligned go through the
+    kernels' one-float-a-lane copy and give the same bits."""
+    from chip_smoke import offset_view
+
+    t, p, c, b = _loss_tensors("ties C3 B2", n, cuda)
+    g = torch.tensor(0.5, device=cuda)
+    ts, ps = offset_view(t), offset_view(p)
+    assert ts.data_ptr() % 16 and ps.data_ptr() % 16
+    assert torch.equal(yolo_loss.cuda_yolo_v1_loss_forward(ts, ps, c, b),
+                       yolo_loss.cuda_yolo_v1_loss_forward(t, p, c, b))
+    assert torch.equal(yolo_loss.cuda_yolo_v1_loss_backward(ts, ps, g, c, b),
+                       yolo_loss.cuda_yolo_v1_loss_backward(t, p, g, c, b))
+
+
+@pytest.mark.parametrize("n", [1, 3136, 12544])
+def test_loss_kernels_replay_in_a_cuda_graph(cuda, n):
+    from chip_smoke import loss_graph_replays
+
+    t, p, c, b = _loss_tensors("C20 B2", n, cuda)
+    g = torch.tensor(0.75, device=cuda)
+    assert loss_graph_replays(yolo_loss, t, p, g, c, b)
+
+
+def _wide(device):
+    """C = 2000, B = 2: 16 rows of it need more shared memory than a block
+    of the H100 gets."""
+    t = torch.zeros(5, 2010, device=device)
+    return t, t.clone(), 2000, 2
+
+
+@pytest.mark.parametrize("bad,match", [
+    (lambda t, p, c, b: (t.double(), p.double(), c, b), "float32"),
+    (lambda t, p, c, b: (t.t().contiguous().t(), p, c, b), "contiguous"),
+    (lambda t, p, c, b: (t[:, :-1].contiguous(), p[:, :-1].contiguous(), c, b),
+     r"\(N, C \+ 5B\)"),
+    (lambda t, p, c, b: (t.cpu(), p.cpu(), c, b), "CUDA"),
+    (lambda t, p, c, b: (t[:, :20].repeat(1, 3), p[:, :20].repeat(1, 3), 15, 9),
+     "B <= 8"),
+    (lambda t, p, c, b: _wide(t.device), "too wide"),
+])
+def test_loss_kernels_reject_what_they_do_not_take(cuda, bad, match):
+    t, p, c, b = _loss_tensors("C20 B2", 97, cuda)
+    t, p, c, b = bad(t, p, c, b)
+    g = torch.tensor(1.0, device=t.device)
+    with pytest.raises(ValueError, match=match):
+        yolo_loss.cuda_yolo_v1_loss_forward(t, p, c, b)
+    with pytest.raises(ValueError, match=match):
+        yolo_loss.cuda_yolo_v1_loss_backward(t, p, g, c, b)
 
 
 def test_fused_loss_on_the_gpu_goes_through_the_kernels(cuda):
+    from chip_smoke import loss_rows
+
     t, p = (torch.from_numpy(x).to(cuda).reshape(2, 7, 7, 30)
-            for x in loss_rows(9, 98))
+            for x in loss_rows(9, 98, 20, 2))
     p.requires_grad_(True)
     before = (yolo_loss.FORWARD_LAUNCHES, yolo_loss.BACKWARD_LAUNCHES)
     yolo_loss.fused_yolo_v1_loss(t, p, 20).backward()

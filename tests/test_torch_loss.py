@@ -6,7 +6,9 @@
 - ``ops.yolo_loss.fused_yolo_v1_loss`` on the CPU (the kernels' plain
   versions) against ``pallas_yolo_v1_loss(interpret=True)``: the forward to
   1e-6 and the backward to 1e-6 against ``jax.grad`` of it, which runs
-  ``_backward_kernel``, including a clip-bound and a corner-tie point.
+  ``_backward_kernel``, including a clip-bound and a corner-tie point, at
+  row counts from 1 to 539 (none a multiple of the CUDA kernels' 16-row
+  chunks; 539 spans two of the Pallas kernel's 512-row blocks).
 
 Three tie conventions meet at those points. The fused backward follows
 ``_backward_kernel`` (the intersection clip passes gradient only strictly
@@ -113,7 +115,8 @@ def test_plain_and_fused_match_reference_goldens(goldens):
 
 
 @pytest.mark.parametrize("noobj_mode", ["selected", "all"])
-@pytest.mark.parametrize("c,b,batch", [(3, 2, 2), (20, 2, 3), (5, 3, 1)])
+@pytest.mark.parametrize("c,b,batch", [(3, 2, 2), (20, 2, 3), (5, 3, 1),
+                                       (20, 2, 11)])
 def test_fused_forward_matches_pallas_kernel(noobj_mode, c, b, batch):
     y_true, y_pred = random_case(b * 100 + c, batch=batch, c=c, b=b)
     _, out = pallas_loss._forward(jnp.asarray(y_true), jnp.asarray(y_pred), c,
@@ -142,11 +145,16 @@ def _pallas_grad(y_true, y_pred, c=3, b=2, noobj_mode="selected"):
 
 @pytest.mark.parametrize("noobj_mode", ["selected", "all"])
 @pytest.mark.parametrize("case", ["random", "random_c20", "b3", "edge_wh",
-                                  "clip", "corner"])
+                                  "clip", "corner", "one_row", "rows_539"])
 def test_fused_backward_follows_backward_kernel(noobj_mode, case):
     c, b = 3, 2
     if case == "random":
         y_true, y_pred = random_case(40)
+    elif case == "one_row":
+        y_true, y_pred = random_case(43, batch=1, s=1, obj_prob=1.0)
+    elif case == "rows_539":  # past one 512-row Pallas block
+        c = 20
+        y_true, y_pred = random_case(44, batch=11, c=20)
     elif case == "random_c20":
         c = 20
         y_true, y_pred = random_case(41, c=20)
