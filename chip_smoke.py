@@ -3,17 +3,26 @@
 
     python3 chip_smoke.py                 # from the repository root
     python3 chip_smoke.py --profile DIR   # also torch.profiler traces in DIR
-    python3 chip_smoke.py --parent DIR    # also time DIR's loss kernels (a
-                                          # checkout of another commit)
+    python3 chip_smoke.py --parent DIR    # also time DIR's NMS and loss
+                                          # kernels (a checkout of another
+                                          # commit)
 
 Phases, each of which fails the run (non-zero exit) when it goes wrong:
 
-1. build   - compile ops/csrc/{nms,yolo_loss,bn_stats}.cu with nvcc for
-             sm_90a, one nvcc each, all started together;
-2. nms     - the NMS kernel against its plain PyTorch version on the card,
-             bit-equal (torch.equal) on rows and masks at every shape the
-             serving path can give it, plus tied and all-filtered inputs;
-             kernel and plain times;
+1. build   - compile ops/csrc/{nms,yolo_loss,bn_stats}.cu (and with
+             --parent the other checkout's nms.cu and yolo_loss.cu) with nvcc
+             for sm_90a, one nvcc each, all started together;
+2. nms     - the NMS kernel (K1) against its plain PyTorch version on the
+             card, bit-equal (torch.equal) on rows and masks on every case of
+             NMS_CASES: the serving shapes, N = 63 ... 1024 around each
+             cluster-size step, batch 64, one class, identical boxes,
+             confidence ties (0.0 against -0.0 too), pairs whose IoU is
+             exactly the threshold or one ulp off at 0.3, 0.5 and 0.7, all
+             rows above and about two an image above the filter; CUDA-graph
+             replay; the graph-node floor (one add on a 1-element tensor);
+             device times and per-call times at 1x49, 32x49 (three
+             densities), 8x512 and 2x1024, with --parent in turns with the
+             other checkout's kernel (parent, new, new, parent);
 3. check   - the small CPU-runnable model on the GPU against the same model
              on the CPU (float32, TF32 off), to 1e-4;
 4. serve   - the flagship voc_full_config (Darknet-24, 448², C=20, bf16)
@@ -55,9 +64,9 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
              from which the kernel path must lie about as far as the plain
              path does (bf16 gradients of the early layers are mostly
              rounding at a random init);
-9. launches - CUDA launches per call of K4 and K5 (1 each) and of the
-             other checkout's, from a torch.profiler trace, after the train
-             phase so that no profiler hook slows the timed steps.
+9. launches - CUDA launches per call of K1, K4 and K5 (1 each) and of
+             the other checkout's, from a torch.profiler trace, after the
+             train phase so that no profiler hook slows the timed steps.
 
 Then one JSON line describing each kernel, one line with the card's name and
 power limit from nvidia-smi, and as the last line
@@ -73,6 +82,7 @@ import contextlib
 import dataclasses
 import gzip
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -88,7 +98,6 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # dense bf16 on the tensor cores
 
-NMS_SHAPES = [(1, 49), (32, 49), (32, 98), (4, 196), (8, 512), (2, 1024)]
 KERNEL_SOURCES = ("nms", "yolo_loss", "bn_stats")
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 
@@ -108,6 +117,144 @@ def nms_rows(seed: int, b: int, n: int, num_classes: int = 20) -> np.ndarray:
     wh = rng.uniform(0.05, 0.4, size=(b, n, 2))
     return np.concatenate([cls[..., None], conf[..., None], xy, wh],
                           axis=-1).astype(np.float32)
+
+
+def density_rows(seed: int, b: int, n: int, candidates: int = 0) -> np.ndarray:
+    """``nms_rows`` with every confidence above the 0.4 filter, or, with
+    ``candidates``, that many rows an image above it (what a trained
+    detector gives) and the rest in [0, 0.39)."""
+    rows = nms_rows(seed, b, n)
+    rng = np.random.RandomState(seed + 1)
+    if not candidates:
+        rows[..., 1] = rng.uniform(0.41, 1.0, (b, n))
+        return rows
+    conf = rng.uniform(0.0, 0.39, (b, n))
+    pick = rng.rand(b, n).argsort(axis=1)[:, :candidates]
+    np.put_along_axis(conf, pick, rng.uniform(0.5, 1.0, (b, candidates)), axis=1)
+    rows[..., 1] = conf
+    return rows
+
+
+def iou_tie_pairs(thr: float, count: int = 2, seed: int = 0) -> np.ndarray:
+    """(3 * count, 2, 4) pairs of [cx, cy, w, h] boxes whose quirk IoU, as
+    the plain version computes it in float32, is exactly float32(thr) (the
+    first ``count``), one ulp below it (the next ``count``) and one ulp above
+    it (the last). Found by stepping the second box's centre through
+    consecutive float32 values around the shift that gives thr."""
+    from keras_object_detection_torch.core.boxes import iou_cxcywh
+
+    t32 = np.float32(thr)
+    targets = (t32, np.nextafter(t32, np.float32(-1)),
+               np.nextafter(t32, np.float32(2)))
+    found = [[] for _ in targets]
+    rng = np.random.RandomState(seed)
+    steps = np.arange(-4096, 4096)
+    for _ in range(200):
+        if all(len(f) >= count for f in found):
+            break
+        a = rng.uniform([0.3, 0.3, 0.1, 0.1], [0.7, 0.7, 0.4, 0.4]).astype(np.float32)
+        # quirk corners (c -+ s) / 2 move by half a centre shift d, so
+        # iou = (w - d/2) / (w + d/2) for boxes of one size
+        shift = 2 * a[2] * (1 - thr) / (1 + thr)
+        start = np.float32(a[0] + shift).view(np.int32)
+        b = np.tile(a, (len(steps), 1))
+        b[:, 0] = (start + steps).astype(np.int32).view(np.float32)
+        iou = iou_cxcywh(torch.from_numpy(np.tile(a, (len(steps), 1))),
+                         torch.from_numpy(b))[:, 0].numpy()
+        for f, target in zip(found, targets):
+            hit = np.flatnonzero(iou == target)
+            if len(hit) and len(f) < count:
+                f.append(np.stack([a, b[hit[len(hit) // 2]]]))
+    if not all(len(f) >= count for f in found):
+        raise RuntimeError(f"no IoU tie pairs found at {thr}")
+    return np.stack([p for f in found for p in f[:count]])
+
+
+def threshold_tie_rows(thr: float, count: int = 2, seed: int = 0) -> np.ndarray:
+    """(2, 6 * count, 6) rows made of ``iou_tie_pairs``: each pair has a
+    class of its own and both rows pass the 0.4 filter, so at threshold thr
+    the lower-confidence row of a pair at or one ulp above thr is
+    suppressed and one ulp below is kept. The second image swaps which box
+    of each pair has the higher confidence."""
+    pairs = iou_tie_pairs(thr, count, seed)
+    images = []
+    for swap in (False, True):
+        rows = []
+        for k, (a, b) in enumerate(pairs):
+            first, second = (b, a) if swap else (a, b)
+            rows.append([k, 0.9 - 0.01 * k, *first])
+            rows.append([k, 0.6 - 0.01 * k, *second])
+        images.append(rows)
+    return np.asarray(images, np.float32)
+
+
+def signed_zero_rows() -> np.ndarray:
+    """(2, 16, 6) rows whose confidences tie, 0.0 against -0.0 among them:
+    distinct boxes of two classes, so the order of tied rows shows in the
+    output rows."""
+    rows = nms_rows(210, 2, 16, num_classes=2)
+    rows[..., 1] = np.float32([0.0, -0.0, 0.0, 0.7, -0.0, 0.7, 0.0, -0.0,
+                               0.5, -0.0, 0.5, 0.0, 0.7, -0.0, 0.0, 0.5])
+    return rows
+
+
+def with_conf(rows: np.ndarray, conf) -> np.ndarray:
+    rows[..., 1] = conf
+    return rows
+
+
+def below_rows(seed: int, b: int, n: int) -> np.ndarray:
+    """Every confidence at or below the 0.4 filter: nothing survives."""
+    rows = nms_rows(seed, b, n)
+    return with_conf(rows, rows[..., 1] * 0.4)
+
+
+def identical_rows(seed: int, b: int, n: int, tied: bool = False) -> np.ndarray:
+    """One box of one class in every row: the first survives, every other
+    candidate is suppressed."""
+    rows = nms_rows(seed, b, n)
+    rows[..., 0] = 3.0
+    rows[..., 2:] = np.float32([0.5, 0.5, 0.3, 0.2])
+    if tied:
+        rows[..., 1] = 0.8
+    return rows
+
+
+NMS_SHAPES = [(1, 49), (32, 49), (32, 98), (4, 196), (8, 512), (2, 1024)]
+NMS_SIZES = (63, 64, 65, 127, 511, 513, 1023, 1024)
+NMS_TIE_THRESHOLDS = (0.3, 0.5, 0.7)
+# name -> () -> (rows, iou_threshold, conf_threshold): every case the NMS
+# kernel is held bit-equal to its plain version on
+NMS_CASES = {
+    **{f"{b}x{n}": (lambda b=b, n=n, s=100 + k: (nms_rows(s, b, n), 0.5, 0.4))
+       for k, (b, n) in enumerate(NMS_SHAPES)},
+    **{f"3x{n}": (lambda n=n: (nms_rows(500 + n, 3, n), 0.5, 0.4))
+       for n in NMS_SIZES},
+    "64x49": lambda: (nms_rows(401, 64, 49), 0.5, 0.4),
+    "tied 4x49": lambda: (with_conf(nms_rows(200, 4, 49), 0.9), 0.5, 0.4),
+    "below 4x98": lambda: (below_rows(201, 4, 98), 0.5, 0.4),
+    "one class 4x196": lambda: (nms_rows(202, 4, 196, num_classes=1), 0.5, 0.4),
+    "one class 2x1024": lambda: (nms_rows(203, 2, 1024, num_classes=1), 0.5, 0.4),
+    "identical boxes 4x49": lambda: (identical_rows(204, 4, 49), 0.5, 0.4),
+    "identical boxes, tied 2x1024": lambda: (identical_rows(205, 2, 1024, True),
+                                             0.5, 0.4),
+    "signed zeros": lambda: (signed_zero_rows(), 0.5, 0.4),
+    "signed zeros as candidates": lambda: (signed_zero_rows(), 0.5, -0.5),
+    **{f"iou tie {t}": (lambda t=t: (threshold_tie_rows(t), t, 0.4))
+       for t in NMS_TIE_THRESHOLDS},
+    "dense 32x49": lambda: (density_rows(301, 32, 49), 0.5, 0.4),
+    "sparse 32x49": lambda: (density_rows(302, 32, 49, candidates=2), 0.5, 0.4),
+}
+# name -> rows of the timed shapes (the serving path's 1x49 and 32x49, the
+# FPN family's 512-candidate sets, the cap), at two densities at 32x49
+NMS_TIMED = {
+    "1x49": lambda: nms_rows(300, 1, 49),
+    "32x49": lambda: nms_rows(300, 32, 49),
+    "8x512": lambda: nms_rows(300, 8, 512),
+    "2x1024": lambda: nms_rows(300, 2, 1024),
+    "dense 32x49": lambda: density_rows(301, 32, 49),
+    "sparse 32x49": lambda: density_rows(302, 32, 49, candidates=2),
+}
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -145,26 +292,39 @@ def graph_ms(fn, reps: int = 50, replays: int = 10) -> float:
     return start.elapsed_time(end) / (reps * replays)
 
 
-def nms_bound_ms(rows: torch.Tensor) -> tuple:
+def nms_bound_ms(rows: torch.Tensor, n2_rank: bool = False) -> tuple:
     """Least time for NMS on these rows: bytes (rows in, rows and mask out)
     over the memory rate against float32 operations over the float32 rate.
-    Operations: 3 per rank comparison (N^2 per image), 17 per IoU of the
+    Operations: 3 per comparison of a sort (N log2 N per image; N^2 with
+    ``n2_rank``, the count of a rank by counting), 17 per IoU of the
     same-class pairs this data has, 9 per row for its corners."""
     b, n, _ = rows.shape
     nbytes = b * n * 6 * 4 * 2 + b * n
     cls = rows[..., 0]
     same = (cls[:, :, None] == cls[:, None, :]).triu(1).sum().item()
-    ops = b * (3 * n * n + 9 * n) + 17 * same
+    compares = n * n if n2_rank else n * max(1, math.ceil(math.log2(n)))
+    ops = b * (3 * compares + 9 * n) + 17 * same
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_build() -> None:
+def phase_build(parent: str = "") -> None:
+    """Every kernel source of this tree, and with ``parent`` the NMS and
+    loss sources of that checkout, one nvcc each, all started together."""
+    import pathlib
+
     from keras_object_detection_torch.ops import _build
 
-    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-        built = list(pool.map(_build.build, KERNEL_SOURCES))
+    jobs = [(name, _build.CSRC) for name in KERNEL_SOURCES]
+    if parent:
+        csrc = pathlib.Path(parent) / "keras_object_detection_torch" / "ops" / "csrc"
+        # a source the parent shares with this tree builds once
+        jobs += [(name, csrc) for name in ("nms", "yolo_loss")
+                 if (csrc / f"{name}.cu").read_bytes()
+                 != (_build.CSRC / f"{name}.cu").read_bytes()]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        built = list(pool.map(lambda job: _build.build(*job), jobs))
     for lib, seconds, output in built:
         log(f"[build] {lib.name}: {seconds:.2f} s")
         for line in output.splitlines():
@@ -172,44 +332,101 @@ def phase_build() -> None:
                 log(f"[build] {line.strip()}")
 
 
-def phase_nms(dev) -> dict:
+def nms_graph_replays(cuda_nms, x: torch.Tensor) -> bool:
+    """Three kernel calls captured in one CUDA graph give the eager result
+    bit for bit on each of two replays."""
+    want = cuda_nms.cuda_batched_non_max_suppression(x)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [cuda_nms.cuda_batched_non_max_suppression(x) for _ in range(3)]
+    same = True
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        same = same and all(torch.equal(r, want[0]) and torch.equal(v, want[1])
+                            for r, v in outs)
+    return same
+
+
+def node_floor_ms() -> float:
+    """Device milliseconds of the smallest graph node: one in-place add on
+    a 1-element tensor, replayed as ``graph_ms`` replays a kernel."""
+    one = torch.zeros(1, device="cuda")
+    return graph_ms(lambda: one.add_(1.0))
+
+
+def phase_nms(dev, parent: str = "") -> dict:
+    """The NMS kernel against its plain version on every case of NMS_CASES;
+    graph replay; the graph-node floor; then times at every shape of
+    NMS_TIMED, beside the parent tree's kernel where ``parent`` names
+    one."""
     from keras_object_detection_torch.ops import cuda_nms
     from keras_object_detection_torch.ops.nms import batched_non_max_suppression
 
-    cases = [(f"{b}x{n}", nms_rows(100 + i, b, n))
-             for i, (b, n) in enumerate(NMS_SHAPES)]
-    tied = nms_rows(200, 4, 49)
-    tied[..., 1] = 0.9
-    below = nms_rows(201, 4, 98)
-    below[..., 1] *= 0.4
-    cases += [("tied 4x49", tied), ("below 4x98", below)]
     max_err = 0.0
-    for name, rows in cases:
+    for name, make in NMS_CASES.items():
+        rows, iou, conf = make()
         x = torch.from_numpy(rows).to(dev)
-        got_rows, got_valid = cuda_nms.cuda_batched_non_max_suppression(x)
-        want_rows, want_valid = batched_non_max_suppression(x)
+        got_rows, got_valid = cuda_nms.cuda_batched_non_max_suppression(x, iou, conf)
+        want_rows, want_valid = batched_non_max_suppression(x, iou, conf)
         torch.cuda.synchronize()
         equal = (torch.equal(got_rows, want_rows)
                  and torch.equal(got_valid, want_valid))
         err = (got_rows - want_rows).abs().max().item()
         max_err = max(max_err, err)
-        log(f"[nms] {name}: bit-equal={equal} kept={int(got_valid.sum())} "
-            f"max_abs_err={err}")
+        log(f"[nms] {name} (iou {iou}, conf {conf}): bit-equal={equal} "
+            f"kept={int(got_valid.sum())} max_abs_err={err}")
         if not equal:
             raise SystemExit(f"NMS kernel disagrees with the plain version at {name}")
+    for name in ("32x49", "8x512", "2x1024"):
+        x = torch.from_numpy(NMS_TIMED[name]()).to(dev)
+        replayed = nms_graph_replays(cuda_nms, x)
+        log(f"[nms] {name}: a CUDA graph of 3 calls replays to the eager "
+            f"result bit for bit: {replayed}")
+        if not replayed:
+            raise SystemExit(f"the NMS kernel differs under graph replay at {name}")
+    floor = node_floor_ms()
+    log(f"[nms] graph-node floor (one add on a 1-element tensor, replayed): "
+        f"{floor:.5f} ms")
 
-    timing = {}
-    for b, n in [(32, 49), (8, 512)]:
-        x = torch.from_numpy(nms_rows(300, b, n)).to(dev)
-        k_ms = graph_ms(lambda: cuda_nms.cuda_batched_non_max_suppression(x))
-        call_ms = cuda_ms(lambda: cuda_nms.cuda_batched_non_max_suppression(x), 200)
-        p_ms = cuda_ms(lambda: batched_non_max_suppression(x), 5, warmup=1)
+    modules = {"new": cuda_nms}
+    if parent:
+        modules["parent"] = parent_module(parent, "cuda_nms", "nms")
+    timing, calls = {}, {}
+    for name, make in NMS_TIMED.items():
+        x = torch.from_numpy(make()).to(dev)
+        b, n, _ = x.shape
+        fns = {tag: (lambda m=m: m.cuda_batched_non_max_suppression(x))
+               for tag, m in modules.items()}
+        if name == "32x49":
+            calls = fns
+        # in turns: parent, new, new, parent (new alone without a parent)
+        runs = {tag: [] for tag in modules}
+        for tag in ["parent", "new", "new", "parent"] if parent else ["new"]:
+            runs[tag].append((graph_ms(fns[tag]), float(np.median(
+                [cuda_ms(fns[tag], 200) for _ in range(5)]))))
+        p_ms = cuda_ms(lambda: batched_non_max_suppression(x), 3, warmup=1)
         bound, bound_by = nms_bound_ms(x)
-        timing[(b, n)] = (k_ms, call_ms, p_ms, bound, bound_by)
-        log(f"[nms] {b}x{n}: kernel {k_ms:.5f} ms on the device "
-            f"({call_ms:.5f} ms per call with launch), plain {p_ms:.3f} ms, "
-            f"bound {bound:.3e} ms ({bound_by})")
-    return {"max_abs_err": max_err, "timing": timing}
+        bound_n2, _ = nms_bound_ms(x, n2_rank=True)
+        shape = cuda_nms.kernel_shape(n)
+        t = {tag: {"ms": float(np.mean([r[0] for r in rs])),
+                   "call_ms": float(np.mean([r[1] for r in rs])), "runs": rs}
+             for tag, rs in runs.items()}
+        t.update(plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
+                 bound_ms_n2_rank=bound_n2,
+                 grid=b * shape["cluster"], **shape)
+        timing[name] = t
+        for tag, rs in runs.items():
+            log(f"[nms] {name}, {tag} kernel: " + "; ".join(
+                f"{k:.5f} ms on the device ({c:.5f} per call with launch)"
+                for k, c in rs))
+        log(f"[nms] {name}: {t['grid']} CTAs in clusters of {shape['cluster']}, "
+            f"{shape['threads']} threads, {shape['smem_bytes']} B shared; plain "
+            f"{p_ms:.3f} ms, bound {bound:.3e} ms ({bound_by}; {bound_n2:.3e} "
+            f"counting N^2 rank compares)")
+    return {"max_abs_err": max_err, "timing": timing, "floor_ms": floor,
+            "calls": calls}
 
 
 def phase_check(dev) -> None:
@@ -402,7 +619,9 @@ def cuda_launches(fn, tries: int = 3) -> list:
     """Names of the kernels that one call of ``fn`` runs on the device,
     from a torch.profiler trace (the kernels of a ctypes library too).
     Every ``fn`` here launches at least one kernel, so a trace without any
-    device event has lost its events; it is taken again."""
+    device event has lost its events; it is taken again. A process whose
+    traces keep losing them (seen in long pytest runs) counts the kernel
+    nodes of a captured CUDA graph instead."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -416,13 +635,43 @@ def cuda_launches(fn, tries: int = 3) -> list:
         if names:
             return names
         log("[profile] a trace recorded no device event; taking it again")
-    raise SystemExit(f"torch.profiler recorded no device event in {tries} traces")
+    count = graph_kernel_launches(fn)
+    log(f"[profile] no device event in {tries} traces; a captured CUDA graph "
+        f"of one call holds {count} kernel nodes")
+    return [f"kernel node {k} of a captured graph" for k in range(count)]
 
 
-def parent_loss_module(parent: str):
-    """``ops/yolo_loss.py`` of another checkout at ``parent`` (the parent
-    commit's tree), with its kernels built from that checkout's source, to
-    time beside this tree's."""
+def graph_kernel_launches(fn) -> int:
+    """Kernel launches of one call of ``fn``, without the profiler: the
+    kernel nodes of a CUDA graph that captures the call, read by libcuda."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    if libcuda.cuGraphGetNodes(handle, None, ctypes.byref(count)):
+        raise SystemExit("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if libcuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)):
+        raise SystemExit("cuGraphGetNodes failed")
+    kind = ctypes.c_int(-1)
+    kernels = 0
+    for node in nodes:
+        if libcuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise SystemExit("cuGraphNodeGetType failed")
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    return kernels
+
+
+def parent_module(parent: str, module: str, library: str):
+    """``ops/<module>.py`` of another checkout at ``parent`` (the parent
+    commit's tree), with its kernels built from that checkout's
+    ``csrc/<library>.cu``, to time beside this tree's."""
     import ctypes
     import importlib.util
     import pathlib
@@ -430,9 +679,9 @@ def parent_loss_module(parent: str):
     from keras_object_detection_torch.ops import _build
 
     ops = pathlib.Path(parent) / "keras_object_detection_torch" / "ops"
-    lib_path, _, _ = _build.build("yolo_loss", ops / "csrc")
-    spec = importlib.util.spec_from_file_location("parent_yolo_loss",
-                                                  ops / "yolo_loss.py")
+    lib_path, _, _ = _build.build(library, ops / "csrc")
+    spec = importlib.util.spec_from_file_location(f"parent_{module}",
+                                                  ops / f"{module}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     with unittest.mock.patch.object(_build, "load_library",
@@ -548,7 +797,7 @@ def phase_loss(dev, parent: str = "") -> dict:
     t, p = (torch.from_numpy(x).to(dev) for x in loss_rows(3, n, 20, 2))
     modules = {"new": yl}
     if parent:
-        modules["parent"] = parent_loss_module(parent)
+        modules["parent"] = parent_module(parent, "yolo_loss", "yolo_loss")
     calls = {tag: {"forward": lambda m=m: m.cuda_yolo_v1_loss_forward(t, p, 20, 2),
                    "backward": lambda m=m: m.cuda_yolo_v1_loss_backward(
                        t, p, g, 20, 2)}
@@ -591,11 +840,18 @@ def phase_loss(dev, parent: str = "") -> dict:
             "calls": calls}
 
 
-def phase_launches(loss: dict) -> None:
-    """CUDA launches per call of each loss kernel (and of the parent's),
-    from a profiler trace, into ``loss["timing"]``. It runs after the train
-    phase: a profiler run leaves tracing hooks that may slow later
-    launches, and the step is timed without them."""
+def phase_launches(loss: dict, nms: dict) -> None:
+    """CUDA launches per call of K1 (at 32x49), K4 and K5 (and of the
+    parent's), from a profiler trace, into ``nms`` and ``loss["timing"]``.
+    It runs after the train phase: a profiler run leaves tracing hooks that
+    may slow later launches, and the step is timed without them."""
+    launched = {tag: cuda_launches(fn) for tag, fn in nms["calls"].items()}
+    log("[nms] CUDA launches per call at 32x49: " + ", ".join(
+        f"{tag} {len(v)} {v}" for tag, v in launched.items()))
+    if len(launched["new"]) != 1:
+        raise SystemExit(f"the NMS kernel takes {len(launched['new'])} CUDA "
+                         f"launches a call, not 1")
+    nms["cuda_launches"] = {tag: len(v) for tag, v in launched.items()}
     for name in ("forward", "backward"):
         launched = {tag: cuda_launches(fns[name])
                     for tag, fns in loss["calls"].items()}
@@ -1153,7 +1409,8 @@ def main() -> int:
                         "and of 3 flagship train steps here")
     parser.add_argument("--parent", default="",
                         help="a checkout of another commit (the parent's tree) "
-                        "whose loss kernels are timed in turns with these")
+                        "whose NMS and loss kernels are timed in turns with "
+                        "these")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1167,29 +1424,51 @@ def main() -> int:
     log(f"[env] torch {torch.__version__} CUDA {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    phase_build()
-    nms = phase_nms(dev)
+    phase_build(args.parent)
+    nms = phase_nms(dev, args.parent)
     phase_check(dev)
     serve = phase_serve(dev, args.profile)
     loss = phase_loss(dev, args.parent)
     bn = phase_bn(dev)
     phase_train_check(dev)
     train = phase_train(dev, args.profile)
-    phase_launches(loss)
-    k_ms, call_ms, p_ms, bound, bound_by = nms["timing"][(32, 49)]
-    k512, _, p512, b512, _ = nms["timing"][(8, 512)]
+    phase_launches(loss, nms)
     counts = train["kernels"]["counts"]
     no_library = ("no single PyTorch call computes this function")
-    kernels = [{
+    nt = nms["timing"]
+    k1 = {
         "name": "nms", "route": "cuda",
         "source": "keras_object_detection_torch/ops/csrc/nms.cu",
         "replaces": "keras_object_detection_tpu/ops/pallas_nms.py:81",
         "tpu": "ops/pallas_nms.py:_nms_kernel", "checked": True,
         "launches": serve["launches"], "max_abs_err": nms["max_abs_err"],
-        "shape": [32, 49, 6], "ms": k_ms, "call_ms": call_ms, "plain_ms": p_ms,
-        "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
-        "ms_8x512": k512, "plain_ms_8x512": p512, "bound_ms_8x512": b512,
-    }]
+        "shape": [32, 49, 6], "ms": nt["32x49"]["new"]["ms"],
+        "call_ms": nt["32x49"]["new"]["call_ms"],
+        "plain_ms": nt["32x49"]["plain_ms"],
+        "bound_ms": nt["32x49"]["bound_ms"], "bound_by": nt["32x49"]["bound_by"],
+        "bound_ms_n2_rank": nt["32x49"]["bound_ms_n2_rank"],
+        "library_ms": None, "library_note": no_library,
+        "cuda_launches_per_call": nms["cuda_launches"]["new"],
+        "floor_ms": nms["floor_ms"],
+        "launch": {name: {k: t[k] for k in ("grid", "cluster", "threads",
+                                             "smem_bytes")}
+                   for name, t in nt.items()},
+    }
+    for name, t in nt.items():
+        if name == "32x49":
+            continue
+        key = name.replace(" ", "_")
+        k1.update({f"ms_{key}": t["new"]["ms"], f"call_ms_{key}": t["new"]["call_ms"],
+                   f"plain_ms_{key}": t["plain_ms"], f"bound_ms_{key}": t["bound_ms"],
+                   f"bound_ms_n2_rank_{key}": t["bound_ms_n2_rank"]})
+    if "parent" in nt["32x49"]:
+        k1.update(parent_ms=nt["32x49"]["parent"]["ms"],
+                  parent_call_ms=nt["32x49"]["parent"]["call_ms"],
+                  parent_cuda_launches_per_call=nms["cuda_launches"]["parent"])
+        for name, t in nt.items():
+            if name != "32x49":
+                k1[f"parent_ms_{name.replace(' ', '_')}"] = t["parent"]["ms"]
+    kernels = [k1]
     for name, key, line in (("yolo_loss_forward", "forward", 107),
                             ("yolo_loss_backward", "backward", 149)):
         lt = loss["timing"][key]

@@ -35,12 +35,24 @@ def _library() -> ctypes.CDLL:
                             ctypes.c_int, ctypes.c_int, ctypes.c_float,
                             ctypes.c_float, ctypes.c_void_p]
     lib.kot_nms.restype = ctypes.c_int
+    for fn in (lib.kot_nms_cluster_size, lib.kot_nms_threads,
+               lib.kot_nms_smem_bytes):
+        fn.argtypes = [ctypes.c_int]
     lib.kot_nms_error_string.argtypes = [ctypes.c_int]
     lib.kot_nms_error_string.restype = ctypes.c_char_p
     if lib.kot_nms_max_n() != MAX_N:
         raise RuntimeError(f"nms.cu caps N at {lib.kot_nms_max_n()}, "
                            f"cuda_nms.MAX_N is {MAX_N}")
     return lib
+
+
+def kernel_shape(n: int) -> dict:
+    """The kernel's launch for ``n`` rows an image: CTAs per image (one
+    thread-block cluster), threads and dynamic shared-memory bytes per CTA."""
+    lib = _library()
+    return {"cluster": lib.kot_nms_cluster_size(n),
+            "threads": lib.kot_nms_threads(n),
+            "smem_bytes": lib.kot_nms_smem_bytes(n)}
 
 
 def cuda_batched_non_max_suppression(
@@ -68,11 +80,16 @@ def cuda_batched_non_max_suppression(
     if b == 0 or n == 0:
         return out_rows, out_valid
     lib = _library()
-    with torch.cuda.device(boxes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.kot_nms(boxes.data_ptr(), out_rows.data_ptr(),
-                          out_valid.data_ptr(), b, n, float(iou_threshold),
-                          float(conf_threshold), stream)
+    args = (boxes.data_ptr(), out_rows.data_ptr(), out_valid.data_ptr(), b, n,
+            float(iou_threshold), float(conf_threshold))
+    # the raw stream handle: torch.cuda.current_stream() builds an object
+    index = boxes.device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch.cuda.current_device():
+        err = lib.kot_nms(*args, stream)
+    else:
+        with torch.cuda.device(boxes.device):
+            err = lib.kot_nms(*args, stream)
     if err:
         raise RuntimeError("NMS kernel launch failed: "
                            + lib.kot_nms_error_string(err).decode())

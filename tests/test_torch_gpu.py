@@ -6,15 +6,16 @@ nor the JAX package, so on a machine without JAX it runs alone:
     python -m pytest --noconftest tests/test_torch_gpu.py -q -m gpu
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import NMS_CASES, NMS_TIMED
 from keras_object_detection_torch.config import tiny_cpu_config
 from keras_object_detection_torch.eval import InferenceModel
 from keras_object_detection_torch.models import build_model
-import dataclasses
-
 from keras_object_detection_torch.ops import bn, cuda_nms, yolo_loss
 from keras_object_detection_torch.ops.nms import batched_non_max_suppression
 from keras_object_detection_torch.train import (create_train_state,
@@ -30,38 +31,22 @@ def cuda():
     return torch.device("cuda")
 
 
-def rows(seed, b, n, num_classes=3, conf=None):
-    rng = np.random.RandomState(seed)
-    centres = rng.uniform(0.1, 0.9, size=(8, 2))
-    cls = rng.randint(0, num_classes, size=(b, n))
-    c = rng.uniform(0, 1, size=(b, n)) if conf is None else np.full((b, n), conf)
-    xy = centres[rng.randint(0, 8, size=(b, n))] + rng.normal(0, 0.03, (b, n, 2))
-    wh = rng.uniform(0.05, 0.35, size=(b, n, 2))
-    return np.concatenate([cls[..., None], c[..., None], xy, wh],
-                          axis=-1).astype(np.float32)
-
-
-CASES = {
-    "1x49": lambda: rows(0, 1, 49),
-    "32x49": lambda: rows(1, 32, 49, num_classes=20),
-    "32x98": lambda: rows(2, 32, 98, num_classes=20),
-    "4x196": lambda: rows(3, 4, 196),
-    "8x512": lambda: rows(4, 8, 512, num_classes=5),
-    "2x1024": lambda: rows(5, 2, 1024),
-    "tied": lambda: rows(6, 4, 49, conf=0.9),
-    "below": lambda: rows(7, 4, 98, conf=0.3),
-}
-
-
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", sorted(NMS_CASES))
 def test_kernel_bit_equal_to_plain_version(cuda, case):
-    x = torch.from_numpy(CASES[case]()).to(cuda)
+    """chip_smoke.NMS_CASES: the serving shapes, N = 63 ... 1024 around each
+    cluster-size step, batch 64, one class, identical boxes, confidence ties
+    with 0.0 against -0.0, pairs whose IoU is exactly the threshold or one
+    ulp off at 0.3, 0.5 and 0.7, both densities. The kernel equals the
+    plain version on the same CUDA input and on the CPU."""
+    rows, iou, conf = NMS_CASES[case]()
+    x = torch.from_numpy(rows).to(cuda)
     before = cuda_nms.LAUNCHES
-    got_rows, got_valid = cuda_nms.cuda_batched_non_max_suppression(x)
-    want_rows, want_valid = batched_non_max_suppression(x)
+    got_rows, got_valid = cuda_nms.cuda_batched_non_max_suppression(x, iou, conf)
     assert cuda_nms.LAUNCHES == before + 1
-    assert torch.equal(got_valid, want_valid)
-    assert torch.equal(got_rows, want_rows)
+    for where in (x, x.cpu()):
+        want_rows, want_valid = batched_non_max_suppression(where, iou, conf)
+        assert torch.equal(got_valid.cpu(), want_valid.cpu())
+        assert torch.equal(got_rows.cpu(), want_rows.cpu())
 
 
 @pytest.mark.parametrize("bad,match", [
@@ -71,9 +56,30 @@ def test_kernel_bit_equal_to_plain_version(cuda, case):
     (lambda x: x[..., :5].contiguous(), r"\(B, N, 6\)"),
 ])
 def test_kernel_rejects_what_it_does_not_take(cuda, bad, match):
-    x = torch.from_numpy(rows(8, 2, 49)).to(cuda)
+    x = torch.from_numpy(NMS_TIMED["32x49"]()[:2]).to(cuda)
     with pytest.raises(ValueError, match=match):
         cuda_nms.cuda_batched_non_max_suppression(bad(x))
+
+
+@pytest.mark.parametrize("case", ["1x49", "32x49", "8x512", "2x1024"])
+def test_kernel_replays_in_a_cuda_graph(cuda, case):
+    from chip_smoke import nms_graph_replays
+
+    x = torch.from_numpy(NMS_TIMED[case]()).to(cuda)
+    assert nms_graph_replays(cuda_nms, x)
+
+
+@pytest.mark.parametrize("n,cluster", [(1, 1), (49, 1), (64, 1), (65, 2),
+                                       (196, 4), (512, 8), (1024, 8)])
+def test_kernel_is_one_cuda_launch_of_a_cluster_per_image(cuda, n, cluster):
+    from chip_smoke import cuda_launches, nms_rows
+
+    shape = cuda_nms.kernel_shape(n)
+    assert shape["cluster"] == cluster
+    assert shape["threads"] >= n and shape["smem_bytes"] <= 227 * 1024
+    x = torch.from_numpy(nms_rows(3, 2, n)).to(cuda)
+    assert len(cuda_launches(
+        lambda: cuda_nms.cuda_batched_non_max_suppression(x))) == 1
 
 
 def test_serving_on_the_gpu_goes_through_the_kernel(cuda):
@@ -142,6 +148,22 @@ def test_loss_kernels_fill_the_card_in_one_launch_each(cuda):
         lambda: yolo_loss.cuda_yolo_v1_loss_forward(t, p, c, b))) == 1
     assert len(cuda_launches(
         lambda: yolo_loss.cuda_yolo_v1_loss_backward(t, p, g, c, b))) == 1
+
+
+def test_a_captured_graph_counts_one_kernel_a_call(cuda):
+    """cuda_launches' count without the profiler (the kernel nodes of a
+    captured CUDA graph) reads two for two torch ops and one for a call of
+    K1, K4 or K5."""
+    from chip_smoke import graph_kernel_launches, nms_rows
+
+    x = torch.from_numpy(nms_rows(3, 2, 512)).to(cuda)
+    t, p, c, b = _loss_tensors("C20 B2", 3136, cuda)
+    g = torch.tensor(1.0, device=cuda)
+    assert graph_kernel_launches(lambda: (x + 1.0) * 2.0) == 2
+    for fn in (lambda: cuda_nms.cuda_batched_non_max_suppression(x),
+               lambda: yolo_loss.cuda_yolo_v1_loss_forward(t, p, c, b),
+               lambda: yolo_loss.cuda_yolo_v1_loss_backward(t, p, g, c, b)):
+        assert graph_kernel_launches(fn) == 1
 
 
 @pytest.mark.parametrize("n", [97, 3137])

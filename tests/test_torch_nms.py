@@ -2,7 +2,10 @@
 its Pallas kernel (run in interpret mode, as tests/test_pallas_nms.py runs
 it), on the same numpy-seeded inputs. Keep sets, their order and the
 suppressed tail are exact. The CUDA kernel is held to the plain version on
-the GPU by the ``gpu`` tests here and by chip_smoke.py."""
+the GPU by tests/test_torch_gpu.py and by chip_smoke.py, on chip_smoke's
+NMS_CASES; the edge cases among them (IoU exactly at the threshold or one
+ulp off, 0.0 against -0.0 confidence ties, one class, identical boxes,
+N = 1024) are held to JAX here."""
 
 import jax
 import jax.numpy as jnp
@@ -10,9 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import NMS_CASES, NMS_TIE_THRESHOLDS, iou_tie_pairs
+from keras_object_detection_tpu.core.boxes import iou_cxcywh as jax_iou
 from keras_object_detection_tpu.ops import nms as jnms
 from keras_object_detection_tpu.ops.pallas_nms import \
     pallas_batched_non_max_suppression
+from keras_object_detection_torch.core.boxes import iou_cxcywh
 from keras_object_detection_torch.ops import cuda_nms
 from keras_object_detection_torch.ops.nms import (batched_non_max_suppression,
                                                   non_max_suppression,
@@ -152,3 +158,69 @@ def test_kernel_wrapper_rejects_cpu_tensors():
             torch.from_numpy(random_rows(0, 1, 49)))
     assert cuda_nms.LAUNCHES == before
 
+
+
+# chip_smoke.NMS_CASES the CUDA kernel must reproduce exactly, held to JAX
+EDGE_CASES = ["iou tie 0.3", "iou tie 0.5", "iou tie 0.7", "signed zeros",
+              "signed zeros as candidates", "one class 4x196",
+              "one class 2x1024", "identical boxes 4x49", "3x1024"]
+
+
+@pytest.mark.parametrize("thr", NMS_TIE_THRESHOLDS)
+def test_iou_tie_pairs_sit_on_the_threshold(thr):
+    """Two pairs each at float32(thr), one ulp below and one ulp above, by
+    the port's IoU and by the JAX package's."""
+    pairs = iou_tie_pairs(thr)
+    t32 = np.float32(thr)
+    want = np.repeat(np.float32([t32, np.nextafter(t32, np.float32(-1)),
+                                 np.nextafter(t32, np.float32(2))]), 2)
+    got = iou_cxcywh(torch.from_numpy(pairs[:, 0]), torch.from_numpy(pairs[:, 1]))
+    np.testing.assert_array_equal(got[:, 0].numpy(), want)
+    np.testing.assert_array_equal(
+        np.asarray(jax_iou(jnp.asarray(pairs[:, 0]), jnp.asarray(pairs[:, 1])))[:, 0],
+        want)
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_plain_nms_matches_jax_on_edge_cases(case):
+    rows, iou, conf = NMS_CASES[case]()
+    want_rows, want_valid = jnms.batched_non_max_suppression(jnp.asarray(rows),
+                                                             iou, conf)
+    got_rows, got_valid = _torch_nms(rows, iou_threshold=iou,
+                                     conf_threshold=conf)
+    np.testing.assert_array_equal(got_valid, np.asarray(want_valid))
+    np.testing.assert_array_equal(got_rows, np.asarray(want_rows))
+    if case.startswith("iou tie"):
+        # per image: 2 pairs at thr and 2 one ulp above lose their second
+        # row, the 2 pairs one ulp below keep both
+        assert got_valid.sum(axis=1).tolist() == [8, 8]
+
+
+@pytest.mark.parametrize("case", [c for c in EDGE_CASES
+                                  if not c.endswith("1024")])
+def test_plain_nms_matches_pallas_kernel_on_edge_cases(case):
+    rows, iou, conf = NMS_CASES[case]()
+    want_rows, want_valid = pallas_batched_non_max_suppression(
+        jnp.asarray(rows), iou, conf, interpret=True)
+    got_rows, got_valid = _torch_nms(rows, iou_threshold=iou,
+                                     conf_threshold=conf)
+    np.testing.assert_array_equal(got_valid, np.asarray(want_valid))
+    np.testing.assert_array_equal(got_rows, np.asarray(want_rows))
+
+
+@pytest.mark.parametrize("conf_threshold", [0.4, -0.5])
+def test_signed_zero_confidences_tie(conf_threshold):
+    """0.0 and -0.0 are one confidence: tied rows keep their input order
+    (the distinct boxes show it), survivors first, then the rest."""
+    rows = NMS_CASES["signed zeros"]()[0]
+    assert (np.signbit(rows[..., 1]) & (rows[..., 1] == 0)).any()
+    out, valid = _torch_nms(rows, conf_threshold=conf_threshold)
+    for image in range(len(rows)):
+        # Python's sort is stable and holds -0.0 == 0.0
+        order = sorted(range(rows.shape[1]), key=lambda k: -rows[image, k, 1])
+        boxes = [tuple(rows[image, k, 2:]) for k in order]
+        pos = [boxes.index(tuple(r[2:])) for r in out[image]]
+        kept = int(valid[image].sum())
+        assert sorted(pos) == list(range(rows.shape[1]))
+        assert pos[:kept] == sorted(pos[:kept])
+        assert pos[kept:] == sorted(pos[kept:])
