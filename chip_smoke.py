@@ -64,9 +64,24 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
              from which the kernel path must lie about as far as the plain
              path does (bf16 gradients of the early layers are mostly
              rounding at a random init);
-9. launches - CUDA launches per call of K1, K4 and K5 (1 each) and of
+9. fit     - the training run at full width (voc_full_config, batch 64,
+             kernels on) from a synthetic set written straight into the
+             decoded-cache layout under build/fit_data/ (256 train, 96 val
+             images, no decoder): Trainer.fit for 2 epochs with mAP every
+             epoch, once from the host loader and once with the set held on
+             the card; kernel launches of each run (K2 25, K3 25, K4 1, K5 1
+             a train step, K1 2 a mAP update); finite val loss and mAP in
+             [0, 1]; the two paths' first-epoch loss within compare_paths's
+             2e-2; ground truth as prediction gives mAP 1 (up to the 1e-6
+             epsilons) and the card's mAP equals the CPU's on the same
+             grids; a restored checkpoint is bit-equal to the state saved
+             and a resumed epoch puts the checkpoint axis at 0, 1, 2; the
+             Evaluator on the best checkpoint reproduces its epoch's logged
+             val loss and mAP; epoch wall, images/s, val images/s, mAP and
+             checkpoint times;
+10. launches - CUDA launches per call of K1, K4 and K5 (1 each) and of
              the other checkout's, from a torch.profiler trace, after the
-             train phase so that no profiler hook slows the timed steps.
+             train and fit phases so that no profiler hook slows them.
 
 Then one JSON line describing each kernel, one line with the card's name and
 power limit from nvidia-smi, and as the last line
@@ -1383,6 +1398,266 @@ def compare_paths(dev) -> dict:
     return {"loss_rel": loss_rel, "stats_rel": stat_err, "grad_ratio": ratio}
 
 
+FIT_TRAIN, FIT_VAL, FIT_EPOCHS = 256, 96, 2
+FIT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "fit_data")
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def fit_split(split: str, n: int, seed: int, size: int = 448,
+              max_boxes: int = 64, num_classes: int = 20) -> tuple:
+    """A synthetic split written straight into the decoded-cache layout
+    (data/disk_cache.py): ``n`` empty ``.jpg`` files, made first so that
+    their modification times enter the cache's key, then random pixels and
+    1-4 boxes an image. Returns (directory, cache directory)."""
+    from keras_object_detection_torch.data import disk_cache
+
+    data = os.path.join(FIT_DIR, split)
+    cache = os.path.join(FIT_DIR, f"{split}_cache")
+    shutil.rmtree(data, ignore_errors=True)
+    shutil.rmtree(cache, ignore_errors=True)
+    os.makedirs(data)
+    paths = [os.path.join(data, f"{i:04d}.jpg") for i in range(n)]
+    for p in paths:
+        open(p, "wb").close()
+    rng = np.random.RandomState(seed)
+    images = rng.randint(0, 256, (n, size, size, 3), dtype=np.uint8)
+    boxes = np.zeros((n, max_boxes, 5), np.float32)
+    valid = np.zeros((n, max_boxes), bool)
+    for i in range(n):
+        k = rng.randint(1, 5)
+        boxes[i, :k, :2] = rng.uniform(0.1, 0.9, (k, 2))
+        boxes[i, :k, 2:4] = rng.uniform(0.05, 0.5, (k, 2))
+        boxes[i, :k, 4] = rng.randint(0, num_classes, k)
+        valid[i, :k] = True
+    disk_cache.write(cache, paths, size, max_boxes, zip(images, boxes, valid))
+    return data, cache
+
+
+def fit_config(run: str, device_cache: bool = False):
+    """train_config(kernels=True) for a training run: mAP every epoch, the
+    padded val batch masked, checkpoints and logs under build/fit_run/."""
+    cfg = train_config(True)
+    out = os.path.join(os.path.dirname(FIT_DIR), "fit_run", run)
+    shutil.rmtree(out, ignore_errors=True)
+    return dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, device_cache=device_cache),
+        train=dataclasses.replace(
+            cfg.train, epochs=FIT_EPOCHS, map_eval_start_epoch=0,
+            map_eval_every=1, checkpoint_dir=os.path.join(out, "ckpt"),
+            log_dir=os.path.join(out, "logs")),
+        eval=dataclasses.replace(cfg.eval, mask_padded_images=True))
+
+
+def fit_logs(trainer) -> list:
+    with open(trainer.logger.path) as f:
+        return [json.loads(line) for line in f]
+
+
+def map_on(cfg, device, grids, predict=None):
+    """``cfg``'s MeanAveragePrecision filled with stashed ``(y_true, y_pred,
+    weight)`` on ``device``; ``predict(y_true, y_pred)`` replaces the
+    prediction."""
+    from keras_object_detection_torch.train.loop import _map_metric
+
+    metric = _map_metric(cfg)
+    for y_true, y_pred, weight in grids:
+        if predict is not None:
+            y_pred = predict(y_true, y_pred)
+        metric.update_state(y_true.to(device), y_pred.to(device),
+                            None if weight is None else weight.to(device))
+    return metric
+
+
+def fit_run(cfg, train_ds, val_ds) -> tuple:
+    """One Trainer.fit from seeded weights: (trainer, state, logs, kernel
+    launches of the run, seconds). The main path: counts at 0 just before,
+    read just after."""
+    from keras_object_detection_torch.ops import cuda_nms
+    from keras_object_detection_torch.train import Trainer
+
+    trainer = Trainer(cfg, use_tensorboard=False)  # the default device: the GPU
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    cuda_nms.LAUNCHES = 0
+    t0 = time.perf_counter()
+    state = trainer.fit(train_ds, val_ds)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(kernel_counts(), nms=cuda_nms.LAUNCHES)
+    return trainer, state, fit_logs(trainer), counts, seconds
+
+
+def check_fit_launches(name: str, counts: dict, steps: int,
+                       map_updates: int) -> None:
+    want = {"bn_stats": 25 * steps, "bn_grad_stats": 25 * steps,
+            "yolo_loss_forward": steps, "yolo_loss_backward": steps,
+            "nms": 2 * map_updates}
+    log(f"[fit] {name}: kernel launches {counts} over {steps} train steps and "
+        f"{map_updates} mAP updates (expected {want})")
+    if counts != want:
+        raise SystemExit(f"the {name} fit launched {counts}, expected {want}")
+
+
+def phase_fit(dev, train: dict) -> dict:
+    """The training run (see the module docstring, phase 9)."""
+    from keras_object_detection_torch.data import YoloDataset
+    from keras_object_detection_torch.eval import Evaluator
+    from keras_object_detection_torch.ops import cuda_nms
+    from keras_object_detection_torch.train import run_dataset_eval
+
+    smi = card()
+    t_phase = t0 = time.perf_counter()
+    train_dir, train_cache = fit_split("train", FIT_TRAIN, 11)
+    val_dir, val_cache = fit_split("val", FIT_VAL, 12)
+    log(f"[fit] wrote {FIT_TRAIN} train and {FIT_VAL} val images (448², "
+        f"1-4 boxes each) as decoded caches under {FIT_DIR} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    cfg = fit_config("host")
+    d = cfg.data
+    # as the train CLI makes them: the val set keeps its padded last batch
+    mk = lambda data, cache, train: YoloDataset(
+        data, cfg.model.image_size, d.batch_size, max_boxes=d.max_boxes_per_image,
+        shuffle=train and d.shuffle, drop_remainder=train and d.drop_remainder,
+        seed=cfg.train.seed, cache_dir=cache)
+    train_ds = mk(train_dir, train_cache, True)
+    val_ds = mk(val_dir, val_cache, False)
+    steps = FIT_EPOCHS * len(train_ds)
+    map_updates = FIT_EPOCHS * len(val_ds)
+    log(f"[fit] voc_full_config batch {d.batch_size}, {len(train_ds)} train "
+        f"steps and {len(val_ds)} val batches an epoch (the last padded, "
+        f"masked), {FIT_EPOCHS} epochs, mAP every epoch")
+
+    out = {}
+    runs = {}
+    for name, cached in (("host loader", False), ("device cache", True)):
+        c = fit_config("device" if cached else "host", cached)
+        trainer, state, logs, counts, seconds = fit_run(
+            c, mk(train_dir, train_cache, True), val_ds)
+        check_fit_launches(name, counts, steps, map_updates)
+        for r in logs:
+            if not (np.isfinite(r["val_loss"]) and np.isfinite(r["total"])
+                    and 0.0 <= r["val_mAP"] <= 1.0):
+                raise SystemExit(f"{name} fit, epoch {r['step']}: {r}")
+            log(f"[fit] {name}, epoch {r['step'] + 1} on {smi}: total "
+                f"{r['total']:.4f}, val_loss {r['val_loss']:.4f}, val_mAP "
+                f"{r['val_mAP']:.6f}; wall {r['wall_s']:.3f} s (train "
+                f"{r['epoch_time_s']:.3f}, {r['images_per_s']:.1f} images/s; "
+                f"val {r['val_s']:.3f}, {FIT_VAL / r['val_s']:.1f} images/s; "
+                f"mAP {r['map_s'] * 1e3 / len(val_ds):.3f} ms an update; "
+                + (f"checkpoint save {r['save_s'] * 1e3:.1f} ms)"
+                   if "save_s" in r else "no checkpoint saved)"))
+        log(f"[fit] {name}: Trainer.fit took {seconds:.3f} s")
+        runs[name] = (logs, counts)
+        if cached:
+            trainer.close()
+            del trainer, state
+            torch.cuda.empty_cache()
+        else:
+            host = (trainer, state)
+    trainer, state = host
+    del host
+    (logs, counts), cached_logs = runs["host loader"], runs["device cache"][0]
+    rel = abs(cached_logs[0]["total"] - logs[0]["total"]) / abs(logs[0]["total"])
+    log(f"[fit] first-epoch total, host loader {logs[0]['total']:.6f} vs device "
+        f"cache {cached_logs[0]['total']:.6f}: rel {rel:.3e} (tolerance 2e-2)")
+    if rel > 2e-2:
+        raise SystemExit("the two data paths' first epochs disagree")
+    last = logs[-1]
+    log(f"[fit] on {smi}: fit {last['images_per_s']:.1f} images/s (epoch "
+        f"{FIT_EPOCHS}) against the train phase's step-only "
+        f"{train['kernels']['images_per_s']:.1f} images/s")
+
+    # mAP on the card against the CPU, on the final state's val grids
+    stash = []
+    run_dataset_eval(cfg, trainer._eval_step, trainer.map_metric, state,
+                     val_ds, with_map=False, stash=stash)
+    cpu = [(t.cpu(), p.cpu(), None if w is None else w.cpu())
+           for t, p, w in stash]
+    noisy = lambda t, p: 0.8 * t + 0.3 * torch.rand(
+        t.shape, generator=torch.Generator().manual_seed(3)).to(t.device)
+    cuda_nms.LAUNCHES = 0
+    checks = {}
+    for what, predict in (("model", None), ("ground truth", lambda t, p: t),
+                          ("noisy ground truth", noisy)):
+        on_card, on_cpu = (map_on(cfg, dev, cpu, predict),
+                           map_on(cfg, "cpu", cpu, predict))
+        got, want = on_card.result(), on_cpu.result()
+        aps, cpu_aps = on_card.result_per_class(), on_cpu.result_per_class()
+        present = sorted(on_cpu.result_pr_curves())
+        checks[what] = (got, want)
+        log(f"[fit] mAP of the {what} as prediction on {len(cpu)} val "
+            f"batches ({len(present)} of {len(aps)} classes present): card "
+            f"{got!r}, CPU {want!r}, |diff| {abs(got - want):.3e}, per class "
+            f"{np.abs(aps - cpu_aps).max():.3e}")
+        if abs(got - want) > 1e-6 or np.abs(aps - cpu_aps).max() > 1e-6:
+            raise SystemExit(f"the card's mAP differs from the CPU's ({what})")
+        if what == "ground truth" and not (
+                aps[present] >= 1.0 - 1e-5).all():
+            # 1 up to the reference's 1e-6 in the recall and precision
+            # denominators; an absent class counts 0 in the mean
+            raise SystemExit("ground truth as prediction does not give AP 1")
+    log(f"[fit] (NMS kernel launches of these checks: {cuda_nms.LAUNCHES})")
+
+    # resume: the latest checkpoint is the final state, bit for bit; one
+    # more epoch continues the checkpoint axis
+    latest = trainer.ckpt.latest_step
+    restored = trainer.ckpt.restore(state, step=latest)
+    saved = {**state.model.state_dict(),
+             **{f"mu{i}": t for i, t in enumerate(state.opt.mu)},
+             **{f"nu{i}": t for i, t in enumerate(state.opt.nu)}}
+    got = {**restored.model.state_dict(),
+           **{f"mu{i}": t for i, t in enumerate(restored.opt.mu)},
+           **{f"nu{i}": t for i, t in enumerate(restored.opt.nu)}}
+    equal = (all(torch.equal(got[k], v) for k, v in saved.items())
+             and restored.step == state.step
+             and restored.opt.count == state.opt.count)
+    shared = {v.data_ptr() for v in saved.values()} & {
+        v.data_ptr() for v in got.values()}
+    log(f"[fit] restore(latest={latest}): {len(saved)} tensors bit-equal to "
+        f"the final state: {equal}, none shared: {not shared}")
+    if not equal or shared:
+        raise SystemExit("the restored checkpoint differs from the saved state")
+    del state
+    t0 = time.perf_counter()
+    restored = trainer.fit(train_ds, val_ds, epochs=1, state=restored,
+                           start_epoch=latest + 1, verbose=False)
+    log(f"[fit] one resumed epoch in {time.perf_counter() - t0:.3f} s: "
+        f"checkpoint axis {trainer.ckpt.all_steps}")
+    if trainer.ckpt.all_steps != [0, 1, 2]:
+        raise SystemExit("resuming did not continue the checkpoint axis")
+
+    # the Evaluator on the best checkpoint against its epoch's logged values
+    best = trainer.ckpt.best_step
+    logged = [r for r in fit_logs(trainer) if r["step"] == best][-1]
+    best_state = trainer.ckpt.restore(restored)
+    del restored
+    result = Evaluator(cfg).evaluate(best_state, val_ds)
+    rel = abs(result["loss"] - logged["val_loss"]) / abs(logged["val_loss"])
+    diff = abs(result["mAP"] - logged["val_mAP"])
+    log(f"[fit] Evaluator on the best checkpoint (epoch {best + 1}): loss "
+        f"{result['loss']!r} vs logged {logged['val_loss']!r} (rel {rel:.3e}), "
+        f"mAP {result['mAP']!r} vs {logged['val_mAP']!r} (diff {diff:.3e}); "
+        f"{result['images_per_s']:.1f} images/s")
+    if rel > 1e-6 or diff > 1e-6:
+        raise SystemExit("the Evaluator does not reproduce the logged epoch")
+    trainer.close()
+    del best_state, trainer
+    torch.cuda.empty_cache()
+    log(f"[fit] phase took {time.perf_counter() - t_phase:.1f} s")
+    out.update(counts=counts, device_cache_counts=runs["device cache"][1],
+               logs=logs, map_checks=checks)
+    return out
+
+
 def profile_train(state, step, batch, profile_dir: str) -> None:
     from torch.profiler import ProfilerActivity, profile
 
@@ -1432,6 +1707,7 @@ def main() -> int:
     bn = phase_bn(dev)
     phase_train_check(dev)
     train = phase_train(dev, args.profile)
+    fit = phase_fit(dev, train)
     phase_launches(loss, nms)
     counts = train["kernels"]["counts"]
     no_library = ("no single PyTorch call computes this function")
@@ -1441,7 +1717,9 @@ def main() -> int:
         "source": "keras_object_detection_torch/ops/csrc/nms.cu",
         "replaces": "keras_object_detection_tpu/ops/pallas_nms.py:81",
         "tpu": "ops/pallas_nms.py:_nms_kernel", "checked": True,
-        "launches": serve["launches"], "max_abs_err": nms["max_abs_err"],
+        "launches": serve["launches"], "launches_fit": fit["counts"]["nms"],
+        "launches_fit_device_cache": fit["device_cache_counts"]["nms"],
+        "max_abs_err": nms["max_abs_err"],
         "shape": [32, 49, 6], "ms": nt["32x49"]["new"]["ms"],
         "call_ms": nt["32x49"]["new"]["call_ms"],
         "plain_ms": nt["32x49"]["plain_ms"],
@@ -1477,6 +1755,8 @@ def main() -> int:
             "source": "keras_object_detection_torch/ops/csrc/yolo_loss.cu",
             "replaces": f"keras_object_detection_tpu/ops/pallas_loss.py:{line}",
             "checked": True, "launches": counts[name],
+            "launches_fit": fit["counts"][name],
+            "launches_fit_device_cache": fit["device_cache_counts"][name],
             "max_abs_err": loss[f"{key}_err"], "shape": [3136, 30],
             "ms": lt["new"]["ms"], "call_ms": lt["new"]["call_ms"],
             "cuda_launches_per_call": lt["new"]["cuda_launches"],
@@ -1499,6 +1779,8 @@ def main() -> int:
             "source": "keras_object_detection_torch/ops/csrc/bn_stats.cu",
             "replaces": f"keras_object_detection_tpu/ops/pallas_bn.py:{line}",
             "checked": True, "launches": counts[name],
+            "launches_fit": fit["counts"][name],
+            "launches_fit_device_cache": fit["device_cache_counts"][name],
             "max_abs_err": bn["max_abs"][key], "max_rel_err": bn["max_rel"][key],
             "shape": "the step's 25 BatchNorm inputs, bf16, batch 64",
             "ms": tot[k], "plain_ms": tot[p], "bound_ms": tot[b_],
@@ -1512,10 +1794,7 @@ def main() -> int:
         f"{train['plain']['images_per_s']:.1f} images/s")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    print(card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,202 @@
+"""Evaluate or serve a trained detector (counterpart of the repository's
+``evaluate.py``).
+
+Examples:
+  # dataset loss and mAP of the best checkpoint
+  python -m keras_object_detection_torch.cli.evaluate \\
+      --checkpoint-dir checkpoints --data-dir voc/test --coco-map
+
+  # detections of one image, with serving latency
+  python -m keras_object_detection_torch.cli.evaluate \\
+      --checkpoint-dir checkpoints --image data/test.jpg
+
+Reads ``config.json`` from the checkpoint directory (written by
+``cli.train``). Runs on ``--device`` (default cuda). Tagged images
+(``utils/viz``, ROADMAP 1.15), soft and fast NMS (1.13), the error
+analysis (1.13), int8 serving (1.14) and several devices (1.15) are not
+ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import glob
+import json
+import os
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--checkpoint-dir", required=True)
+    p.add_argument("--data-dir", help="YOLO-format directory: loss and mAP")
+    p.add_argument("--image", help="one image: its detections and latency")
+    p.add_argument("--image-dir",
+                   help="every *.jpg of a directory (no labels needed): "
+                        "detections to --detections-json")
+    p.add_argument("--detections-json", default="detections.json")
+    p.add_argument("--tag-dir")
+    p.add_argument("--names", help="class-names file (per-class AP and PR "
+                                    "curve labels)")
+    p.add_argument("--output", default="tagged.jpg")
+    p.add_argument("--grid-overlay", action="store_true")
+    p.add_argument("--latency-runs", type=int, default=5)
+    p.add_argument("--cache-dir", help="decode-ahead disk cache for --data-dir")
+    p.add_argument("--coco-map", action="store_true",
+                   help="also mAP@[.50:.95] and each COCO threshold")
+    p.add_argument("--data-parallel", type=int, default=1)
+    p.add_argument("--pr-json", metavar="PATH",
+                   help="with --data-dir: per-class precision/recall curves")
+    p.add_argument("--error-analysis", action="store_true")
+    p.add_argument("--per-class-ap", action="store_true",
+                   help="also print each class's AP")
+    p.add_argument("--use-ema", action="store_true",
+                   help="serve the EMA weights (the checkpoint must have them)")
+    p.add_argument("--nms-mode", choices=("hard", "soft_gaussian",
+                                          "soft_linear", "fast"))
+    p.add_argument("--soft-nms-sigma", type=float)
+    p.add_argument("--avg-ckpts", type=int, metavar="K", default=0,
+                   help="serve the average of the newest K checkpoints")
+    p.add_argument("--tta", choices=("none", "hflip"),
+                   help="hflip: forward the mirror too, NMS over the union")
+    p.add_argument("--serving", choices=("float", "int8", "auto"),
+                   default="float")
+    p.add_argument("--calib-images", type=int, default=0, metavar="N")
+    p.add_argument("--qat-steps", type=int, default=0, metavar="STEPS")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu to run on the CPU)")
+    return p.parse_args(argv)
+
+
+def check_flags(args) -> None:
+    """Raise on a flag whose feature the port does not have yet."""
+    if args.tag_dir or args.grid_overlay or (args.image and args.names):
+        raise NotImplementedError("tagged images (utils/viz) are not ported "
+                                  "yet (ROADMAP 1.15)")
+    if args.error_analysis:
+        raise NotImplementedError("--error-analysis is not ported yet "
+                                  "(ROADMAP 1.13)")
+    if (args.nms_mode not in (None, "hard")
+            or args.soft_nms_sigma is not None):
+        raise NotImplementedError("soft and fast NMS are not ported yet "
+                                  "(ROADMAP 1.13)")
+    if args.serving != "float" or args.calib_images or args.qat_steps:
+        raise NotImplementedError("int8 serving is not ported yet "
+                                  "(ROADMAP 1.14)")
+    if args.data_parallel != 1:
+        raise NotImplementedError("evaluation over several devices is not "
+                                  "ported yet (ROADMAP 1.15)")
+
+
+def _labels(path):
+    with open(path) as f:
+        return [x.strip() for x in f]
+
+
+def _report(kept, path, cfg):
+    """Detections as JSON rows; ``box_cxcywh`` in ratios of the original
+    image (the letterbox placement undone)."""
+    import numpy as np
+
+    from keras_object_detection_torch.data.reader import (
+        read_rgb, unletterbox_detections)
+
+    kept = kept.cpu().numpy()
+    if cfg.data.letterbox and len(kept):
+        h, w = read_rgb(path).shape[:2]
+        kept = unletterbox_detections(kept, h, w, cfg.model.image_size)
+    return [{"class": int(b[0]), "confidence": round(float(b[1]), 4),
+             "box_cxcywh": [round(float(v), 5) for v in b[2:6]]}
+            for b in np.asarray(kept)]
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    check_flags(args)
+
+    import numpy as np
+
+    from keras_object_detection_torch.config import Config
+    from keras_object_detection_torch.data import YoloDataset
+    from keras_object_detection_torch.data.reader import load_example
+    from keras_object_detection_torch.eval import (Evaluator, InferenceModel,
+                                                   load_serving_state)
+
+    cfg_path = os.path.join(args.checkpoint_dir, "config.json")
+    if not os.path.exists(cfg_path):
+        raise SystemExit(f"error: {cfg_path} not found (written by cli.train)")
+    with open(cfg_path) as f:
+        cfg = Config.from_json(f.read())
+    if args.tta:
+        cfg = dataclasses.replace(cfg, eval=dataclasses.replace(
+            cfg.eval, tta=args.tta))
+    try:
+        state, state_dict, info = load_serving_state(
+            cfg, args.checkpoint_dir, avg_ckpts=args.avg_ckpts,
+            use_ema=args.use_ema, device=args.device)
+    except ValueError as exc:
+        raise SystemExit(f"error: {exc}")
+    print(f"restored checkpoint: {info}")
+    size, max_boxes = cfg.model.image_size, cfg.data.max_boxes_per_image
+
+    if args.image or args.image_dir:
+        model = InferenceModel(cfg, state_dict, device=args.device)
+    if args.image:
+        img = load_example(args.image, size, max_boxes,
+                           letterbox=cfg.data.letterbox)[0]
+        lat = model.benchmark_latency(img[None], runs=args.latency_runs)
+        print(f"forward+decode+NMS: p50 {lat['p50_ms']:.2f} ms (min "
+              f"{lat['min_ms']:.2f}, mean {lat['mean_ms']:.2f}, batch 1, "
+              f"{args.device})")
+        dets = _report(model.predict_single(img), args.image, cfg)
+        print(json.dumps({"image": os.path.basename(args.image),
+                          "latency_ms": lat, "detections": dets}))
+
+    if args.image_dir:
+        paths = sorted(glob.glob(os.path.join(args.image_dir, "*.jpg")))
+        if not paths:
+            raise SystemExit(f"error: no *.jpg under {args.image_dir}")
+        bs = cfg.data.batch_size
+        detections = {}
+        for start in range(0, len(paths), bs):
+            chunk = paths[start:start + bs]
+            imgs = np.stack([load_example(p, size, max_boxes,
+                                          letterbox=cfg.data.letterbox)[0]
+                             for p in chunk])
+            boxes, valid = model.predict(imgs)
+            for i, path in enumerate(chunk):
+                detections[os.path.basename(path)] = _report(
+                    boxes[i][valid[i]], path, cfg)
+        with open(args.detections_json, "w") as f:
+            json.dump(detections, f, indent=1)
+        n_det = sum(len(v) for v in detections.values())
+        print(f"wrote {args.detections_json}: {n_det} detections over "
+              f"{len(paths)} images")
+
+    if args.data_dir:
+        ds = YoloDataset(args.data_dir, size, cfg.data.batch_size,
+                         max_boxes=max_boxes, cache_dir=args.cache_dir,
+                         letterbox=cfg.data.letterbox)
+        # --use-ema decides here, as on the single-image path
+        evaluator = Evaluator(cfg, use_ema=args.use_ema, device=args.device)
+        results = evaluator.evaluate(state, ds, coco_map=args.coco_map)
+        print("evaluation:", {k: round(float(v), 5) for k, v in results.items()})
+        names = _labels(args.names) if args.names else None
+        if args.per_class_ap:
+            print("per-class AP@%.2f:" % cfg.eval.map_iou_threshold)
+            for c, ap in enumerate(evaluator.map_metric.result_per_class()):
+                label = names[c] if names and c < len(names) else str(c)
+                print(f"  {label:>16s}  {ap:.4f}")
+        if args.pr_json:
+            curves = evaluator.map_metric.result_pr_curves()
+            if names:
+                curves = {names[c] if c < len(names) else str(c): v
+                          for c, v in curves.items()}
+            with open(args.pr_json, "w") as f:
+                json.dump(curves, f, indent=1)
+            print(f"wrote per-class PR curves to {args.pr_json}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,3 +1,5 @@
-from keras_object_detection_torch.eval.evaluator import InferenceModel
+from keras_object_detection_torch.eval.evaluator import (Evaluator,
+                                                       InferenceModel,
+                                                       load_serving_state)
 
-__all__ = ["InferenceModel"]
+__all__ = ["Evaluator", "InferenceModel", "load_serving_state"]

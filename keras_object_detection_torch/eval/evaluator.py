@@ -1,8 +1,12 @@
-"""The serving path (counterpart of
-``keras_object_detection_tpu/eval/evaluator.py`` ``InferenceModel``):
-uint8 NHWC images -> /255 -> ``YoloV1`` -> ``decode_grid`` ->
-``auto_batched_non_max_suppression``, which on the GPU is the hand-written
-NMS kernel.
+"""Serving and evaluation (counterpart of
+``keras_object_detection_tpu/eval/evaluator.py`` ``InferenceModel``,
+``load_serving_state`` and ``Evaluator``).
+
+``InferenceModel``: uint8 NHWC images -> /255 -> ``YoloV1`` ->
+``decode_grid`` -> ``auto_batched_non_max_suppression``, which on the GPU is
+the hand-written NMS kernel. ``Evaluator``: dataset loss and mAP through the
+eval step (``train/loop.py``). ``load_serving_state``: the checkpoint a
+caller serves.
 
 Soft/fast NMS, the staged latency variant (ROADMAP 1.13) and mesh serving
 (ROADMAP 1.15) are not ported yet and raise.
@@ -19,9 +23,17 @@ import torch
 from keras_object_detection_torch.config import Config
 from keras_object_detection_torch.core.grid import decode_grid
 from keras_object_detection_torch.data.augment import preprocess_eval_batch
+from keras_object_detection_torch.data.pipeline import YoloDataset
 from keras_object_detection_torch.models.yolo import build_model
 from keras_object_detection_torch.ops.cuda_nms import \
     auto_batched_non_max_suppression
+from keras_object_detection_torch.train.checkpoint import (CheckpointManager,
+                                                           average_checkpoints)
+from keras_object_detection_torch.train.loop import (TrainState, _device,
+                                                     _map_metric,
+                                                     create_train_state,
+                                                     make_eval_step,
+                                                     run_dataset_eval)
 
 Images = Union[np.ndarray, torch.Tensor]
 
@@ -49,11 +61,7 @@ class InferenceModel:
         if e.tta not in ("none", "hflip"):
             raise ValueError(f"unknown EvalConfig.tta {e.tta!r} "
                              "(expected 'none' or 'hflip')")
-        self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("InferenceModel serves on the GPU by default and "
-                               "none is available; pass device='cpu' to serve "
-                               "on the CPU")
+        self.device = _device(device, "serving")
         self.config = config
         model = build_model(config)
         model.load_state_dict(state_dict, strict=True)
@@ -130,4 +138,80 @@ class InferenceModel:
             self._sync()
             out["pipelined_per_call_ms"] = (
                 (time.perf_counter() - t0) * 1000 / pipeline_k)
+        return out
+
+
+def load_serving_state(config: Config, checkpoint_dir: str,
+                       avg_ckpts: int = 0, use_ema: bool = False,
+                       device: Optional[Union[str, torch.device]] = None
+                       ) -> Tuple[TrainState, Dict[str, torch.Tensor], str]:
+    """``(state, state_dict, description)`` of the checkpoint to serve: the
+    best one, or with ``avg_ckpts = K`` the average of the newest K
+    (``average_checkpoints``). ``state_dict`` is the model's, with the EMA
+    weights in place of the parameters when ``use_ema`` (a checkpoint
+    without an EMA raises)."""
+    template = create_train_state(config, device=device)
+    ckpt = CheckpointManager(checkpoint_dir)
+    try:
+        if avg_ckpts:
+            state = average_checkpoints(ckpt, template, last_k=avg_ckpts)
+            info = (f"average of the newest {avg_ckpts} checkpoints "
+                    f"{ckpt.all_steps[-avg_ckpts:]}")
+        else:
+            state = ckpt.restore(template)
+            info = (f"step={state.step} (best={ckpt.best_step}, "
+                    f"latest={ckpt.latest_step})")
+    finally:
+        ckpt.close()
+    state_dict = dict(state.model.state_dict())
+    if use_ema:
+        if state.ema is None:
+            raise ValueError("checkpoint has no EMA params "
+                             "(train with TrainConfig.ema_decay)")
+        state_dict.update(state.ema)
+        info += ", EMA"
+    return state, state_dict, info
+
+
+class Evaluator:
+    """Dataset loss and mAP of a ``TrainState`` (the reference's post-fit
+    test loop), on ``cuda`` unless ``device`` says otherwise.
+
+    ``use_ema``: None follows the config (``ema_decay`` and
+    ``eval_with_ema``), True or False overrides it (the CLI's
+    ``--use-ema``). Evaluation over several devices is not ported yet
+    (ROADMAP 1.15)."""
+
+    def __init__(self, config: Config, use_ema: Optional[bool] = None,
+                 device: Optional[Union[str, torch.device]] = None, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError("evaluation over several devices is not "
+                                      "ported yet (ROADMAP 1.15)")
+        self.config = config
+        self.device = _device(device, "evaluation")
+        self._eval_step = make_eval_step(config, use_ema=use_ema)
+        self.map_metric = _map_metric(config)
+
+    def evaluate(self, state: TrainState, ds: YoloDataset,
+                 with_map: bool = True,
+                 coco_map: bool = False) -> Dict[str, float]:
+        """``{"loss", "mAP", "eval_time_s", "images_per_s"}``; ``coco_map``
+        adds the COCO sweep (``mAP@0.50`` ... ``mAP@[.50:.95]``) from the
+        same accumulated box sets. ``state`` must be on the evaluator's
+        device."""
+        t0 = time.perf_counter()
+        where = next(state.model.parameters()).device
+        if where != self.device:
+            raise ValueError(f"the state is on {where}, the evaluator on "
+                             f"{self.device}")
+        loss, map_val = run_dataset_eval(
+            self.config, self._eval_step, self.map_metric, state, ds,
+            with_map=with_map or coco_map)
+        out = {"loss": loss}
+        if with_map:
+            out["mAP"] = map_val
+        if coco_map:
+            out.update(self.map_metric.result_multi())
+        out["eval_time_s"] = time.perf_counter() - t0
+        out["images_per_s"] = ds.num_examples / max(out["eval_time_s"], 1e-9)
         return out

@@ -1,6 +1,5 @@
-"""The train step (counterpart of ``keras_object_detection_tpu/train/loop.py``
-``TrainState``, ``create_train_state``, ``set_learning_rate`` and
-``make_train_step`` for the v1 conv head):
+"""Training (counterpart of ``keras_object_detection_tpu/train/loop.py`` for
+the v1 conv head): the train step, the eval step and the ``Trainer``.
 
     state = create_train_state(cfg, generator, device)
     step = make_train_step(cfg)
@@ -14,14 +13,23 @@ its kernels, ``ModelConfig.bn_mode="fused"`` the BN-statistics kernels.
 
 Unlike the JAX step, which returns a new state, this one updates the model,
 the optimizer moments and the EMA in place (no second copy of ~4x the
-parameters) and returns the same ``state``. ``create_train_state`` and the
-step run on ``cuda`` unless the caller passes ``device="cpu"``.
+parameters) and returns the same ``state``. The step puts the model in
+training mode, the eval step in eval mode. ``create_train_state``,
+``Trainer`` and the steps run on ``cuda`` unless the caller passes
+``device="cpu"``.
+
+``Trainer.fit`` is the training run: epochs of steps over a ``YoloDataset``
+(or the same data held on the device), validation loss and mAP, the
+reference's mAP policy, best-by-val-loss checkpoints, plateau LR scaling,
+early stopping and resume. Multiscale training and ``steps_per_dispatch``
+are not ported yet (ROADMAP 1.12), nor several devices (1.15).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Union
+import time
+from typing import Any, Dict, Iterable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -30,11 +38,19 @@ from keras_object_detection_torch.config import Config, check_ported
 from keras_object_detection_torch.core.grid import encode_grid
 from keras_object_detection_torch.data.augment import (AugmentDraws,
                                                        augment_batch,
+                                                       preprocess_eval_batch,
                                                        sample_augment_draws)
+from keras_object_detection_torch.data.pipeline import (DeviceCachedDataset,
+                                                        YoloDataset)
 from keras_object_detection_torch.losses.yolo import yolo_v1_loss_terms
 from keras_object_detection_torch.models.yolo import YoloV1, build_model
+from keras_object_detection_torch.ops.map import (COCO_IOU_THRESHOLDS,
+                                                  MeanAveragePrecision)
 from keras_object_detection_torch.ops.yolo_loss import fused_yolo_v1_loss
 from keras_object_detection_torch.train import optim
+from keras_object_detection_torch.train.checkpoint import CheckpointManager
+from keras_object_detection_torch.train.metrics_logger import MetricLogger
+from keras_object_detection_torch.train.schedules import epoch_schedule
 
 
 @dataclasses.dataclass
@@ -49,11 +65,17 @@ class TrainState:
     ema: Optional[Dict[str, torch.Tensor]] = None
 
 
-def _device(device) -> torch.device:
+def _device(device, what: str = "training") -> torch.device:
+    """``device``, by default ``cuda``, which must then exist: no quiet
+    fall back to the CPU."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("training runs on the GPU by default and none is "
-                           "available; pass device='cpu' to train on the CPU")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{what} runs on the GPU by default and none "
+                               "is available; pass device='cpu' to run on "
+                               "the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -177,3 +199,337 @@ def make_train_step(config: Config):
         return state, metrics
 
     return step
+
+
+def make_eval_step(config: Config, use_ema: Optional[bool] = None):
+    """Build ``eval_step(state, images_u8, boxes, valid, image_weight=None)
+    -> (loss, y_true, y_pred)``: u8 / 255 -> ``encode_grid`` -> the forward
+    in eval mode -> the plain v1 loss (a sum, as in training), with
+    ``image_weight`` an optional ``(batch,)`` 0/1 weight of each image.
+
+    ``use_ema``: None follows the config (``ema_decay`` set and
+    ``eval_with_ema``); True or False overrides it. The EMA weights are
+    evaluated in place of the parameters through
+    ``torch.func.functional_call``, with the model's own BN statistics,
+    without copying them into the model."""
+    g, t = config.grid, config.train
+    ema_on = use_ema if use_ema is not None else (
+        t.ema_decay is not None and t.eval_with_ema)
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, images_u8, boxes, valid,
+                  image_weight=None):
+        model = state.model
+        dev = next(model.parameters()).device
+        images = preprocess_eval_batch(torch.as_tensor(images_u8).to(dev))
+        boxes = torch.as_tensor(boxes).to(dev, torch.float32)
+        valid = torch.as_tensor(valid).to(dev, torch.bool)
+        y_true = encode_grid(boxes, valid, g.num_classes, g.num_boxes, g.grid)
+        model.eval()
+        if ema_on and state.ema is not None:
+            y_pred = torch.func.functional_call(
+                model, (state.ema, dict(model.named_buffers())), (images,))
+        else:
+            y_pred = model(images)
+        if image_weight is not None:
+            image_weight = torch.as_tensor(image_weight).to(dev)
+        terms = yolo_v1_loss_terms(
+            y_true, y_pred, g.num_classes, g.num_boxes, t.lambda_coord,
+            t.lambda_noobj, t.noobj_mode, t.box_loss_mode,
+            sample_weight=image_weight)
+        return terms["total"], y_true, y_pred
+
+    return eval_step
+
+
+EvalOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
+
+
+def run_dataset_eval(config: Config, eval_step, map_metric, state: TrainState,
+                     ds: YoloDataset, with_map: bool = True, stash=None):
+    """One eval pass over ``ds`` on the state's device: ``(loss, mAP or
+    None)``. With ``eval.mask_padded_images`` the zero images that pad the
+    last batch weigh 0 in the loss and are dropped from the mAP (see
+    ``_accumulate_eval``)."""
+    mask = config.eval.mask_padded_images
+    dev = next(state.model.parameters()).device
+
+    def stepped() -> Iterable[EvalOut]:
+        for i, (images, boxes, valid) in enumerate(ds.prefetched(dev)):
+            weight = None
+            if mask:
+                n_real = min(ds.batch_size, ds.num_examples - i * ds.batch_size)
+                weight = torch.arange(ds.batch_size, device=dev) < n_real
+            yield (*eval_step(state, images, boxes, valid, weight), weight)
+
+    return _accumulate_eval(mask, ds.batch_size, ds.num_examples, stepped(),
+                            with_map, map_metric, stash)
+
+
+def _accumulate_eval(mask: bool, batch_size: int, num_examples: int,
+                     stepped: Iterable[EvalOut], with_map: bool, map_metric,
+                     stash=None):
+    """The loss summed on the device and read back once after the loop;
+    the mAP updates (or, with ``stash`` and no mAP, the ``(y_true, y_pred,
+    weight)`` of each batch kept for a later mAP without another forward).
+
+    Masked, the loss is ``sum * batch_size / n_evaluated``: the unmasked
+    mean of batch sums whenever the batch divides the set, and the exact
+    unpadded value when it does not; ``n_evaluated`` counts only the images
+    of batches that ran (a dropped remainder does not)."""
+    total, batches = None, 0
+    if with_map:
+        map_metric.reset_states()
+    for loss, y_true, y_pred, weight in stepped:
+        total = loss if total is None else total + loss
+        batches += 1
+        if with_map:
+            map_metric.update_state(y_true, y_pred, image_valid=weight)
+        elif stash is not None:
+            stash.append((y_true, y_pred, weight))
+    if not batches:
+        return 0.0, (map_metric.result() if with_map else None)
+    if mask:
+        n_evaluated = min(num_examples, batches * batch_size)
+        loss_out = float(total) * batch_size / max(n_evaluated, 1)
+    else:
+        loss_out = float(total) / batches
+    return loss_out, (map_metric.result() if with_map else None)
+
+
+def _map_metric(config: Config) -> MeanAveragePrecision:
+    g, e = config.grid, config.eval
+    return MeanAveragePrecision(
+        g.num_classes, g.num_boxes, g.grid, iou_threshold=e.iou_threshold,
+        conf_threshold=e.conf_threshold,
+        map_iou_threshold=e.map_iou_threshold,
+        max_candidates=e.max_candidates)
+
+
+class Trainer:
+    """The training run (the reference's ``model.fit`` with its callbacks):
+    ``fit`` for epochs, ``evaluate`` on a test set. One device: ``cuda``
+    unless ``device`` says otherwise."""
+
+    def __init__(self, config: Config,
+                 device: Optional[Union[str, torch.device]] = None,
+                 use_tensorboard: bool = True, mesh=None):
+        check_ported(config, training=True)
+        m, t = config.mesh, config.train
+        if mesh is not None or m.data_parallel not in (-1, 1) \
+                or m.model_parallel != 1:
+            raise NotImplementedError("training on several devices is not "
+                                      "ported yet (ROADMAP 1.15)")
+        if (t.steps_per_dispatch or 1) != 1:
+            raise NotImplementedError("steps_per_dispatch is not ported yet "
+                                      "(ROADMAP 1.12)")
+        accum = max(t.grad_accum_steps or 1, 1)
+        if config.data.batch_size % accum:
+            raise ValueError(f"batch_size {config.data.batch_size} must be "
+                             f"divisible by grad_accum_steps {accum}")
+        self.config = config
+        self.device = _device(device)
+        self._train_step = make_train_step(config)
+        self._eval_step = make_eval_step(config)
+        self.logger = MetricLogger(t.log_dir, use_tensorboard=use_tensorboard)
+        self.ckpt = CheckpointManager(t.checkpoint_dir)
+        self.map_metric = _map_metric(config)
+
+    def init_state(self, seed: Optional[int] = None) -> TrainState:
+        seed = self.config.train.seed if seed is None else seed
+        return create_train_state(self.config,
+                                  torch.Generator().manual_seed(seed),
+                                  self.device)
+
+    def _validate(self, state: TrainState, val_ds: YoloDataset,
+                  dev_val: Optional[DeviceCachedDataset], with_map: bool,
+                  stash=None) -> Dict[str, float]:
+        """Validation loss (and mAP) from the host loader, or from the
+        device-resident set where padded rows are the zero sentinel
+        (weight = ``idx < num_examples``)."""
+        if dev_val is None:
+            loss, map_val = run_dataset_eval(
+                self.config, self._eval_step, self.map_metric, state, val_ds,
+                with_map=with_map, stash=stash)
+        else:
+            mask = self.config.eval.mask_padded_images
+
+            def stepped() -> Iterable[EvalOut]:
+                for images, boxes, valid, idx in dev_val.epoch():
+                    weight = idx < dev_val.num_examples if mask else None
+                    yield (*self._eval_step(state, images, boxes, valid,
+                                            weight), weight)
+
+            loss, map_val = _accumulate_eval(
+                mask, dev_val.batch_size, dev_val.num_examples, stepped(),
+                with_map, self.map_metric, stash)
+        out = {"val_loss": loss}
+        if with_map:
+            out["val_mAP"] = map_val
+        return out
+
+    def _map_from_stash(self, stash) -> float:
+        """The mAP of the predictions a loss pass stashed: the second half
+        of the single-pass validation, no new forward."""
+        self.map_metric.reset_states()
+        for y_true, y_pred, weight in stash:
+            self.map_metric.update_state(y_true, y_pred, image_valid=weight)
+        return self.map_metric.result()
+
+    def _coco_map_logs(self) -> Dict[str, float]:
+        """``EvalConfig.coco_map``'s extras from the filled accumulator:
+        ``val_mAP_coco`` (mAP@[.50:.95]) and ``val_mAP@0.55`` ... (0.50 is
+        ``val_mAP``)."""
+        multi = self.map_metric.result_multi()
+        out = {"val_mAP_coco": multi["mAP@[.50:.95]"]}
+        out.update({f"val_mAP@{t:.2f}": multi[f"mAP@{t:.2f}"]
+                    for t in COCO_IOU_THRESHOLDS if t > 0.5})
+        return out
+
+    def _should_eval_map(self, epoch: int, improved: bool) -> bool:
+        """The reference's mAP policy: after ``map_eval_start_epoch``
+        (1-based), when the monitored loss improved or every
+        ``map_eval_every`` epochs."""
+        t = self.config.train
+        if (epoch + 1) <= t.map_eval_start_epoch:
+            return False
+        return improved or ((epoch + 1) % t.map_eval_every == 0)
+
+    def _train_batches(self, train_ds: YoloDataset,
+                       dev_train: Optional[DeviceCachedDataset]):
+        if dev_train is None:
+            yield from train_ds.prefetched(self.device)
+        else:
+            for images, boxes, valid, _ in dev_train.epoch():
+                yield images, boxes, valid
+
+    def fit(self, train_ds: YoloDataset, val_ds: Optional[YoloDataset] = None,
+            epochs: Optional[int] = None, state: Optional[TrainState] = None,
+            early_stop_patience: Optional[int] = None,
+            reduce_on_plateau: Optional[Tuple[float, int, float]] = None,
+            verbose: bool = True,
+            start_epoch: Optional[int] = None) -> TrainState:
+        """Train for ``epochs`` (default ``train.epochs``) from ``state``
+        (default ``init_state()``), validating on ``val_ds`` after each.
+
+        ``reduce_on_plateau=(factor, patience, min_lr)`` scales the
+        scheduled LR by ``factor`` after each ``patience`` epochs without a
+        lower val loss, floored at ``min_lr``. ``start_epoch`` is the
+        resume point on the LR schedule and the checkpoint axis
+        (``ckpt.latest_epoch + 1``); by default it is inferred from the
+        step count, exact only for an unchanged batch and dataset size.
+
+        Train metrics are summed on the device and read back once an epoch.
+        A checkpoint is saved when the val loss beats the best saved one
+        (not within ``save_cooldown_epochs`` of the last save), and the
+        final state always, unless that epoch was just saved. Each epoch's
+        line goes to the logger (and stdout with ``verbose``)."""
+        cfg = self.config
+        epochs = cfg.train.epochs if epochs is None else epochs
+        if state is None:
+            state = self.init_state()
+        dev_train = dev_val = None
+        if cfg.data.device_cache:
+            layout = cfg.data.device_cache_layout
+            dev_train = DeviceCachedDataset(train_ds, self.device, layout)
+            if val_ds is not None:
+                dev_val = DeviceCachedDataset(val_ds, self.device, layout)
+        epoch_offset = (start_epoch if start_epoch is not None
+                        else state.step // max(len(train_ds), 1))
+        lrs = epoch_schedule(cfg.train.schedule, epoch_offset + epochs)
+        seed = cfg.train.seed + 1
+
+        best = best_saved = float("inf")
+        since_best = 0
+        lr_scale = 1.0
+        last_save = -(10 ** 9)  # the first improvement always saves
+        last_monitor = float("inf")
+        for epoch in range(epoch_offset, epoch_offset + epochs):
+            lr = float(lrs[epoch]) * lr_scale
+            if reduce_on_plateau is not None:
+                lr = max(lr, reduce_on_plateau[2])
+            set_learning_rate(state, lr)
+            t0 = time.time()
+            acc: Dict[str, torch.Tensor] = {}
+            nb = 0
+            for images, boxes, valid in self._train_batches(train_ds, dev_train):
+                state, metrics = self._train_step(state, images, boxes, valid,
+                                                  seed)
+                nb += 1
+                for k, v in metrics.items():
+                    acc[k] = v if k not in acc else acc[k] + v
+            keys = sorted(acc)
+            values = (torch.stack([acc[k] for k in keys]).tolist()
+                      if keys else [])  # the epoch's one readback
+            logs: Dict[str, Any] = {k: v / max(nb, 1)
+                                    for k, v in zip(keys, values)}
+            logs["lr"] = lr
+            logs["epoch_time_s"] = time.time() - t0
+            logs["images_per_s"] = (nb * train_ds.batch_size
+                                    / max(logs["epoch_time_s"], 1e-9))
+
+            if val_ds is not None:
+                # one forward per val image: on epochs where the mAP policy
+                # may fire, the loss pass stashes the grids and the mAP
+                # reads the stash once the loss says whether it improved
+                maybe_map = (epoch + 1) > cfg.train.map_eval_start_epoch
+                stash = [] if maybe_map else None
+                tv0 = time.time()
+                val = self._validate(state, val_ds, dev_val, False, stash)
+                val["val_s"] = time.time() - tv0
+                improved = val["val_loss"] < best
+                if self._should_eval_map(epoch, improved):
+                    tm0 = time.time()
+                    val["val_mAP"] = self._map_from_stash(stash)
+                    if cfg.eval.coco_map:
+                        val.update(self._coco_map_logs())
+                    val["map_s"] = time.time() - tm0
+                logs.update(val)
+                if improved:
+                    best = val["val_loss"]
+                    since_best = 0
+                else:
+                    since_best += 1
+                    if (reduce_on_plateau is not None
+                            and since_best % reduce_on_plateau[1] == 0):
+                        lr_scale *= reduce_on_plateau[0]
+                        if verbose:
+                            print(f"plateau: scaling LR by "
+                                  f"{reduce_on_plateau[0]} -> scale "
+                                  f"{lr_scale:.4g}")
+                last_monitor = val["val_loss"]
+                if (val["val_loss"] < best_saved and epoch - last_save
+                        >= cfg.train.save_cooldown_epochs):
+                    ts0 = time.time()
+                    self.ckpt.save(epoch, state, {"val_loss": val["val_loss"]})
+                    logs["save_s"] = time.time() - ts0
+                    last_save = epoch
+                    best_saved = val["val_loss"]
+            else:
+                last_monitor = logs.get("total", float("inf"))
+
+            logs["wall_s"] = time.time() - t0
+            self.logger.log(epoch, logs)
+            if verbose:
+                msg = " ".join(f"{k}={v:.5g}" for k, v in logs.items())
+                print(f"epoch {epoch + 1}/{epoch_offset + epochs}: {msg}",
+                      flush=True)
+            if (early_stop_patience is not None
+                    and since_best >= early_stop_patience):
+                if verbose:
+                    print(f"early stop at epoch {epoch + 1}")
+                break
+
+        # the resume point, and any improvement the cooldown deferred
+        if epochs > 0 and last_save != epoch:
+            self.ckpt.save(epoch, state, {"val_loss": float(last_monitor)})
+        self.ckpt.wait()
+        return state
+
+    def evaluate(self, state: TrainState, ds: YoloDataset) -> Dict[str, float]:
+        """Test-set loss and mAP."""
+        return self._validate(state, ds, None, True)
+
+    def close(self) -> None:
+        self.ckpt.close()
+        self.logger.close()

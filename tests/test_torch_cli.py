@@ -1,0 +1,145 @@
+"""The port's command lines (``keras_object_detection_torch.cli``): a one-epoch
+training run on the CPU writes ``config.json`` and a checkpoint and
+evaluates the test set; ``cli.evaluate`` reads them back and reports loss,
+mAP, per-class AP, PR curves and detections; the JAX CLI's ``build_config``
+and the port's make the same config from the same flags, and a
+``config.json`` the JAX CLI writes loads in the port."""
+
+import importlib.util
+import json
+import os
+import pathlib
+import sys
+
+import pytest
+import torch
+
+from keras_object_detection_torch import config as tconfig
+from keras_object_detection_torch.cli import evaluate as cli_evaluate
+from keras_object_detection_torch.cli import train as cli_train
+from test_torch_data import write_dataset
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """A one-epoch tiny-preset run on 5 images: (data dir, checkpoint dir,
+    its stdout)."""
+    tmp = tmp_path_factory.mktemp("cli")
+    data = write_dataset(tmp / "data", 5, seed=3, shape=(240, 200))
+    ckpt = str(tmp / "ckpt")
+    return data, ckpt, [
+        "--data-dir", data, "--test-dir", data, "--preset", "tiny",
+        "--epochs", "1", "--device", "cpu", "--checkpoint-dir", ckpt,
+        "--log-dir", str(tmp / "logs")]
+
+
+@pytest.fixture(autouse=True)
+def no_tensorboard(monkeypatch):
+    """The loggers write JSONL only: importing torch.utils.tensorboard here
+    pulls in TensorFlow, which takes longer than the runs."""
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+
+
+def test_train_writes_config_and_checkpoint(trained, capsys):
+    data, ckpt, argv = trained
+    cli_train.main(argv)
+    out = capsys.readouterr().out
+    assert "epoch 1/1:" in out and "test results:" in out
+    with open(os.path.join(ckpt, "config.json")) as f:
+        cfg = tconfig.Config.from_json(f.read())
+    assert cfg.model.backbone == "darknet_tiny" and cfg.data.test_dir == data
+    assert os.path.exists(os.path.join(ckpt, "0", "state.pt"))
+    cli_train.main(argv + ["--resume"])  # continues at epoch 2
+    out = capsys.readouterr().out
+    assert "resumed from epoch 1" in out and "epoch 2/2:" in out
+    assert sorted(d for d in os.listdir(ckpt) if d.isdigit()) == ["0", "1"]
+
+
+def test_evaluate_reads_the_run(trained, tmp_path, capsys):
+    data, ckpt, argv = trained
+    if not os.path.exists(os.path.join(ckpt, "config.json")):
+        cli_train.main(argv)
+    capsys.readouterr()
+    names = tmp_path / "names.txt"
+    names.write_text("cat\ndog\nbird\n")
+    cli_evaluate.main([
+        "--checkpoint-dir", ckpt, "--data-dir", data, "--device", "cpu",
+        "--coco-map", "--per-class-ap", "--names", str(names),
+        "--pr-json", str(tmp_path / "pr.json")])
+    cli_evaluate.main([
+        "--checkpoint-dir", ckpt, "--device", "cpu", "--image",
+        os.path.join(data, "img000.jpg"), "--latency-runs", "1",
+        "--image-dir", data, "--detections-json", str(tmp_path / "det.json")])
+    lines = capsys.readouterr().out.splitlines()
+    evaluation = next(x for x in lines if x.startswith("evaluation:"))
+    for key in ("'loss'", "'mAP'", "'mAP@[.50:.95]'"):
+        assert key in evaluation
+    assert any(x.strip().startswith("dog") for x in lines)
+    image = json.loads(next(x for x in lines if x.startswith('{"image"')))
+    assert image["image"] == "img000.jpg" and "p50_ms" in image["latency_ms"]
+    with open(tmp_path / "det.json") as f:
+        assert len(json.load(f)) == 5
+    with open(tmp_path / "pr.json") as f:
+        assert set(json.load(f)) <= {"cat", "dog", "bird"}
+
+
+def _jax_cli():
+    spec = importlib.util.spec_from_file_location("jax_train_cli",
+                                                  ROOT / "train.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("flags", [
+    ["--preset", "tiny"],
+    ["--preset", "voc", "--batch-size", "16", "--lr", "0.01", "--schedule",
+     "cosine_restarts", "--optimizer", "sgd", "--letterbox", "--grad-accum",
+     "2", "--cache-dir", "cache", "--device-cache", "--num-classes", "5",
+     "--image-size", "224", "--compute-dtype", "float32", "--seed", "4"],
+])
+def test_the_jax_clis_config_loads_in_the_port(flags, tmp_path, monkeypatch):
+    argv = ["--data-dir", str(tmp_path), *flags]
+    jax_cli = _jax_cli()
+    monkeypatch.setattr(sys, "argv", ["train.py", *argv])
+    jax_json = jax_cli.build_config(jax_cli.parse_args()).to_json()
+    ours = cli_train.build_config(cli_train.parse_args(argv))
+    assert tconfig.Config.from_json(jax_json) == ours
+    shared = {k: {f: v for f, v in sec.items() if f in json.loads(
+        ours.to_json())[k]} for k, sec in json.loads(jax_json).items()}
+    assert shared == json.loads(ours.to_json())
+
+
+@pytest.mark.parametrize("cli,argv,match", [
+    (cli_train, ["--preset", "yolov3"], "ROADMAP 1.11"),
+    (cli_train, ["--multiscale", "224,256"], "ROADMAP 1.12"),
+    (cli_train, ["--mosaic", "0.5"], "ROADMAP 1.12"),
+    (cli_train, ["--anchors", "0.1,0.1"], "ROADMAP 1.10"),
+    (cli_train, ["--profile-dir", "p"], "ROADMAP 1.15"),
+    (cli_train, ["--data-parallel", "4"], "ROADMAP 1.15"),
+    (cli_train, ["--device-cache-layout", "sharded"], "ROADMAP 1.15"),
+    (cli_train, ["--pretrained-backbone", "w.h5"], "ROADMAP 1.9"),
+    (cli_evaluate, ["--tag-dir", "t"], "ROADMAP 1.15"),
+    (cli_evaluate, ["--image", "a.jpg", "--names", "n"], "ROADMAP 1.15"),
+    (cli_evaluate, ["--error-analysis"], "ROADMAP 1.13"),
+    (cli_evaluate, ["--nms-mode", "fast"], "ROADMAP 1.13"),
+    (cli_evaluate, ["--serving", "int8"], "ROADMAP 1.14"),
+    (cli_evaluate, ["--data-parallel", "2"], "ROADMAP 1.15"),
+])
+def test_unported_flags_raise(cli, argv, match, tmp_path):
+    base = (["--data-dir", str(tmp_path)] if cli is cli_train
+            else ["--checkpoint-dir", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match=match):
+        cli.main(base + argv + ["--device", "cpu"])
+
+
+def test_the_default_device_is_the_gpu(trained):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    data, ckpt, _ = trained
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_train.main(["--data-dir", data, "--preset", "tiny",
+                        "--checkpoint-dir", ckpt + "_gpu"])
+    assert not os.path.exists(ckpt + "_gpu")

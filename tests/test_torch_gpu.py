@@ -1,6 +1,8 @@
 """Tests of the PyTorch port that need an NVIDIA GPU: the CUDA kernels (NMS,
 the fused loss forward and backward, the BN statistics forward and backward)
-have no CPU mode. They skip without a card. This file imports neither JAX
+have no CPU mode, and the paths that run them (serving, the train step, the
+mAP accumulator, ``Trainer.fit``, the pinned-memory prefetch). They skip
+without a card. This file imports neither JAX
 nor the JAX package, so on a machine without JAX it runs alone:
 
     python -m pytest --noconftest tests/test_torch_gpu.py -q -m gpu
@@ -409,3 +411,145 @@ def test_train_gradients_match_the_cpu_on_identical_inputs(cuda, no_tf32, seed):
         assert err <= 1e-4, (k, err)
     for k, want in c_stats.items():
         torch.testing.assert_close(g_stats[k], want, rtol=1e-4, atol=1e-4, msg=k)
+
+
+def _grids(seed, batch=4, classes=3):
+    """(y_true, y_pred) grids: 3 objects an image, predictions near them."""
+    rng = np.random.RandomState(seed)
+    yt = np.zeros((batch, 7, 7, classes + 10), np.float32)
+    for b in range(batch):
+        for _ in range(3):
+            i, j = rng.randint(7), rng.randint(7)
+            yt[b, i, j, :classes + 1] = 0
+            yt[b, i, j, rng.randint(classes)] = 1
+            yt[b, i, j, classes] = 1
+            yt[b, i, j, classes + 1:classes + 5] = rng.uniform(
+                [0, 0, 0.05, 0.05], [1, 1, 0.5, 0.5])
+    yp = (0.8 * yt + 0.3 * rng.uniform(-0.2, 1, yt.shape)).astype(np.float32)
+    return torch.from_numpy(yt), torch.from_numpy(yp)
+
+
+@pytest.mark.parametrize("nms_on_targets", [True, False])
+def test_map_on_the_gpu_matches_the_cpu(cuda, nms_on_targets):
+    """The accumulator on the card (NMS kernel, two launches an update with
+    NMS on the targets, one without) gives the CPU's mAP, per-class AP and
+    PR curves within 1e-6; the kernel's keep sets are bit-equal, only the
+    float sums may differ."""
+    from keras_object_detection_torch.ops.map import MeanAveragePrecision
+
+    metrics = {dev: MeanAveragePrecision(3, 2, nms_on_targets=nms_on_targets)
+               for dev in ("cpu", "cuda")}
+    before = cuda_nms.LAUNCHES
+    for seed in range(3):
+        yt, yp = _grids(seed)
+        weight = torch.tensor([1, 1, 1, seed != 2])
+        for dev, m in metrics.items():
+            m.update_state(yt.to(dev), yp.to(dev), weight.to(dev))
+    assert cuda_nms.LAUNCHES - before == 3 * (2 if nms_on_targets else 1)
+    got, want = metrics["cuda"], metrics["cpu"]
+    assert abs(got.result() - want.result()) <= 1e-6 and got.result() > 0
+    np.testing.assert_allclose(got.result_per_class(), want.result_per_class(),
+                               atol=1e-6)
+    multi, cpu_multi = got.result_multi(), want.result_multi()
+    for k in multi:
+        assert abs(multi[k] - cpu_multi[k]) <= 1e-6, k
+    yt, _ = _grids(7)
+    gt = MeanAveragePrecision(3, 2)
+    gt.update_state(yt.to(cuda), yt.to(cuda))
+    assert 1.0 - 1e-5 <= gt.result() <= 1.0
+
+
+def _cached_set(root, n, seed):
+    """A small decoded-cache dataset (no decoder needed) at 56²."""
+    import os
+
+    from keras_object_detection_torch.data import YoloDataset, disk_cache
+
+    os.makedirs(root, exist_ok=True)
+    paths = [os.path.join(root, f"{i}.jpg") for i in range(n)]
+    for p in paths:
+        open(p, "wb").close()
+    images, boxes, valid = _micro_batch(seed)
+    reps = -(-n // 4)
+    disk_cache.write(os.path.join(root, "cache"), paths, 56, 8,
+                     zip(np.tile(images, (reps, 1, 1, 1))[:n],
+                         np.tile(boxes, (reps, 1, 1))[:n],
+                         np.tile(valid, (reps, 1))[:n]))
+    return lambda shuffle: YoloDataset(root, 56, 4, max_boxes=8,
+                                       shuffle=shuffle,
+                                       cache_dir=os.path.join(root, "cache"))
+
+
+@pytest.mark.parametrize("device_cache", [False, True])
+def test_fit_on_the_gpu_goes_through_the_kernels(cuda, tmp_path, device_cache):
+    """Trainer.fit on the card: 5 launches of each BN kernel and one of each
+    loss kernel a train step, two NMS launches a mAP update, finite losses,
+    a checkpoint that restores bit for bit and an Evaluator that gives the
+    logged val loss of the best epoch."""
+    import json
+
+    from keras_object_detection_torch.eval import Evaluator
+    from keras_object_detection_torch.train import Trainer
+
+    ds = _cached_set(str(tmp_path / "data"), 10, 4)
+    cfg = _micro_config()
+    cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, batch_size=4,
+                                      device_cache=device_cache),
+        train=dataclasses.replace(
+            cfg.train, map_eval_start_epoch=0, map_eval_every=1,
+            schedule=dataclasses.replace(cfg.train.schedule, base_lr=1e-5),
+            checkpoint_dir=str(tmp_path / "ckpt"),
+            log_dir=str(tmp_path / "logs")),
+        eval=dataclasses.replace(cfg.eval, mask_padded_images=True))
+    trainer = Trainer(cfg, use_tensorboard=False)
+    before, nms_before = _counts(), cuda_nms.LAUNCHES
+    state = trainer.fit(ds(True), ds(False), epochs=2, verbose=False)
+    torch.cuda.synchronize()
+    steps, updates = 2 * 3, 2 * 3
+    assert [a - b for a, b in zip(_counts(), before)] == [
+        5 * steps, 5 * steps, steps, steps]
+    assert cuda_nms.LAUNCHES - nms_before == 2 * updates
+    with open(trainer.logger.path) as f:
+        logs = [json.loads(line) for line in f]
+    assert all(np.isfinite(r["val_loss"]) and 0 <= r["val_mAP"] <= 1
+               for r in logs)
+    restored = trainer.ckpt.restore(state, step=trainer.ckpt.latest_step)
+    for (k, a), b in zip(state.model.state_dict().items(),
+                         restored.model.state_dict().values()):
+        assert torch.equal(a, b) and a.data_ptr() != b.data_ptr(), k
+    best = trainer.ckpt.best_step
+    out = Evaluator(cfg).evaluate(trainer.ckpt.restore(state), ds(False))
+    logged = [r for r in logs if r["step"] == best][-1]
+    assert out["loss"] == pytest.approx(logged["val_loss"], rel=1e-6)
+    assert out["mAP"] == pytest.approx(logged["val_mAP"], abs=1e-6)
+    trainer.close()
+
+
+def test_prefetched_batches_reach_the_gpu_from_pinned_memory(cuda, tmp_path):
+    ds = _cached_set(str(tmp_path), 10, 5)
+    host, fetched = ds(True), ds(True)
+    for _ in range(2):
+        for want, got in zip(host.epoch(), fetched.prefetched(cuda)):
+            for a, b in zip(got, want):
+                assert a.is_cuda
+                np.testing.assert_array_equal(a.cpu().numpy(), b)
+
+
+def test_decoded_jpegs_match_on_the_gpu_machine(cuda, tmp_path):
+    """Where cv2 imports, JPEGs written and read back here decode to the
+    same batches through the host loader and the device cache."""
+    cv2 = pytest.importorskip("cv2")
+    from keras_object_detection_torch.data import (DeviceCachedDataset,
+                                                   YoloDataset)
+
+    rng = np.random.RandomState(0)
+    for i in range(5):
+        cv2.imwrite(str(tmp_path / f"{i}.jpg"),
+                    rng.randint(0, 256, (64, 80, 3)).astype(np.uint8))
+        (tmp_path / f"{i}.txt").write_text("1 0.5 0.5 0.2 0.3\n")
+    mk = lambda: YoloDataset(str(tmp_path), 56, 2, max_boxes=4, shuffle=True)
+    host, dev = mk(), DeviceCachedDataset(mk(), cuda)
+    for (hi, hb, hv), (di, db, dv, _) in zip(host.epoch(), dev.epoch()):
+        for a, b in zip((di, db, dv), (hi, hb, hv)):
+            np.testing.assert_array_equal(a.cpu().numpy(), b)

@@ -1,6 +1,8 @@
 """The PyTorch port and chip_smoke.py stand alone: they import no JAX, flax,
 optax or orbax, and nothing of the JAX package. With those blocked, the port
-serves and takes a train step on both paths."""
+serves, takes a train step on both paths, runs a one-epoch ``Trainer.fit``
+over a small decoded-cache dataset with ``Evaluator.evaluate`` on it, and
+both command lines answer ``--help``."""
 
 import pathlib
 import re
@@ -45,6 +47,41 @@ images = np.random.RandomState(0).randint(0, 256, (2, 224, 224, 3), np.uint8)
 rows, valid = InferenceModel(cfg, sd, device="cpu").predict(images)
 assert rows.shape == (2, 49, 6) and valid.shape == (2, 49)
 assert torch.isfinite(rows).all()
+
+import os, subprocess, tempfile
+from keras_object_detection_torch.data import YoloDataset, disk_cache
+from keras_object_detection_torch.eval import Evaluator
+from keras_object_detection_torch.train import Trainer
+tmp = tempfile.mkdtemp()
+paths = [os.path.join(tmp, f"{{i}}.jpg") for i in range(4)]
+for p in paths:
+    open(p, "wb").close()
+rng = np.random.RandomState(0)
+boxes = np.zeros((4, 4, 5), np.float32)
+boxes[:, 0] = [0.5, 0.5, 0.3, 0.3, 1]
+disk_cache.write(os.path.join(tmp, "cache"), paths, 56, 4,
+                 zip(rng.randint(0, 256, (4, 56, 56, 3)).astype(np.uint8),
+                     boxes, np.ones((4, 4), bool)))
+tc = dataclasses.replace(
+    cfg, model=dataclasses.replace(cfg.model, backbone="darknet_micro",
+                                   image_size=56),
+    train=dataclasses.replace(cfg.train, checkpoint_dir=os.path.join(tmp, "c"),
+                              log_dir=os.path.join(tmp, "l"),
+                              map_eval_start_epoch=0))
+ds = YoloDataset(tmp, 56, 2, max_boxes=4, cache_dir=os.path.join(tmp, "cache"))
+trainer = Trainer(tc, device="cpu", use_tensorboard=False)
+state = trainer.fit(ds, ds, epochs=1, verbose=False)
+trainer.close()
+assert trainer.ckpt.all_steps == [0]
+out = Evaluator(tc, device="cpu").evaluate(state, ds)
+assert np.isfinite(out["loss"]) and 0.0 <= out["mAP"] <= 1.0
+for cli in ("train", "evaluate"):
+    proc = subprocess.run([sys.executable, "-c", "import sys; "
+                           f"sys.modules.update(dict.fromkeys({BLOCKED!r})); "
+                           f"from keras_object_detection_torch.cli.{{cli}} "
+                           "import main; main(['--help'])"],
+                          capture_output=True, text=True)
+    assert proc.returncode == 0 and "usage:" in proc.stdout, proc.stderr
 leaked = [m for m in sys.modules
           if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None]
 assert not leaked, leaked
