@@ -40,11 +40,13 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
              3136x30, with --parent in turns with the other checkout's
              kernels (parent, new, new, parent);
 6. bn      - the BN-statistics kernels (K2, K3) against their plain versions
-             at the shape of each of the flagship's 25 BatchNorms at batch
-             64, in bf16 and f32, and at odd shapes; times, bounds, and
-             beside them the one PyTorch call that computes each
-             function (torch.var_mean for K2,
-             torch.batch_norm_backward_reduce for K3);
+             at the shape of each BatchNorm at batch 64 of the flagship (25),
+             of MobileNetV2 (52, the variants phase's test_model_config) and
+             of the GAP dense head (the 2-D (64, 4960)), in bf16 and f32,
+             and at odd shapes (2-D ones too); times, bounds, and beside
+             them the one PyTorch call that computes each function
+             (torch.var_mean for K2, torch.batch_norm_backward_reduce for
+             K3), summed over each model's shapes;
 7. train-check - a small model's train step (darknet_micro @56, both
              kernel switches on, SGD, float32, TF32 off) on the GPU against
              the same step on the CPU from the same weights and draws, stage
@@ -78,8 +80,20 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
              and a resumed epoch puts the checkpoint axis at 0, 1, 2; the
              Evaluator on the best checkpoint reproduces its epoch's logged
              val loss and mAP; epoch wall, images/s, val images/s, mAP and
-             checkpoint times;
-10. launches - CUDA launches per call of K1, K4 and K5 (1 each) and of
+             checkpoint times; the final weights' loss on a val batch in
+             eval mode beside the same weights' train-mode loss;
+10. variants - the v1 transfer family at full width (448², C=20, bf16,
+             batch 64, nadam, both kernel switches on), each configuration
+             voc_full_config with the model fields of VARIANTS replaced:
+             VGG16 + conv head with the backbone frozen (the reference's
+             recipe) and not frozen, test_model_config (MobileNetV2 + GAP
+             dense head without BN), VGG16 + flatten_dense head (dropout
+             on): 3 warm-up and 5 timed steps each, launches a step (K2 and
+             K3 once per training BatchNorm: 1, 1, 52, 4; K4, K5 1), p50,
+             images/s, peak memory, dy layout copies; the frozen VGG16
+             tensors and their nadam moments bit-unchanged; then serving at
+             batch 1 and 32 (K1 once a call, predict == the plain NMS);
+11. launches - CUDA launches per call of K1, K4 and K5 (1 each) and of
              the other checkout's, from a torch.profiler trace, after the
              train and fit phases so that no profiler hook slows them.
 
@@ -879,20 +893,24 @@ def phase_launches(loss: dict, nms: dict) -> None:
             loss["timing"][name][tag]["cuda_launches"] = len(v)
 
 
-def flagship_bn_shapes(dev, batch: int = 64) -> list:
-    """(N, C, H, W) of each of voc_full_config's 25 BatchNorm inputs."""
+def bn_shapes(dev, cfg=None, batch: int = 64) -> list:
+    """The input shape, at ``batch``, of each BatchNorm of ``cfg``'s model
+    (default: voc_full_config, the flagship's 25), in forward order: (N, C,
+    H, W), or (N, C) for a Dense output's."""
     from keras_object_detection_torch.config import voc_full_config
     from keras_object_detection_torch.models import build_model
     from keras_object_detection_torch.models.layers import BatchNorm
 
-    model = build_model(voc_full_config(), torch.Generator().manual_seed(0))
+    cfg = cfg or voc_full_config()
+    model = build_model(cfg, torch.Generator().manual_seed(0))
     model = model.to(dev, memory_format=torch.channels_last)
     shapes = []
     hooks = [m.register_forward_hook(
         lambda mod, inp, out: shapes.append((batch,) + tuple(inp[0].shape[1:])))
         for m in model.modules() if isinstance(m, BatchNorm)]
+    size = cfg.model.image_size
     with torch.inference_mode():
-        model(torch.zeros(1, 448, 448, 3, device=dev))
+        model(torch.zeros(1, size, size, 3, device=dev))
     for h in hooks:
         h.remove()
     del model
@@ -904,8 +922,8 @@ def bn_bound_ms(shape, itemsize: int, grad: bool) -> tuple:
     """Least time of one BN-statistics launch: its inputs read once (x; dy
     and x for the gradient statistics) and the (2, C) sums written, against
     3 (5) float32 operations per element."""
-    n, c, h, w = shape
-    elems = n * c * h * w
+    c = shape[1]
+    elems = math.prod(shape)
     nbytes = elems * itemsize * (2 if grad else 1) + 2 * c * 4
     ops = elems * (5 if grad else 3)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -927,28 +945,57 @@ def bn_grad_library(dy, x, mean, rstd, ones):
     return grad_bias, grad_weight
 
 
+BN_ODD_SHAPES = [(5, 32, 13, 11), (3, 24, 7, 7), (7, 24, 9, 5), (5, 7), (3, 4960),
+                 (9, 20)]
+
+
+def bn_groups(dev) -> dict:
+    """name -> the BatchNorm input shapes, at batch 64, of a model whose
+    BatchNorms the kernels serve: the flagship's 25, MobileNetV2's 52 (the
+    variants phase's test_model_config) and the GAP dense head's 2-D one."""
+    groups = {"flagship": bn_shapes(dev),
+              "mobilenetv2": bn_shapes(dev, variant_config(**VARIANTS["test_model"])),
+              "gap_dense_2d": bn_shapes(dev, variant_config(
+                  backbone="vgg16", head="gap_dense"))}
+    want = {"flagship": 25, "mobilenetv2": 52, "gap_dense_2d": 1}
+    if {k: len(v) for k, v in groups.items()} != want:
+        raise SystemExit(f"BatchNorm counts {groups} differ from {want}")
+    if groups["gap_dense_2d"] != [(64, 4960)]:
+        raise SystemExit(f"the GAP head's BatchNorm input is "
+                         f"{groups['gap_dense_2d']}, not (64, 4960)")
+    return groups
+
+
+def kernel_layout_tensor(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the BN kernels' layout: channels_last for NCHW, contiguous
+    for (M, C)."""
+    if t.dim() == 4:
+        return t.contiguous(memory_format=torch.channels_last)
+    return t.contiguous()
+
+
 def phase_bn(dev) -> dict:
     from keras_object_detection_torch.ops import bn
 
-    shapes = flagship_bn_shapes(dev)
-    log(f"[bn] the flagship's {len(shapes)} BatchNorm inputs at batch 64: "
-        + ", ".join(f"{c}x{h}x{w}" for _, c, h, w in shapes))
-    if len(shapes) != 25:
-        raise SystemExit("the flagship does not have 25 BatchNorms")
+    groups = bn_groups(dev)
+    for name, shapes in groups.items():
+        log(f"[bn] {name}: {len(shapes)} BatchNorm inputs at batch 64: "
+            + ", ".join("x".join(map(str, sh[1:])) for sh in shapes))
     gen = torch.Generator(device=dev).manual_seed(0)
     max_rel = {"stats": 0.0, "grad": 0.0}
     max_abs = {"stats": 0.0, "grad": 0.0}
-    tot = {k: 0.0 for k in ("k2", "k3", "p2", "p3", "b2", "b3", "lib2",
-                            "lib3")}
-    largest = None
+    keys = ("k2", "k3", "p2", "p3", "b2", "b3", "lib2", "lib3")
+    tot = {name: dict.fromkeys(keys, 0.0) for name in groups}
+    largest = {}
     lib_rel = 0.0
-    odd = [(5, 32, 13, 11), (3, 24, 7, 7), (7, 24, 9, 5)]
-    for shape in [*shapes, *odd]:
+    cases = [(name, sh) for name, shapes in groups.items() for sh in shapes]
+    cases += [("odd", sh) for sh in BN_ODD_SHAPES]
+    for group, shape in cases:
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(shape, generator=gen, device=dev) * 2 + 0.5
             dy = torch.randn(shape, generator=gen, device=dev)
-            x = x.to(dtype).contiguous(memory_format=torch.channels_last)
-            dy = dy.to(dtype).contiguous(memory_format=torch.channels_last)
+            x = kernel_layout_tensor(x.to(dtype))
+            dy = kernel_layout_tensor(dy.to(dtype))
             m = x.numel() // shape[1]
             got = bn.cuda_bn_stats_sums(x)
             want = bn.bn_stats_sums_plain(x)
@@ -966,55 +1013,58 @@ def phase_bn(dev) -> dict:
                 if rel > 1e-5:
                     raise SystemExit(f"BN {key} kernel disagrees at {shape} "
                                      f"{dtype}: {rel:.3e}")
-            if dtype != torch.bfloat16 or shape not in shapes:
+            if dtype != torch.bfloat16 or group == "odd":
                 continue
-            # timing: the step's launches are bf16 at these shapes
+            # timing: the steps' launches are bf16 at these shapes
+            dims = (0, 2, 3) if x.dim() == 4 else 0
             k2 = graph_ms(lambda: bn.cuda_bn_stats_sums(x), reps=20, replays=5)
             k3 = graph_ms(lambda: bn.cuda_bn_grad_sums(dy, x, mean, rstd),
                           reps=20, replays=5)
             p2 = cuda_ms(lambda: bn.bn_stats_sums_plain(x), 5, warmup=1)
             p3 = cuda_ms(lambda: bn.bn_grad_sums_plain(dy, x, mean, rstd), 5,
                          warmup=1)
-            lib2 = cuda_ms(lambda: torch.var_mean(x, dim=(0, 2, 3),
-                                                  correction=0), 5, warmup=1)
+            lib2 = cuda_ms(lambda: torch.var_mean(x, dim=dims, correction=0), 5,
+                           warmup=1)
             ones = torch.ones(shape[1], device=dev)
-            lib3 = cuda_ms(lambda: bn_grad_library(dy, x, mean, rstd, ones), 5,
+            # the library call takes (N, C, ...) inputs; a 2-D one as (N, C, 1, 1)
+            x4, dy4 = ((x, dy) if x.dim() == 4 else
+                       (x[..., None, None], dy[..., None, None]))
+            lib3 = cuda_ms(lambda: bn_grad_library(dy4, x4, mean, rstd, ones), 5,
                            warmup=1)
             # the library call computes K3's function: its sums against plain
-            got_l = torch.stack(bn_grad_library(dy, x, mean, rstd, ones))
+            got_l = torch.stack(bn_grad_library(dy4, x4, mean, rstd, ones))
             scale = want_g.abs().amax(dim=1, keepdim=True).clamp_min(1.0)
             lib_rel = max(lib_rel, ((got_l - want_g).abs() / scale).max().item())
             b2, _ = bn_bound_ms(shape, 2, False)
             b3, _ = bn_bound_ms(shape, 2, True)
-            for key, v in (("k2", k2), ("k3", k3), ("p2", p2), ("p3", p3),
-                           ("b2", b2), ("b3", b3), ("lib2", lib2),
-                           ("lib3", lib3)):
-                tot[key] += v
-            if largest is None or x.numel() > largest["elems"]:
-                largest = {"shape": list(shape), "elems": x.numel(), "k2": k2,
-                           "k3": k3, "p2": p2, "p3": p3, "b2": b2, "b3": b3,
-                           "lib2": lib2, "lib3": lib3}
-            del x, dy
-    log(f"[bn] kernels vs plain over {len(shapes)} + {len(odd)} shapes, bf16 "
-        f"and f32: stats max rel err {max_rel['stats']:.3e} (max abs "
-        f"{max_abs['stats']:.3e}), grad stats max rel err {max_rel['grad']:.3e} "
-        f"(max abs {max_abs['grad']:.3e}); relative to each sum's largest "
-        f"channel, float32 sums in another order")
+            row = {"k2": k2, "k3": k3, "p2": p2, "p3": p3, "b2": b2, "b3": b3,
+                   "lib2": lib2, "lib3": lib3}
+            for key, v in row.items():
+                tot[group][key] += v
+            if group not in largest or x.numel() > largest[group]["elems"]:
+                largest[group] = dict(row, shape=list(shape), elems=x.numel())
+            del x, dy, x4, dy4
+    log(f"[bn] kernels vs plain over {len(cases)} shapes ({', '.join(f'{k} {len(v)}' for k, v in groups.items())}, "
+        f"odd {len(BN_ODD_SHAPES)}), bf16 and f32: stats max rel err "
+        f"{max_rel['stats']:.3e} (max abs {max_abs['stats']:.3e}), grad stats "
+        f"max rel err {max_rel['grad']:.3e} (max abs {max_abs['grad']:.3e}); "
+        f"relative to each sum's largest channel, float32 sums in another order")
     log(f"[bn] {BN_GRAD_LIBRARY_CALL} against K3's plain version: max rel "
         f"err {lib_rel:.3e} (the same two sums; timed, not used by the port)")
-    L = largest
-    log(f"[bn] largest {L['shape']} bf16: K2 {L['k2']:.5f} ms (plain "
-        f"{L['p2']:.4f}, torch.var_mean {L['lib2']:.4f}, bound {L['b2']:.5f} "
-        f"bytes), K3 {L['k3']:.5f} ms (plain {L['p3']:.4f}, "
-        f"batch_norm_backward_reduce {L['lib3']:.4f}, bound {L['b3']:.5f} "
-        f"bytes)")
-    log(f"[bn] a step's 25 launches, bf16, summed device ms: K2 {tot['k2']:.5f} "
-        f"(plain {tot['p2']:.4f}, torch.var_mean {tot['lib2']:.4f}, bound "
-        f"{tot['b2']:.5f}), K3 {tot['k3']:.5f} (plain {tot['p3']:.4f}, "
-        f"batch_norm_backward_reduce {tot['lib3']:.4f}, bound "
-        f"{tot['b3']:.5f})")
+    for group, L in largest.items():
+        log(f"[bn] {group}, largest {L['shape']} bf16: K2 {L['k2']:.5f} ms "
+            f"(plain {L['p2']:.4f}, torch.var_mean {L['lib2']:.4f}, bound "
+            f"{L['b2']:.5f} bytes), K3 {L['k3']:.5f} ms (plain {L['p3']:.4f}, "
+            f"batch_norm_backward_reduce {L['lib3']:.4f}, bound {L['b3']:.5f} "
+            f"bytes)")
+    for group, t in tot.items():
+        log(f"[bn] {group}: a step's {len(groups[group])} launches, bf16, "
+            f"summed device ms: K2 {t['k2']:.5f} (plain {t['p2']:.4f}, "
+            f"torch.var_mean {t['lib2']:.4f}, bound {t['b2']:.5f}), K3 "
+            f"{t['k3']:.5f} (plain {t['p3']:.4f}, batch_norm_backward_reduce "
+            f"{t['lib3']:.4f}, bound {t['b3']:.5f})")
     return {"max_rel": max_rel, "max_abs": max_abs, "total": tot,
-            "largest": largest}
+            "largest": largest, "groups": groups}
 
 
 def train_config(kernels: bool):
@@ -1025,6 +1075,31 @@ def train_config(kernels: bool):
         cfg, model=dataclasses.replace(cfg.model,
                                        bn_mode="fused" if kernels else "flax"),
         train=dataclasses.replace(cfg.train, use_pallas_loss=kernels))
+
+
+# the variants phase's configurations: voc_full_config with these model
+# fields replaced, as the JAX CLI builds them (448², S=7, B=2, C=20, bf16,
+# nadam, both kernel switches on)
+VARIANTS = {
+    "vgg16_conv_frozen": dict(backbone="vgg16", head="conv",
+                              freeze_backbone=True),
+    "vgg16_conv": dict(backbone="vgg16", head="conv"),
+    "test_model": dict(backbone="mobilenetv2", head="gap_dense",
+                       head_dense_units=4096, head_batchnorm=False),
+    "vgg16_flatten_dense": dict(backbone="vgg16", head="flatten_dense"),
+}
+# K2 / K3 launches a step: the BatchNorms that train (a frozen backbone's
+# run in eval mode; VGG16 has none)
+VARIANT_BN_LAUNCHES = {"vgg16_conv_frozen": 1, "vgg16_conv": 1,
+                       "test_model": 52, "vgg16_flatten_dense": 4}
+VARIANT_WARMUP, VARIANT_STEPS, VARIANT_BATCH = 3, 5, 64
+
+
+def variant_config(**model):
+    """train_config(kernels=True) with ``model``'s fields replaced."""
+    cfg = train_config(True)
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                              **model))
 
 
 def synthetic_batch(batch: int, size: int, max_boxes: int, dev):
@@ -1248,16 +1323,17 @@ def phase_train_check(dev) -> None:
                          + "; ".join(failed))
 
 
-def time_steps(state, step, batch, seed: int) -> tuple:
-    """TRAIN_WARMUP steps, then TRAIN_STEPS timed ones, each ended by a
+def time_steps(state, step, batch, seed: int, warmup: int = TRAIN_WARMUP,
+               steps: int = TRAIN_STEPS) -> tuple:
+    """``warmup`` steps, then ``steps`` timed ones, each ended by a
     synchronize. Returns (host ms per timed step, metrics of the last,
     kernel launch counts of the timed steps)."""
-    for _ in range(TRAIN_WARMUP):
+    for _ in range(warmup):
         state, metrics = step(state, *batch, seed)
     torch.cuda.synchronize()
     reset_kernel_counts()  # the main path: counts at 0 just before
     times = []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         state, metrics = step(state, *batch, seed)
         torch.cuda.synchronize()
@@ -1507,6 +1583,43 @@ def check_fit_launches(name: str, counts: dict, steps: int,
         raise SystemExit(f"the {name} fit launched {counts}, expected {want}")
 
 
+def eval_and_train_mode_loss(cfg, eval_step, state, val_ds) -> dict:
+    """The loss of ``state``'s weights on the first val batch with
+    BatchNorm in eval mode (the eval step: running statistics) and in train
+    mode (the batch's statistics; a copy of the model, so the state's
+    running statistics do not move), and how far the first BatchNorm's
+    running statistics lie from that batch's."""
+    import copy
+
+    from keras_object_detection_torch.core.grid import encode_grid
+    from keras_object_detection_torch.data.augment import preprocess_eval_batch
+    from keras_object_detection_torch.losses.yolo import yolo_v1_loss_terms
+    from keras_object_detection_torch.models.layers import BatchNorm
+
+    g, t = cfg.grid, cfg.train
+    dev = next(state.model.parameters()).device
+    images, boxes, valid = next(iter(val_ds.prefetched(dev)))
+    eval_loss = float(eval_step(state, images, boxes, valid)[0])
+    model = copy.deepcopy(state.model).train()
+    first = next(m for m in model.modules() if isinstance(m, BatchNorm))
+    seen = {}
+    hook = first.register_forward_hook(lambda m, i, o: seen.update(x=i[0]))
+    with torch.no_grad():
+        y_true = encode_grid(boxes, valid, g.num_classes, g.num_boxes, g.grid)
+        running = (first.running_mean.clone(), first.running_var.clone())
+        y_pred = model(preprocess_eval_batch(images)).reshape(y_true.shape)
+        train_loss = float(yolo_v1_loss_terms(
+            y_true, y_pred, g.num_classes, g.num_boxes, t.lambda_coord,
+            t.lambda_noobj, t.noobj_mode, t.box_loss_mode)["total"])
+        x = seen["x"].float()
+        mean, var = x.mean(dim=(0, 2, 3)), x.var(dim=(0, 2, 3), unbiased=False)
+    hook.remove()
+    del model
+    return {"eval": eval_loss, "train": train_loss,
+            "mean_gap": (running[0] - mean).abs().mean().item(),
+            "var_ratio": (running[1] / var.clamp_min(1e-12)).mean().item()}
+
+
 def phase_fit(dev, train: dict) -> dict:
     """The training run (see the module docstring, phase 9)."""
     from keras_object_detection_torch.data import YoloDataset
@@ -1606,6 +1719,15 @@ def phase_fit(dev, train: dict) -> dict:
             # denominators; an absent class counts 0 in the mean
             raise SystemExit("ground truth as prediction does not give AP 1")
     log(f"[fit] (NMS kernel launches of these checks: {cuda_nms.LAUNCHES})")
+    both = eval_and_train_mode_loss(cfg, trainer._eval_step, state, val_ds)
+    out["val_loss_modes"] = both
+    log(f"[fit] the final weights on the first val batch (64 images): "
+        f"eval-mode loss {both['eval']:.6g} (BatchNorm on its running "
+        f"statistics), train-mode loss {both['train']:.6g} (on the batch's "
+        f"statistics, no update), ratio {both['eval'] / both['train']:.4g}; "
+        f"running statistics vs this batch's at the first BatchNorm: mean "
+        f"|mean - batch mean| {both['mean_gap']:.4g}, mean running / batch "
+        f"variance {both['var_ratio']:.4g}")
 
     # resume: the latest checkpoint is the final state, bit for bit; one
     # more epoch continues the checkpoint axis
@@ -1655,6 +1777,137 @@ def phase_fit(dev, train: dict) -> dict:
     log(f"[fit] phase took {time.perf_counter() - t_phase:.1f} s")
     out.update(counts=counts, device_cache_counts=runs["device cache"][1],
                logs=logs, map_checks=checks)
+    return out
+
+
+def serve_variant(cfg, state_dict, dev) -> dict:
+    """Serving at batch 1 and 32 through InferenceModel: K1 launches of the
+    two predict calls (counts at 0 just before, read just after), predict()
+    against the plain NMS of predict_decoded(), p50 latencies."""
+    from keras_object_detection_torch.eval import InferenceModel
+    from keras_object_detection_torch.ops import cuda_nms
+    from keras_object_detection_torch.ops.nms import batched_non_max_suppression
+
+    model = InferenceModel(cfg, state_dict)  # the default device: the GPU
+    rng = np.random.RandomState(1)
+    size, s = cfg.model.image_size, cfg.grid.grid
+    batch1, batch32 = (torch.from_numpy(rng.randint(
+        0, 256, (b, size, size, 3), np.uint8)).to(dev) for b in (1, 32))
+    cuda_nms.LAUNCHES = 0
+    rows1, valid1 = model.predict(batch1)
+    rows32, valid32 = model.predict(batch32)
+    torch.cuda.synchronize()
+    launches = cuda_nms.LAUNCHES
+    plain = batched_non_max_suppression(model.predict_decoded(batch32),
+                                        cfg.eval.iou_threshold,
+                                        cfg.eval.conf_threshold)
+    ok = (launches == 2 and tuple(rows1.shape) == (1, s * s, 6)
+          and tuple(rows32.shape) == (32, s * s, 6)
+          and bool(torch.isfinite(rows32).all())
+          and torch.equal(plain[0], rows32) and torch.equal(plain[1], valid32))
+    lat1 = model.benchmark_latency(batch1, runs=10)
+    lat32 = model.benchmark_latency(batch32, runs=5)
+    del model
+    return {"launches": launches, "ok": ok, "p50_ms_1": lat1["p50_ms"],
+            "p50_ms_32": lat32["p50_ms"], "kept_32": int(valid32.sum())}
+
+
+def phase_variants(dev) -> dict:
+    """The v1 transfer family at full width (see the module docstring,
+    phase 10): per configuration of VARIANTS, train steps on the kernel path
+    with each kernel's launches a step, the frozen backbone bit-unchanged,
+    then serving."""
+    from keras_object_detection_torch.config import test_model_config
+    from keras_object_detection_torch.models.layers import BatchNorm
+    from keras_object_detection_torch.ops import bn
+    from keras_object_detection_torch.train import (create_train_state,
+                                                    make_train_step)
+    from keras_object_detection_torch.train.loop import dropout_generator
+
+    smi = card()
+    want_test_model = dataclasses.replace(test_model_config().model,
+                                          bn_mode="fused")
+    if variant_config(**VARIANTS["test_model"]).model != want_test_model:
+        raise SystemExit("the test_model variant is not test_model_config()")
+    out = {}
+    for name, fields in VARIANTS.items():
+        t0 = time.perf_counter()
+        cfg = variant_config(**fields)
+        torch.cuda.reset_peak_memory_stats(dev)
+        state = create_train_state(cfg, torch.Generator().manual_seed(0))
+        model = state.model
+        n_values = sum(v.numel() for v in model.state_dict().values())
+        training_bns = sum(m.training for m in model.modules()
+                           if isinstance(m, BatchNorm))
+        if training_bns != VARIANT_BN_LAUNCHES[name]:
+            raise SystemExit(f"{name}: {training_bns} BatchNorms train, "
+                             f"expected {VARIANT_BN_LAUNCHES[name]}")
+        b = VARIANT_BATCH
+        keep = model.draw_dropout(b, dropout_generator(0, 0))
+        if (keep is not None) != (cfg.model.head == "flatten_dense"):
+            raise SystemExit(f"{name}: dropout is "
+                             f"{'on' if keep is not None else 'off'}")
+        names = [n for n, _ in model.named_parameters()]
+        backbone = {n: p.detach().clone() for n, p in model.named_parameters()
+                    if n.startswith("backbone.")}
+        head = {n: p.detach().clone() for n, p in model.named_parameters()
+                if n.startswith("head.")}
+        batch = synthetic_batch(b, cfg.model.image_size,
+                                cfg.data.max_boxes_per_image, dev)
+        step = make_train_step(cfg)
+        times, metrics, counts = time_steps(state, step, batch, seed=1,
+                                            warmup=VARIANT_WARMUP,
+                                            steps=VARIANT_STEPS)
+        dy_copies = bn.DY_LAYOUT_COPIES
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        p50 = float(np.median(times))
+        loss = metrics["total"].item()
+        per_step = {k: v / VARIANT_STEPS for k, v in counts.items()}
+        want = {"bn_stats": training_bns, "bn_grad_stats": training_bns,
+                "yolo_loss_forward": 1, "yolo_loss_backward": 1}
+        log(f"[variants] {name} on {smi}: {cfg.model.backbone} + "
+            f"{cfg.model.head} head, freeze_backbone="
+            f"{cfg.model.freeze_backbone}, {n_values} values, batch {b}: "
+            f"step p50 {p50:.3f} ms (min {min(times):.3f}, max "
+            f"{max(times):.3f}), {b / p50 * 1e3:.1f} images/s, peak device "
+            f"memory {peak:.3f} GiB, loss {loss:.4f}; kernel launches over "
+            f"{VARIANT_STEPS} steps {counts} (expected a step {want}), dy "
+            f"layout copies {dy_copies}")
+        if per_step != want or not np.isfinite(loss):
+            raise SystemExit(f"{name}: launches {per_step} a step (expected "
+                             f"{want}), loss {loss}")
+        params = dict(model.named_parameters())
+        if cfg.model.freeze_backbone:
+            moments = [(state.opt.mu[i], state.opt.nu[i])
+                       for i, n in enumerate(names) if n.startswith("backbone.")]
+            same = all(torch.equal(params[n], v) for n, v in backbone.items())
+            still = all(not mu.any() and not nu.any() for mu, nu in moments)
+            log(f"[variants] {name}: after {VARIANT_WARMUP + VARIANT_STEPS} "
+                f"steps the {len(backbone)} VGG16 tensors are bit-unchanged: "
+                f"{same}, their nadam moments all zero: {still}")
+            if not (same and still):
+                raise SystemExit(f"{name}: the frozen backbone moved")
+        moved = sum(not torch.equal(params[n], v) for n, v in head.items())
+        if moved < len(head) // 2:
+            raise SystemExit(f"{name}: only {moved} of {len(head)} head "
+                             f"tensors trained")
+        sd = model.state_dict()
+        del state, model, step, batch, params, backbone, head
+        torch.cuda.empty_cache()
+        serve = serve_variant(cfg, sd, dev)
+        log(f"[variants] {name}: serving batch 1 p50 {serve['p50_ms_1']:.3f} "
+            f"ms, batch 32 p50 {serve['p50_ms_32']:.3f} ms "
+            f"({32 / serve['p50_ms_32'] * 1e3:.1f} images/s); NMS kernel "
+            f"launches over 2 predict calls {serve['launches']}; predict == "
+            f"plain NMS of predict_decoded, finite: {serve['ok']}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not serve["ok"]:
+            raise SystemExit(f"{name}: serving failed its checks")
+        out[name] = {"p50_ms": p50, "images_per_s": b / p50 * 1e3,
+                     "peak_gib": peak, "loss": loss, "counts": counts,
+                     "dy_copies": dy_copies, "serve": serve}
+        del sd
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1708,6 +1961,7 @@ def main() -> int:
     phase_train_check(dev)
     train = phase_train(dev, args.profile)
     fit = phase_fit(dev, train)
+    variants = phase_variants(dev)
     phase_launches(loss, nms)
     counts = train["kernels"]["counts"]
     no_library = ("no single PyTorch call computes this function")
@@ -1746,6 +2000,8 @@ def main() -> int:
         for name, t in nt.items():
             if name != "32x49":
                 k1[f"parent_ms_{name.replace(' ', '_')}"] = t["parent"]["ms"]
+    k1["launches_variants"] = {name: v["serve"]["launches"]
+                               for name, v in variants.items()}
     kernels = [k1]
     for name, key, line in (("yolo_loss_forward", "forward", 107),
                             ("yolo_loss_backward", "backward", 149)):
@@ -1763,12 +2019,14 @@ def main() -> int:
             "blocks": lt["blocks"], "plain_ms": lt["plain_ms"],
             "bound_ms": lt["bound_ms"], "bound_by": lt["bound_by"],
             "library_ms": None, "library_note": no_library}
+        entry["launches_variants"] = {v: out["counts"][name]
+                                      for v, out in variants.items()}
         if "parent" in lt:
             entry.update(parent_ms=lt["parent"]["ms"],
                          parent_call_ms=lt["parent"]["call_ms"],
                          parent_cuda_launches_per_call=lt["parent"]["cuda_launches"])
         kernels.append(entry)
-    tot, big = bn["total"], bn["largest"]
+    tot, big = bn["total"]["flagship"], bn["largest"]["flagship"]
     for name, key, line, k, p, b_, lib, call in (
             ("bn_stats", "stats", 66, "k2", "p2", "b2", "lib2",
              "torch.var_mean(x, dim=(0, 2, 3), correction=0)"),
@@ -1787,7 +2045,15 @@ def main() -> int:
             "bound_by": "bytes", "library_ms": tot[lib], "library_call": call,
             "largest_shape": big["shape"], "ms_largest": big[k],
             "plain_ms_largest": big[p], "bound_ms_largest": big[b_],
-            "library_ms_largest": big[lib]})
+            "library_ms_largest": big[lib],
+            "launches_variants": {v: out["counts"][name]
+                                  for v, out in variants.items()},
+            **{f"{field}_{group}": bn["total"][group][key_]
+               for group in ("mobilenetv2", "gap_dense_2d")
+               for field, key_ in (("ms", k), ("plain_ms", p),
+                                   ("bound_ms", b_), ("library_ms", lib))},
+            "shapes_mobilenetv2": len(bn["groups"]["mobilenetv2"]),
+            "shape_gap_dense_2d": list(bn["groups"]["gap_dense_2d"][0])})
     log(f"[train] kernels path p50 {train['kernels']['p50_ms']:.3f} ms, "
         f"{train['kernels']['images_per_s']:.1f} images/s; plain path p50 "
         f"{train['plain']['p50_ms']:.3f} ms, "

@@ -8,8 +8,9 @@ decode and NMS.
 
 from keras_object_detection_torch.config import (Config, EvalConfig,
                                                  GridConfig, ModelConfig,
+                                                 test_model_config,
                                                  tiny_cpu_config,
                                                  voc_full_config)
 
 __all__ = ["Config", "EvalConfig", "GridConfig", "ModelConfig",
-           "tiny_cpu_config", "voc_full_config"]
+           "test_model_config", "tiny_cpu_config", "voc_full_config"]

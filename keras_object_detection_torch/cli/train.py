@@ -9,6 +9,10 @@ Examples:
   python -m keras_object_detection_torch.cli.train --train-dir voc/train \\
       --val-dir voc/val --test-dir voc/test --preset voc --epochs 1000
 
+  # the reference's transfer recipe: VGG16 from ImageNet weights, frozen
+  python -m keras_object_detection_torch.cli.train --data-dir voc/ \\
+      --backbone vgg16 --pretrained-backbone vgg16_notop.h5 --freeze-backbone
+
 Writes ``config.json`` beside the checkpoints (``cli.evaluate`` reads it),
 resumes from the latest checkpoint with ``--resume``, and evaluates the best
 checkpoint on ``--test-dir`` after the fit. A flag whose feature is not
@@ -23,7 +27,7 @@ import os
 
 # flag -> the ROADMAP item that ports its feature
 UNPORTED_FLAGS = {
-    "anchors": "1.10", "pretrained_backbone": "1.9", "profile_dir": "1.15",
+    "anchors": "1.10", "profile_dir": "1.15",
     "multiscale": "1.12", "multiscale_every": "1.12", "mosaic": "1.12",
     "mixup": "1.12",
 }
@@ -60,8 +64,14 @@ def parse_args(argv=None):
     p.add_argument("--log-dir", default="logs")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--compute-dtype", choices=["bfloat16", "float32"])
-    p.add_argument("--pretrained-backbone", metavar="PATH")
-    p.add_argument("--freeze-backbone", action="store_true")
+    p.add_argument("--pretrained-backbone", metavar="PATH",
+                   help="backbone weights loaded at init: a Keras .h5, "
+                        ".weights.h5 or .keras file (vgg16, mobilenetv2; "
+                        "read with h5py) or a darknet .weights / .conv.NN "
+                        "file (darknet backbones)")
+    p.add_argument("--freeze-backbone", action="store_true",
+                   help="train with the backbone frozen (eval mode, no "
+                        "gradient)")
     p.add_argument("--data-parallel", type=int, default=-1,
                    help="-1 or 1: one device (several are ROADMAP 1.15)")
     p.add_argument("--early-stop-patience", type=int)
@@ -134,6 +144,7 @@ def build_config(args):
         grid=over(cfg.grid, num_classes=args.num_classes),
         model=over(cfg.model, backbone=args.backbone, head=args.head,
                    image_size=args.image_size, compute_dtype=args.compute_dtype,
+                   pretrained_backbone=args.pretrained_backbone,
                    freeze_backbone=args.freeze_backbone or None),
         data=over(cfg.data, train_dir=train_dir, val_dir=val_dir,
                   test_dir=test_dir, batch_size=args.batch_size,

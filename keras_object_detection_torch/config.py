@@ -50,9 +50,10 @@ class GridConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    # The port builds darknet24 | darknet_tiny | darknet_micro so far.
+    # darknet24 | darknet19 | darknet_tiny | darknet_micro | vgg16 |
+    # mobilenetv2 (darknet53 is ROADMAP 1.11)
     backbone: str = "darknet24"
-    # The port builds head="conv" so far.
+    # conv | gap_dense | flatten_dense (anchor and fpn are ROADMAP 1.10/1.11)
     head: str = "conv"
     image_size: int = 448
     # Activations in this dtype; parameters and BN statistics stay float32.
@@ -61,11 +62,19 @@ class ModelConfig:
     head_batchnorm: bool = True
     activation: str = "relu"  # or "leaky_relu" = LeakyReLU(0.1)
     # "flax" (plain torch) | "fused" (the hand-written BN-statistics kernels)
+    # | "mxu" (float32 column sums in plain torch) | "flax@N" (batch
+    # statistics of the first N images only)
     bn_mode: str = "flax"
+    # Not read by the model, as in the JAX package: the flatten_dense head's
+    # dropout rate is 0.5 whatever this says.
     dropout_rate: float = 0.5
     remat: bool = False
     remat_policy: str = "full"
+    # A Keras .h5 (vgg16 / mobilenetv2) or darknet .weights file loaded into
+    # the backbone at init (models/pretrained.py)
     pretrained_backbone: str = ""
+    # The backbone runs in eval mode without gradient; its parameters get a
+    # zero gradient
     freeze_backbone: bool = False
     passthrough: bool = False
     fpn_scales: int = 3
@@ -232,19 +241,19 @@ class Config:
 
 
 # switch value -> the ROADMAP item that ports it
-_BN_MODES_TO_PORT = {"mxu": "1.9"}
 _OPTIMIZERS_TO_PORT = {"adamw": "1.7", "sgdw": "1.7"}
 _BOX_LOSSES_TO_PORT = {"diou": "1.16", "ciou": "1.16", "alpha_iou": "1.16"}
 
 
 def check_bn_mode(bn_mode: str) -> None:
-    """``flax`` and ``fused`` are ported; ``mxu`` and ``flax@N`` raise."""
-    if bn_mode in ("flax", "fused"):
+    """``flax``, ``fused``, ``mxu`` and ``flax@N`` (N >= 1); anything else
+    raises ``ValueError``."""
+    if bn_mode in ("flax", "fused", "mxu"):
         return
-    if bn_mode in _BN_MODES_TO_PORT or bn_mode.startswith("flax@"):
-        raise NotImplementedError(
-            f"bn_mode {bn_mode!r} is not ported yet (ROADMAP 1.9)")
-    raise ValueError(f"unknown bn_mode {bn_mode!r}; options: flax, fused")
+    base, _, rows = bn_mode.partition("@")
+    if base != "flax" or not rows.isdigit() or int(rows) < 1:
+        raise ValueError(f"unknown bn_mode {bn_mode!r}; options: flax, fused, "
+                         "mxu, flax@N with N >= 1")
 
 
 def check_ported(config: "Config", training: bool = False) -> None:
@@ -274,9 +283,6 @@ def check_ported(config: "Config", training: bool = False) -> None:
     if m.remat:
         # a recomputed forward would update the BN running stats twice
         raise NotImplementedError("remat is not ported yet (ROADMAP 1.7)")
-    if m.freeze_backbone:
-        raise NotImplementedError(
-            "freeze_backbone is not ported yet (ROADMAP 1.7)")
     for name, on in (("mosaic_prob", d.mosaic_prob > 0),
                      ("mixup_prob", d.mixup_prob > 0),
                      ("multiscale_sizes", bool(t.multiscale_sizes))):
@@ -298,6 +304,17 @@ def tiny_cpu_config(data_dir: str = "") -> Config:
                         batch_size=2, drop_remainder=False),
         train=TrainConfig(epochs=5, optimizer="adam",
                           schedule=ScheduleConfig(kind="constant", base_lr=1e-3)),
+    )
+
+
+def test_model_config() -> Config:
+    """The reference's ``test_model`` variant: MobileNetV2 + GAP + a plain
+    Dense(4096) / ReLU head (no BatchNorm), grid-shaped output."""
+    return Config(
+        grid=GridConfig(grid=7, num_boxes=2, num_classes=20),
+        model=ModelConfig(backbone="mobilenetv2", head="gap_dense",
+                          image_size=448, head_dense_units=4096,
+                          head_batchnorm=False),
     )
 
 

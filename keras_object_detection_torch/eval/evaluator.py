@@ -14,6 +14,7 @@ Soft/fast NMS, the staged latency variant (ROADMAP 1.13) and mesh serving
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, Mapping, Optional, Tuple, Union
 
@@ -71,7 +72,9 @@ class InferenceModel:
         return torch.as_tensor(images_u8).to(self.device)
 
     def _forward(self, images_u8: torch.Tensor) -> torch.Tensor:
-        return self.model(preprocess_eval_batch(images_u8))
+        g = self.config.grid
+        y = self.model(preprocess_eval_batch(images_u8))
+        return y.reshape(-1, g.grid, g.grid, g.cell_depth)  # flat heads too
 
     def _decode(self, grid: torch.Tensor) -> torch.Tensor:
         g = self.config.grid
@@ -150,7 +153,11 @@ def load_serving_state(config: Config, checkpoint_dir: str,
     (``average_checkpoints``). ``state_dict`` is the model's, with the EMA
     weights in place of the parameters when ``use_ema`` (a checkpoint
     without an EMA raises)."""
-    template = create_train_state(config, device=device)
+    # the checkpoint replaces every weight: no pretrained file is read
+    template = create_train_state(dataclasses.replace(
+        config, model=dataclasses.replace(config.model,
+                                          pretrained_backbone="")),
+        device=device)
     ckpt = CheckpointManager(checkpoint_dir)
     try:
         if avg_ckpts:

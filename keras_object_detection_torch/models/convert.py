@@ -5,7 +5,11 @@ dicts of numpy arrays (e.g. ``jax.device_get(variables)``; restoring an orbax
 checkpoint needs JAX and stays outside the port) and returns the port's
 ``state_dict``:
 
-- conv kernels go from HWIO to OIHW,
+- conv kernels go from HWIO to OIHW (a depthwise ``(k, k, 1, C)`` kernel to
+  ``(C, 1, k, k)``); MobileNetV2's convs have no bias leaf,
+- Dense kernels go from ``(in, out)`` to ``(out, in)``; the port flattens
+  in NHWC order as JAX does, so a flatten_dense kernel needs no other
+  permutation,
 - BatchNorm ``scale / bias / mean / var`` become ``weight / bias /
   running_mean / running_var``.
 
@@ -23,17 +27,42 @@ import numpy as np
 import torch
 from torch import nn
 
-_TOP = {"DarknetBackbone_0": "backbone", "ConvHead_0": "head"}
+# top-level flax module -> (torch module, [(flax path below it, torch path,
+# kind)]); the paths are regular expressions matched whole
+_CONV_BLOCK = [(r"ConvBlock_(\d+)/Conv_0", r"blocks.\1.conv", "conv"),
+               (r"ConvBlock_(\d+)/BatchNorm_0", r"blocks.\1.bn", "bn")]
+_LAYOUT = {
+    "DarknetBackbone_0": ("backbone", _CONV_BLOCK),
+    "VGG16Backbone_0": ("backbone", [(r"Conv_(\d+)", r"convs.\1", "conv")]),
+    "MobileNetV2Backbone_0": ("backbone", [
+        (r"Conv_([01])", r"convs.\1", "conv_nobias"),
+        (r"BatchNorm_([01])", r"bns.\1", "bn"),
+        (r"_InvertedResidual_(\d+)/Conv_([012])", r"blocks.\1.convs.\2",
+         "conv_nobias"),
+        (r"_InvertedResidual_(\d+)/BatchNorm_([012])", r"blocks.\1.bns.\2",
+         "bn")]),
+    "ConvHead_0": ("head", [(r"ConvBlock_0/Conv_0", "block.conv", "conv"),
+                            (r"ConvBlock_0/BatchNorm_0", "block.bn", "bn"),
+                            (r"Conv_0", "conv", "conv")]),
+    "GAPDenseHead_0": ("head", [(r"Dense_([01])", r"denses.\1", "dense"),
+                                (r"BatchNorm_0", "bn", "bn")]),
+    "MultiConvDenseHead_0": ("head", _CONV_BLOCK + [
+        (r"Dense_(\d+)", r"denses.\1", "dense")]),
+}
 # (module kind, flax leaf) -> (torch leaf, rank)
 _LEAVES = {
     ("conv", "kernel"): ("weight", 4),
     ("conv", "bias"): ("bias", 1),
+    ("conv_nobias", "kernel"): ("weight", 4),
+    ("dense", "kernel"): ("weight", 2),
+    ("dense", "bias"): ("bias", 1),
     ("bn", "scale"): ("weight", 1),
     ("bn", "bias"): ("bias", 1),
     ("bn", "mean"): ("running_mean", 1),
     ("bn", "var"): ("running_var", 1),
 }
-_COMPLETE = {"conv": {"weight", "bias"},
+_COMPLETE = {"conv": {"weight", "bias"}, "conv_nobias": {"weight"},
+             "dense": {"weight", "bias"},
              "bn": {"weight", "bias", "running_mean", "running_var"}}
 
 
@@ -48,21 +77,13 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
 def _module_path(path: Tuple[str, ...]) -> Tuple[str, str]:
     """flax module names -> (torch module path, kind)."""
     where = "/".join(path)
-    if not path or path[0] not in _TOP:
-        raise ValueError(f"unknown flax module {where!r}")
-    top = _TOP[path[0]]
-    rest = path[1:]
-    if len(rest) == 2 and rest[0].startswith("ConvBlock_"):
-        m = re.fullmatch(r"ConvBlock_(\d+)", rest[0])
-        if m is None or (top == "head" and m.group(1) != "0"):
-            raise ValueError(f"unknown flax module {where!r}")
-        block = f"blocks.{m.group(1)}" if top == "backbone" else "block"
-        kind = {"Conv_0": "conv", "BatchNorm_0": "bn"}.get(rest[1])
-        if kind is None:
-            raise ValueError(f"unknown flax module {where!r}")
-        return f"{top}.{block}.{kind}", kind
-    if top == "head" and rest == ("Conv_0",):
-        return "head.conv", "conv"
+    if path and path[0] in _LAYOUT:
+        top, rules = _LAYOUT[path[0]]
+        rest = "/".join(path[1:])
+        for pattern, name, kind in rules:
+            m = re.fullmatch(pattern, rest)
+            if m is not None:
+                return f"{top}.{m.expand(name)}", kind
     raise ValueError(f"unknown flax module {where!r}")
 
 
@@ -85,6 +106,8 @@ def flax_to_torch(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
                                  f"expected rank {rank}")
             if rank == 4:
                 arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+            elif rank == 2:
+                arr = arr.T  # (in, out) -> (out, in)
             key = f"{module}.{name}"
             if key in out:
                 raise ValueError(f"two flax leaves map to {key!r}")

@@ -38,6 +38,35 @@ ARCHITECTURE_CONFIG: Sequence[Any] = (
     (3, 1024, 1, 1),
 )
 
+# Darknet-19 (YOLOv2's backbone, arXiv:1612.08242 Table 6): 18 feature convs,
+# alternating 3x3 / 1x1 bottlenecks, stride 32 (its 19th conv is the
+# classifier, dropped for detection).
+DARKNET19_CONFIG: Sequence[Any] = (
+    (3, 32, 1, 1),
+    "M",
+    (3, 64, 1, 1),
+    "M",
+    (3, 128, 1, 1),
+    (1, 64, 1, 0),
+    (3, 128, 1, 1),
+    "M",
+    (3, 256, 1, 1),
+    (1, 128, 1, 0),
+    (3, 256, 1, 1),
+    "M",
+    (3, 512, 1, 1),
+    (1, 256, 1, 0),
+    (3, 512, 1, 1),
+    (1, 256, 1, 0),
+    (3, 512, 1, 1),
+    "M",
+    (3, 1024, 1, 1),
+    (1, 512, 1, 0),
+    (3, 1024, 1, 1),
+    (1, 512, 1, 0),
+    (3, 1024, 1, 1),
+)
+
 # Micro variant for fast tests (56x56 -> 7x7, 3 pools).
 DARKNET_MICRO_CONFIG: Sequence[Any] = (
     (3, 16, 1, 1),
@@ -63,6 +92,15 @@ DARKNET_TINY_CONFIG: Sequence[Any] = (
     "M",
     (3, 256, 1, 1),
 )
+
+
+# name -> architecture table (Darknet-53's residual table is ROADMAP 1.11)
+ARCHITECTURES = {
+    "darknet24": ARCHITECTURE_CONFIG,
+    "darknet19": DARKNET19_CONFIG,
+    "darknet_tiny": DARKNET_TINY_CONFIG,
+    "darknet_micro": DARKNET_MICRO_CONFIG,
+}
 
 
 def _is_conv(entry) -> bool:

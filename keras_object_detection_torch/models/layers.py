@@ -1,7 +1,8 @@
-"""Conv building blocks (counterpart of
+"""Conv and Dense building blocks (counterpart of
 ``keras_object_detection_tpu/models/layers.py`` ``ConvBlock``,
-``make_batch_norm`` for the ``flax`` and ``fused`` modes, and
-``max_pool_2x2``).
+``make_batch_norm`` in all its modes, ``max_pool_2x2``, and flax's
+``nn.Conv``, ``nn.Dense``, ``nn.Dropout`` and ``relu6`` as the JAX models use
+them).
 
 Tensors run NCHW (in ``channels_last`` memory where the caller asks for it).
 Parameters and BN statistics are float32; the conv runs in the block's
@@ -18,7 +19,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from keras_object_detection_torch.config import check_bn_mode
-from keras_object_detection_torch.ops.bn import fused_bn_train
+from keras_object_detection_torch.ops.bn import (_channel_sums, fused_bn_train,
+                                                 per_channel)
 
 
 def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -30,11 +32,49 @@ def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
+class MxuBNTrain(torch.autograd.Function):
+    """Training-mode BatchNorm of ``bn_mode="mxu"`` (counterpart of
+    ``keras_object_detection_tpu/ops/mxu_bn.py`` ``mxu_bn_train``, which is
+    XLA, not Pallas): the same arithmetic as float32 column sums in plain
+    torch. Forward: ``mean = sum(x) / M``, ``var = max(0, sum(x^2) / M -
+    mean^2)``. Backward: ``s1 = sum(dy)``, ``s2 = (sum(dy * x) - mean * s1) *
+    rstd``, ``dx = scale * rstd * (dy - s1/M - xhat * s2/M)``; ``d scale =
+    s2``, ``d bias = s1``. ``mean`` and ``var`` take no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        xf = x.to(torch.float32)
+        m = x.numel() // x.shape[1]
+        mean = _channel_sums(xf) / m
+        var = torch.clamp_min(_channel_sums(xf * xf) / m - mean * mean, 0.0)
+        rstd = torch.rsqrt(var + eps)
+        mul = rstd * scale.to(torch.float32)
+        y = ((xf - per_channel(mean, x)) * per_channel(mul, x)
+             + per_channel(bias.to(torch.float32), x)).to(x.dtype)
+        ctx.save_for_backward(x, scale, mean, rstd)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, scale, mean, rstd = ctx.saved_tensors
+        xf, dyf = x.to(torch.float32), dy.to(torch.float32)
+        m = x.numel() // x.shape[1]
+        s1 = _channel_sums(dyf)
+        s2 = (_channel_sums(dyf * xf) - mean * s1) * rstd
+        coef = per_channel(scale.to(torch.float32) * rstd, x)
+        xhat = (xf - per_channel(mean, x)) * per_channel(rstd, x)
+        dx = (coef * (dyf - per_channel(s1 / m, x)
+                      - xhat * per_channel(s2 / m, x))).to(x.dtype)
+        return dx, s2.to(scale.dtype), s1.to(scale.dtype), None
+
+
 class BatchNorm(nn.Module):
     """BatchNorm in the arithmetic of the installed flax
     (``flax.linen.normalization``): float32 statistics, the normalise
     ``y = (x.float() - mean) * (rsqrt(var + eps) * scale) + bias`` in float32
-    and one cast to the input dtype at the end.
+    and one cast to the input dtype at the end. The input is NCHW or
+    ``(B, C)`` (a Dense layer's output).
 
     In eval mode it normalises with the running statistics. In training
     mode it normalises with the batch's, computed by ``bn_mode``:
@@ -42,19 +82,24 @@ class BatchNorm(nn.Module):
     - ``"flax"``: plain torch autograd; ``mean = E[x]`` and the fast
       variance ``var = max(0, E[x^2] - E[x]^2)``;
     - ``"fused"``: ``ops.bn.FusedBNTrain``, the hand-written statistics
-      kernels on the GPU.
+      kernels on the GPU;
+    - ``"mxu"``: ``MxuBNTrain``, float32 column sums in plain torch;
+    - ``"flax@N"``: the statistics of the first N images only
+      (``SubsetStatsBatchNorm``: ``var = E[x^2] - E[x]^2``, unclamped),
+      every image normalised with them; plain torch autograd.
 
-    Both then update the running statistics as flax does, without gradient:
+    All then update the running statistics as flax does, without gradient:
     ``r = momentum * r + (1 - momentum) * batch_stat`` with the biased
-    variance (not ``nn.BatchNorm2d``'s unbiased one)."""
+    variance (not ``nn.BatchNorm2d``'s unbiased one). ``momentum`` is 0.99
+    (Keras's, as the JAX ConvBlock sets it) or MobileNetV2's 0.999."""
 
-    momentum = 0.99  # Keras's BN momentum, as the JAX ConvBlock sets it
-
-    def __init__(self, features: int, eps: float = 1e-3, bn_mode: str = "flax"):
+    def __init__(self, features: int, eps: float = 1e-3, bn_mode: str = "flax",
+                 momentum: float = 0.99):
         super().__init__()
         check_bn_mode(bn_mode)
         self.eps = eps
         self.bn_mode = bn_mode
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -62,8 +107,8 @@ class BatchNorm(nn.Module):
 
     def _normalize(self, x, mean, var):
         mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (x.float() - mean[:, None, None]) * mul[:, None, None]
-        y = y + self.bias[:, None, None]
+        y = (x.float() - per_channel(mean, x)) * per_channel(mul, x)
+        y = y + per_channel(self.bias, x)
         return y.to(x.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -71,11 +116,19 @@ class BatchNorm(nn.Module):
             return self._normalize(x, self.running_mean, self.running_var)
         if self.bn_mode == "fused":
             y, mean, var = fused_bn_train(x, self.weight, self.bias, self.eps)
+        elif self.bn_mode == "mxu":
+            y, mean, var = MxuBNTrain.apply(x, self.weight, self.bias, self.eps)
         else:
-            xf = x.float()
-            mean = xf.mean(dim=(0, 2, 3))
-            mean2 = (xf * xf).mean(dim=(0, 2, 3))
-            var = torch.maximum(mean2 - mean * mean, torch.zeros_like(mean))
+            dims = (0, 2, 3) if x.dim() == 4 else 0
+            if self.bn_mode == "flax":
+                xf = x.float()
+                mean = xf.mean(dim=dims)
+                mean2 = (xf * xf).mean(dim=dims)
+                var = torch.maximum(mean2 - mean * mean, torch.zeros_like(mean))
+            else:  # flax@N, unclamped as SubsetStatsBatchNorm computes it
+                sub = x[:int(self.bn_mode[len("flax@"):])].float()
+                mean = sub.mean(dim=dims)
+                var = (sub * sub).mean(dim=dims) - mean * mean
             y = self._normalize(x, mean, var)
         with torch.no_grad():
             m = self.momentum
@@ -84,28 +137,116 @@ class BatchNorm(nn.Module):
         return y
 
 
+def lecun_normal_(weight: torch.Tensor, fan_in: int,
+                  generator: torch.Generator) -> torch.Tensor:
+    """flax's default kernel init, ``lecun_normal()``: a normal truncated at
+    two standard deviations and scaled so that the result's standard
+    deviation is ``1 / sqrt(fan_in)``."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                 generator=generator)
+
+
 class Conv2d(nn.Module):
-    """Conv parameters, OIHW weight and bias, initialised from an explicit
-    generator: He-normal weight (std ``sqrt(2 / fan_in)``, so random
-    activations keep their scale through a deep ReLU stack) and zero bias.
-    The conv runs in the input's dtype, as flax's ``nn.Conv(dtype=...)``
-    casts its kernel and bias."""
+    """Conv parameters, OIHW weight and optional bias, initialised as flax's
+    ``nn.Conv`` by default: ``lecun_normal_`` weight from an explicit
+    generator, fan_in = (in_channels / groups) * k * k as flax's grouped
+    kernel ``(k, k, in / groups, out)`` counts it, and zero bias. The conv
+    runs in the input's dtype, as flax's ``nn.Conv(dtype=...)`` casts its
+    kernel and bias. ``groups`` is flax's ``feature_group_count``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 generator: torch.Generator):
+                 generator: torch.Generator, bias: bool = True,
+                 groups: int = 1):
         super().__init__()
-        std = math.sqrt(2.0 / (in_channels * kernel_size * kernel_size))
-        weight = torch.empty(out_channels, in_channels, kernel_size, kernel_size)
-        self.weight = nn.Parameter(weight.normal_(0.0, std, generator=generator))
-        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.groups = groups
+        weight = torch.empty(out_channels, in_channels // groups, kernel_size,
+                             kernel_size)
+        self.weight = nn.Parameter(lecun_normal_(weight, weight[0].numel(),
+                                                 generator))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
     def forward(self, x: torch.Tensor, stride: int = 1,
                 padding: Tuple[int, int] = (0, 0)) -> torch.Tensor:
         # the bias is added after the conv's output is rounded to x.dtype,
         # as flax does; a bias fused into the conv rounds once, and in
         # bfloat16 that drifts from the JAX forward by ~3x more
-        y = F.conv2d(x, self.weight.to(x.dtype), None, stride, padding)
+        y = F.conv2d(x, self.weight.to(x.dtype), None, stride, padding,
+                     groups=self.groups)
+        if self.bias is None:
+            return y
         return y + self.bias.to(x.dtype)[:, None, None]
+
+
+def conv_same(conv: Conv2d, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """``conv`` with XLA's ``"SAME"`` padding (see ``same_padding``): the
+    conv's own symmetric padding where low and high agree, else an explicit
+    pad first."""
+    k = conv.weight.shape[-1]
+    ph = same_padding(x.shape[2], k, stride)
+    pw = same_padding(x.shape[3], k, stride)
+    if ph[0] == ph[1] and pw[0] == pw[1]:
+        return conv(x, stride, (ph[0], pw[0]))
+    return conv(F.pad(x, (pw[0], pw[1], ph[0], ph[1])), stride)
+
+
+class Dense(nn.Module):
+    """flax's ``nn.Dense``: ``(out, in)`` weight drawn as flax's default
+    ``lecun_normal`` (fan_in = in) from an explicit generator and zero bias.
+    Input and weight are cast to ``dtype`` and the bias is added after the
+    product is rounded to it, as ``Conv2d`` does."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.float32, *,
+                 generator: torch.Generator):
+        super().__init__()
+        self.dtype = dtype
+        weight = torch.empty(out_features, in_features)
+        self.weight = nn.Parameter(lecun_normal_(weight, in_features, generator))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        return F.linear(x, self.weight.to(self.dtype)) + self.bias.to(self.dtype)
+
+
+class Dropout(nn.Module):
+    """flax's ``nn.Dropout``: in training mode ``where(keep, x / (1 - rate),
+    0)``. ``keep`` is an explicit boolean mask of ``x``'s shape, or is drawn
+    as ``uniform < 1 - rate`` from an explicit CPU ``torch.Generator``;
+    torch's global generator is never used, and training mode without
+    either raises. In eval mode it is the identity."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def draw(self, shape, generator: torch.Generator) -> torch.Tensor:
+        """A keep mask of ``shape`` on the CPU: ``uniform < 1 - rate``."""
+        return torch.rand(shape, generator=generator) < 1.0 - self.rate
+
+    def forward(self, x: torch.Tensor,
+                rng: Union[torch.Tensor, torch.Generator, None] = None
+                ) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep_prob = 1.0 - self.rate
+        if isinstance(rng, torch.Generator):
+            rng = self.draw(x.shape, rng)
+        if not isinstance(rng, torch.Tensor):
+            raise ValueError("training-mode dropout takes a keep mask or a "
+                             "torch.Generator to draw one from")
+        if rng.shape != x.shape:
+            raise ValueError(f"dropout mask {tuple(rng.shape)} does not match "
+                             f"{tuple(x.shape)}")
+        keep = rng.to(x.device, torch.bool)
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.relu6``: ``min(max(x, 0), 6)``, whose gradient is 0 at both
+    ties (x = 0 and x = 6), as ``hardtanh``'s backward gives it."""
+    return F.hardtanh(x, 0.0, 6.0)
 
 
 class ConvBlock(nn.Module):
@@ -139,16 +280,9 @@ class ConvBlock(nn.Module):
         strides = self.strides if strides is None else strides
         x = x.to(self.dtype)
         if self.padding == "SAME":
-            ph = same_padding(x.shape[2], self.kernel_size, strides)
-            pw = same_padding(x.shape[3], self.kernel_size, strides)
-            if ph[0] == ph[1] and pw[0] == pw[1]:
-                pad = (ph[0], pw[0])
-            else:
-                x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-                pad = (0, 0)
+            x = conv_same(self.conv, x, strides)
         else:
-            pad = (self.padding, self.padding)
-        x = self.conv(x, strides, pad)
+            x = self.conv(x, strides, (self.padding, self.padding))
         x = self.bn(x)
         if self.activation == "leaky_relu":
             return F.leaky_relu(x, 0.1)

@@ -1,27 +1,36 @@
-"""YOLOv1 conv head and the assembled model (counterpart of
-``keras_object_detection_tpu/models/yolo.py`` ``ConvHead``, ``YoloV1`` with
-``head="conv"`` and ``build_model``).
+"""YOLOv1 heads and the assembled model (counterpart of
+``keras_object_detection_tpu/models/yolo.py`` ``ConvHead``,
+``GAPDenseHead``, ``MultiConvDenseHead``, ``YoloV1`` and ``build_model``
+for the v1 heads).
 
 The model takes NHWC float images and returns the grid-shaped
-``(B, S, S, C + 5B)`` output, like the JAX package; inside it runs NCHW.
+``(B, S, S, C + 5B)`` output, like the JAX package (or, with
+``flat_output``, ``(B, S*S*(C + 5B))``); inside it runs NCHW.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Optional, Sequence, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from keras_object_detection_torch.config import Config
 from keras_object_detection_torch.models.backbones import BACKBONES
-from keras_object_detection_torch.models.layers import Conv2d, ConvBlock
+from keras_object_detection_torch.models.layers import (BatchNorm, Conv2d,
+                                                        ConvBlock, Dense,
+                                                        Dropout)
 
 # head -> the ROADMAP item that ports it
-_HEADS_TO_PORT = {"gap_dense": "1.9", "flatten_dense": "1.9",
-                  "anchor": "1.10", "fpn": "1.11"}
+_HEADS_TO_PORT = {"anchor": "1.10", "fpn": "1.11"}
+HEADS = ("conv", "gap_dense", "flatten_dense")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# A training-mode dropout's keep mask, or the generator to draw it from
+DropoutRng = Union[torch.Tensor, torch.Generator, None]
 
 
 class ConvHead(nn.Module):
@@ -41,35 +50,165 @@ class ConvHead(nn.Module):
                                bn_mode=bn_mode)
         self.conv = Conv2d(1024, cell_depth, 1, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dropout: DropoutRng = None) -> torch.Tensor:
         x = self.block(x, max(x.shape[2] // self.grid, 1))
-        return self.conv(x.float())
+        return self.conv(x.float()).permute(0, 2, 3, 1).contiguous()
+
+
+class GAPDenseHead(nn.Module):
+    """Global average pool -> Dense(units) -> BN -> ReLU -> Dense(S*S*depth)
+    in float32, reshaped to the grid. ``use_batchnorm=False`` is the
+    reference's ``test_model`` head (no BN). The mean of bf16 features sums
+    in float32 and rounds once, as ``jnp.mean`` does. ``denses[j]`` /
+    ``bn`` are flax's ``Dense_j`` / ``BatchNorm_0``."""
+
+    def __init__(self, in_channels: int, grid: int, cell_depth: int,
+                 units: int = 4960, use_batchnorm: bool = True,
+                 dtype: torch.dtype = torch.float32, *,
+                 generator: torch.Generator, bn_mode: str = "flax"):
+        super().__init__()
+        self.grid, self.cell_depth = grid, cell_depth
+        self.denses = nn.ModuleList([
+            Dense(in_channels, units, dtype, generator=generator),
+            Dense(units, grid * grid * cell_depth, generator=generator)])
+        self.bn = BatchNorm(units, bn_mode=bn_mode) if use_batchnorm else None
+
+    def forward(self, x: torch.Tensor, dropout: DropoutRng = None) -> torch.Tensor:
+        x = x.float().mean(dim=(2, 3)).to(x.dtype)
+        x = self.denses[0](x)
+        if self.bn is not None:
+            x = self.bn(x)
+        x = self.denses[1](F.relu(x).float())
+        return x.reshape(x.shape[0], self.grid, self.grid, self.cell_depth)
+
+
+class MultiConvDenseHead(nn.Module):
+    """The VGG16 / MobileNetV2 variant head: 4x ConvBlock(1024, 3x3 SAME,
+    stride 2 on the second) -> Flatten -> Dense stack (no activation between,
+    as in the JAX head) -> Dropout(0.5) -> Dense(S*S*depth) in float32,
+    reshaped to the grid. The NCHW features are flattened in NHWC order, as
+    JAX flattens them, so converted Dense kernels line up. The rate is 0.5
+    whatever ``ModelConfig.dropout_rate`` says: the JAX model never passes
+    that field. ``blocks[i]`` / ``denses[j]`` are flax's ``ConvBlock_i`` /
+    ``Dense_j``."""
+
+    def __init__(self, in_channels: int, grid: int, cell_depth: int,
+                 feature_size: int, dense_units: Sequence[int] = (512, 1024),
+                 dropout_rate: float = 0.5,
+                 dtype: torch.dtype = torch.float32, *,
+                 generator: torch.Generator, bn_mode: str = "flax"):
+        super().__init__()
+        self.grid, self.cell_depth = grid, cell_depth
+        self.blocks = nn.ModuleList()
+        channels, size = in_channels, feature_size
+        for stride in (1, 2, 1, 1):
+            self.blocks.append(ConvBlock(channels, 1024, 3, stride, "SAME",
+                                         dtype=dtype, generator=generator,
+                                         bn_mode=bn_mode))
+            channels, size = 1024, -(-size // stride)
+        widths = [channels * size * size, *dense_units]
+        self.denses = nn.ModuleList(
+            Dense(a, b, dtype, generator=generator)
+            for a, b in zip(widths[:-1], widths[1:]))
+        self.denses.append(Dense(widths[-1], grid * grid * cell_depth,
+                                 generator=generator))
+        self.dropout = Dropout(dropout_rate)
+
+    def forward(self, x: torch.Tensor, dropout: DropoutRng = None) -> torch.Tensor:
+        for block in self.blocks:
+            x = block(x)
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC flatten
+        *stack, last = self.denses
+        for dense in stack:
+            x = dense(x)
+        x = last(self.dropout(x, dropout).float())
+        return x.reshape(x.shape[0], self.grid, self.grid, self.cell_depth)
+
+
+def backbone_feature_size(backbone: str, image_size: int) -> int:
+    """The side of the feature map ``backbone`` emits at ``image_size``,
+    from a forward of a copy on PyTorch's ``meta`` device (shapes only, as
+    JAX's ``eval_shape``)."""
+    with torch.device("meta"):
+        probe = BACKBONES[backbone](torch.float32, generator=torch.Generator())
+        return probe.eval()(torch.empty(1, 3, image_size, image_size)).shape[-1]
 
 
 class YoloV1(nn.Module):
-    """Backbone + conv head. ``forward`` maps ``(B, H, W, 3)`` float images
-    to ``(B, S, S, C + 5B)`` float32 grids."""
+    """Backbone + head. ``forward`` maps ``(B, H, W, 3)`` float images to
+    ``(B, S, S, C + 5B)`` float32 grids (``flat_output``: ``(B,
+    S*S*(C + 5B))``).
 
-    def __init__(self, backbone: str = "darknet24", grid: int = 7,
-                 num_classes: int = 20, num_boxes: int = 2,
+    ``freeze_backbone`` is Keras's ``trainable=False``: the backbone stays in
+    eval mode whatever ``train()`` says (its BatchNorms normalise with their
+    running statistics and never update them) and runs without gradient, so
+    its backward is never built. ``dropout`` of ``forward`` is the
+    flatten_dense head's keep mask or the generator to draw it from; the
+    other heads ignore it."""
+
+    def __init__(self, backbone: str = "darknet24", head: str = "conv",
+                 grid: int = 7, num_classes: int = 20, num_boxes: int = 2,
                  compute_dtype: torch.dtype = torch.float32,
                  activation: str = "relu", *, generator: torch.Generator,
-                 bn_mode: str = "flax"):
+                 bn_mode: str = "flax", image_size: int = 448,
+                 head_dense_units: int = 4960, head_batchnorm: bool = True,
+                 flat_output: bool = False, freeze_backbone: bool = False):
         super().__init__()
+        if head not in HEADS:
+            if head in _HEADS_TO_PORT:
+                raise NotImplementedError(
+                    f"head {head!r} is not ported yet "
+                    f"(ROADMAP {_HEADS_TO_PORT[head]})")
+            raise ValueError(f"unknown head {head!r}; options: {HEADS}")
         self.compute_dtype = compute_dtype
+        self.flat_output = flat_output
+        self.freeze_backbone = freeze_backbone
         self.backbone = BACKBONES[backbone](compute_dtype, activation,
                                             generator=generator,
                                             bn_mode=bn_mode)
-        self.head = ConvHead(self.backbone.out_channels,
-                             num_classes + 5 * num_boxes, grid, compute_dtype,
-                             generator=generator, bn_mode=bn_mode)
+        depth = num_classes + 5 * num_boxes
+        channels = self.backbone.out_channels
+        if head == "conv":
+            self.head = ConvHead(channels, depth, grid, compute_dtype,
+                                 generator=generator, bn_mode=bn_mode)
+        elif head == "gap_dense":
+            self.head = GAPDenseHead(channels, grid, depth, head_dense_units,
+                                     head_batchnorm, compute_dtype,
+                                     generator=generator, bn_mode=bn_mode)
+        else:
+            units = (4096,) if backbone == "mobilenetv2" else (512, 1024)
+            self.head = MultiConvDenseHead(
+                channels, grid, depth,
+                backbone_feature_size(backbone, image_size), units,
+                dtype=compute_dtype, generator=generator, bn_mode=bn_mode)
+        if freeze_backbone:
+            self.backbone.eval()
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def draw_dropout(self, batch: int,
+                     generator: torch.Generator) -> Optional[torch.Tensor]:
+        """The keep mask of a training-mode forward at ``batch`` images,
+        drawn on the CPU from ``generator``; None for a head without
+        dropout."""
+        if not isinstance(self.head, MultiConvDenseHead):
+            return None
+        units = self.head.denses[-1].weight.shape[1]
+        return self.head.dropout.draw((batch, units), generator)
+
+    def train(self, mode: bool = True) -> "YoloV1":
+        super().train(mode)
+        if self.freeze_backbone:
+            self.backbone.eval()
+        return self
+
+    def forward(self, images: torch.Tensor,
+                dropout: DropoutRng = None) -> torch.Tensor:
         # NHWC -> NCHW view: its strides are channels_last, which the convs keep
         x = images.to(self.compute_dtype).permute(0, 3, 1, 2)
         x = x.contiguous(memory_format=torch.channels_last)
-        y = self.head(self.backbone(x))
-        return y.permute(0, 2, 3, 1).contiguous()
+        with torch.no_grad() if self.freeze_backbone else contextlib.nullcontext():
+            x = self.backbone(x)
+        y = self.head(x, dropout)
+        return y.reshape(y.shape[0], -1) if self.flat_output else y
 
 
 def build_model(config: Config,
@@ -79,17 +218,16 @@ def build_model(config: Config,
     drawn from ``generator`` (default: seeded with ``config.train.seed``).
     Move it with ``.to(device)``."""
     m, g = config.model, config.grid
-    if m.head != "conv":
-        raise NotImplementedError(
-            f"head {m.head!r} is not ported yet "
-            f"(ROADMAP {_HEADS_TO_PORT.get(m.head, '1.9')})")
     if m.passthrough:
         raise NotImplementedError("passthrough is not ported yet (ROADMAP 1.10)")
     if m.compute_dtype not in _DTYPES:
         raise ValueError(f"unknown compute_dtype {m.compute_dtype!r}")
     if generator is None:
         generator = torch.Generator().manual_seed(config.train.seed)
-    model = YoloV1(m.backbone, g.grid, g.num_classes, g.num_boxes,
+    model = YoloV1(m.backbone, m.head, g.grid, g.num_classes, g.num_boxes,
                    _DTYPES[m.compute_dtype], m.activation, generator=generator,
-                   bn_mode=m.bn_mode)
+                   bn_mode=m.bn_mode, image_size=m.image_size,
+                   head_dense_units=m.head_dense_units,
+                   head_batchnorm=m.head_batchnorm,
+                   freeze_backbone=m.freeze_backbone)
     return model.eval()

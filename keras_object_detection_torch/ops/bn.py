@@ -3,10 +3,12 @@
 ``bn_mode="fused"`` path of ``models.layers.BatchNorm``.
 
 Activations are NCHW tensors in ``channels_last`` memory, whose per-channel
-statistics are column sums of the ``(M, C)`` row view (M = N*H*W). A CUDA
-tensor goes to the hand-written kernels of ``ops/csrc/bn_stats.cu``, which
-take only that layout and raise on any other; a CPU tensor goes to the plain
-versions here (float32 sums over N, H, W, any layout).
+statistics are column sums of the ``(M, C)`` row view (M = N*H*W), or
+contiguous ``(M, C)`` tensors (a Dense layer's output), which are that view
+already. A CUDA tensor goes to the hand-written kernels of
+``ops/csrc/bn_stats.cu``, which take only those layouts and raise on any
+other; a CPU tensor goes to the plain versions here (float32 sums over every
+dimension but the channels', any layout).
 
 Numerics follow ``flax.linen.BatchNorm`` (fast variance, float32 reductions):
 ``mean = s1 / M``, ``var = max(0, s2 / M - mean^2)``, the normalise in
@@ -14,7 +16,7 @@ float32, one cast to the activation dtype at the end.
 
 ``STATS_LAUNCHES`` and ``GRAD_STATS_LAUNCHES`` count the kernel launches;
 ``DY_LAYOUT_COPIES`` counts the backward's ``dy`` that arrived in another
-layout and had to be copied to ``channels_last`` before its kernel.
+layout and had to be copied to the kernels' layout before its kernel.
 """
 
 from __future__ import annotations
@@ -33,11 +35,26 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # as in bn_stats.cu
 
 
 def _channel_sums(x: torch.Tensor) -> torch.Tensor:
-    return x.sum(dim=(0, 2, 3))
+    return x.sum(dim=(0, 2, 3) if x.dim() == 4 else 0)
+
+
+def per_channel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A ``(C,)`` tensor shaped to broadcast against ``x``'s channel
+    dimension: ``(C, 1, 1)`` for NCHW, ``(C,)`` for ``(M, C)``."""
+    return v[:, None, None] if x.dim() == 4 else v
+
+
+def kernel_layout(x: torch.Tensor) -> bool:
+    """Whether ``x`` is laid out as the kernels read it: an NCHW tensor in
+    channels_last memory or a contiguous ``(M, C)`` tensor."""
+    if x.dim() == 4:
+        return x.is_contiguous(memory_format=torch.channels_last)
+    return x.dim() == 2 and x.is_contiguous()
 
 
 def bn_stats_sums_plain(x: torch.Tensor) -> torch.Tensor:
-    """``(2, C)`` float32 ``[sum(x), sum(x^2)]`` over N, H, W."""
+    """``(2, C)`` float32 ``[sum(x), sum(x^2)]`` over every dimension but
+    the channels' (N, H, W of NCHW; M of ``(M, C)``)."""
     xf = x.to(torch.float32)
     return torch.stack([_channel_sums(xf), _channel_sums(xf * xf)])
 
@@ -47,7 +64,7 @@ def bn_grad_sums_plain(dy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
     """``(2, C)`` float32 ``[sum(dy), sum(dy * xhat)]``,
     ``xhat = (x - mean) * rstd``."""
     dyf = dy.to(torch.float32)
-    xhat = (x.to(torch.float32) - mean[:, None, None]) * rstd[:, None, None]
+    xhat = (x.to(torch.float32) - per_channel(mean, x)) * per_channel(rstd, x)
     return torch.stack([_channel_sums(dyf), _channel_sums(dyf * xhat)])
 
 
@@ -77,12 +94,13 @@ def _check(name: str, x: torch.Tensor) -> None:
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"the BN kernels take float32 or bfloat16, {name} is "
                          f"{x.dtype}")
-    if x.dim() != 4:
-        raise ValueError(f"the BN kernels take NCHW tensors, {name} is "
-                         f"{tuple(x.shape)}")
-    if not x.is_contiguous(memory_format=torch.channels_last):
-        raise ValueError(f"the BN kernels take channels_last memory (the (M, C) "
-                         f"row view); {name} is not")
+    if x.dim() not in (2, 4):
+        raise ValueError(f"the BN kernels take NCHW or (M, C) tensors, {name} "
+                         f"is {tuple(x.shape)}")
+    if not kernel_layout(x):
+        raise ValueError(f"the BN kernels take the (M, C) row view: NCHW in "
+                         f"channels_last memory or a contiguous (M, C) tensor; "
+                         f"{name} is neither")
 
 
 def _workspace(lib, x: torch.Tensor) -> Tuple[int, int, torch.Tensor, torch.Tensor]:
@@ -154,7 +172,7 @@ def _route(x: torch.Tensor, kernel, plain):
 
 
 def bn_batch_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-channel float32 ``(mean, var)`` of an NCHW tensor over N, H, W;
+    """Per-channel float32 ``(mean, var)`` of an NCHW or ``(M, C)`` tensor;
     ``var = max(0, E[x^2] - E[x]^2)`` (flax's fast variance)."""
     sums = _route(x, cuda_bn_stats_sums, bn_stats_sums_plain)(x)
     m = x.numel() // x.shape[1]
@@ -172,7 +190,8 @@ def bn_grad_stats(dy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
 
 
 class FusedBNTrain(torch.autograd.Function):
-    """Training-mode BatchNorm of an NCHW tensor: returns ``(y, mean, var)``
+    """Training-mode BatchNorm of an NCHW or ``(M, C)`` tensor: returns
+    ``(y, mean, var)``
     (counterpart of ``fused_bn_train``). ``mean`` and ``var`` feed only the
     running statistics and take no gradient.
 
@@ -186,8 +205,8 @@ class FusedBNTrain(torch.autograd.Function):
         mean, var = bn_batch_stats(x)
         rstd = torch.rsqrt(var + eps)
         mul = rstd * scale.to(torch.float32)
-        y = ((x.to(torch.float32) - mean[:, None, None]) * mul[:, None, None]
-             + bias.to(torch.float32)[:, None, None]).to(x.dtype)
+        y = ((x.to(torch.float32) - per_channel(mean, x)) * per_channel(mul, x)
+             + per_channel(bias.to(torch.float32), x)).to(x.dtype)
         ctx.save_for_backward(x, scale, mean, rstd)
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
@@ -196,15 +215,16 @@ class FusedBNTrain(torch.autograd.Function):
     def backward(ctx, dy, _dmean, _dvar):
         global DY_LAYOUT_COPIES
         x, scale, mean, rstd = ctx.saved_tensors
-        if dy.is_cuda and not dy.is_contiguous(memory_format=torch.channels_last):
-            dy = dy.contiguous(memory_format=torch.channels_last)
+        if dy.is_cuda and not kernel_layout(dy):
+            dy = dy.contiguous(memory_format=torch.channels_last
+                               if dy.dim() == 4 else torch.contiguous_format)
             DY_LAYOUT_COPIES += 1
         s1, s2 = bn_grad_stats(dy, x, mean, rstd)
         m = x.numel() // x.shape[1]
-        coef = (scale.to(torch.float32) * rstd)[:, None, None]
-        xhat = (x.to(torch.float32) - mean[:, None, None]) * rstd[:, None, None]
-        dx = (coef * (dy.to(torch.float32) - (s1 / m)[:, None, None]
-                      - xhat * (s2 / m)[:, None, None])).to(x.dtype)
+        coef = per_channel(scale.to(torch.float32) * rstd, x)
+        xhat = (x.to(torch.float32) - per_channel(mean, x)) * per_channel(rstd, x)
+        dx = (coef * (dy.to(torch.float32) - per_channel(s1 / m, x)
+                      - xhat * per_channel(s2 / m, x))).to(x.dtype)
         return dx, s2.to(scale.dtype), s1.to(scale.dtype), None
 
 

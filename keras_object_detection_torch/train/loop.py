@@ -6,10 +6,13 @@ the v1 conv head): the train step, the eval step and the ``Trainer``.
     state, metrics = step(state, images_u8, boxes, valid, seed)
 
 One step: augmentation draws -> ``augment_batch`` -> ``encode_grid`` ->
-forward with training-mode BatchNorm -> the v1 loss -> backward -> the
-optimizer update, the BN running statistics (updated in the forward) and the
-parameter EMA. ``TrainConfig.use_pallas_loss`` selects the fused loss with
-its kernels, ``ModelConfig.bn_mode="fused"`` the BN-statistics kernels.
+forward with training-mode BatchNorm (and the flatten_dense head's dropout,
+its mask drawn from the step's own generator) -> the v1 loss -> backward ->
+the optimizer update, the BN running statistics (updated in the forward) and
+the parameter EMA. ``TrainConfig.use_pallas_loss`` selects the fused loss
+with its kernels, ``ModelConfig.bn_mode="fused"`` the BN-statistics kernels.
+With ``ModelConfig.freeze_backbone`` the backbone runs in eval mode without
+gradient and the optimizer sees zero gradients for it.
 
 Unlike the JAX step, which returns a new state, this one updates the model,
 the optimizer moments and the EMA in place (no second copy of ~4x the
@@ -84,12 +87,20 @@ def create_train_state(config: Config,
                        device: Optional[Union[str, torch.device]] = None
                        ) -> TrainState:
     """The model of ``config`` with weights drawn from ``generator``
-    (default: seeded with ``config.train.seed``), moved to ``device``
-    (default ``cuda``) in ``channels_last`` memory, and its optimizer at
-    ``config.train.schedule.base_lr``."""
+    (default: seeded with ``config.train.seed``), the backbone's replaced by
+    ``config.model.pretrained_backbone``'s when that names a file, moved to
+    ``device`` (default ``cuda``) in ``channels_last`` memory, and its
+    optimizer at ``config.train.schedule.base_lr``."""
     check_ported(config, training=True)
     dev = _device(device)
     model = build_model(config, generator)
+    if config.model.pretrained_backbone:
+        from keras_object_detection_torch.models.pretrained import (
+            load_pretrained_backbone)
+
+        model.load_state_dict(load_pretrained_backbone(
+            model.state_dict(), config.model.backbone,
+            config.model.pretrained_backbone))
     model = model.to(dev, memory_format=torch.channels_last).train()
     params = list(model.parameters())
     opt = optim.init_opt_state(config.train.optimizer, params,
@@ -112,6 +123,16 @@ def step_generator(seed: int, step: int,
     draws: ``seed`` folded with the step (and the microbatch index), as the
     JAX step folds ``state.step`` into its key."""
     words = [seed, step] + ([] if micro is None else [micro])
+    state = np.random.SeedSequence(words).generate_state(1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(state))
+
+
+def dropout_generator(seed: int, step: int,
+                      micro: Optional[int] = None) -> torch.Generator:
+    """The CPU generator of one step's (or microbatch's) dropout masks, a
+    stream apart from the augmentation draws' (JAX's ``dkey`` beside
+    ``akey``)."""
+    words = [seed, step, 0 if micro is None else micro + 1, 1]
     state = np.random.SeedSequence(words).generate_state(1, np.uint64)[0]
     return torch.Generator().manual_seed(int(state))
 
@@ -144,14 +165,15 @@ def make_train_step(config: Config):
                                   t.lambda_coord, t.lambda_noobj, t.noobj_mode,
                                   t.box_loss_mode)
 
-    def backward_on(model, images_u8, boxes, valid, draws):
+    def backward_on(model, images_u8, boxes, valid, draws, keep):
         images, aboxes, avalid = augment_batch(
             images_u8, boxes, valid, draws, hflip_prob=d.hflip_prob,
             color_strengths=tuple(d.color_jitter),
             crop_ratio=tuple(d.crop_ratio), min_visibility=d.min_visibility,
             out_size=out_size)
         y_true = encode_grid(aboxes, avalid, g.num_classes, g.num_boxes, g.grid)
-        terms = loss_terms(y_true, model(images))
+        y_pred = model(images, keep).reshape(y_true.shape)  # flat heads too
+        terms = loss_terms(y_true, y_pred)
         terms["total"].backward()
         return {k: v.detach() for k, v in terms.items()}
 
@@ -159,6 +181,10 @@ def make_train_step(config: Config):
              draws: Optional[Union[AugmentDraws, Sequence[AugmentDraws]]] = None):
         model = state.model
         params = list(model.parameters())
+        # a frozen backbone takes no gradient; the optimizer sees zeros, as
+        # JAX's stop_gradient gives them
+        frozen = ({id(p) for p in model.backbone.parameters()}
+                  if model.freeze_backbone else set())
         dev = params[0].device
         images_u8 = torch.as_tensor(images_u8).to(dev)
         boxes = torch.as_tensor(boxes).to(dev, torch.float32)
@@ -184,11 +210,16 @@ def make_train_step(config: Config):
         metrics: Dict[str, torch.Tensor] = {}
         for i in range(accum):
             rows = slice(i, None, accum)
+            keep = model.draw_dropout(b // accum, dropout_generator(
+                seed, state.step, i if accum > 1 else None))
             terms = backward_on(model, images_u8[rows], boxes[rows],
-                                valid[rows], draws[i].to(dev))
+                                valid[rows], draws[i].to(dev),
+                                None if keep is None else keep.to(dev))
             metrics = {k: metrics[k] + v if k in metrics else v
                        for k, v in terms.items()}
-        optim.apply_updates(state.opt, params, [p.grad for p in params])
+        optim.apply_updates(state.opt, params, [
+            torch.zeros_like(p) if p.grad is None and id(p) in frozen else p.grad
+            for p in params])
         if state.ema is not None:
             decay = t.ema_decay
             with torch.no_grad():
@@ -231,6 +262,7 @@ def make_eval_step(config: Config, use_ema: Optional[bool] = None):
                 model, (state.ema, dict(model.named_buffers())), (images,))
         else:
             y_pred = model(images)
+        y_pred = y_pred.reshape(y_true.shape)  # flat heads too
         if image_weight is not None:
             image_weight = torch.as_tensor(image_weight).to(dev)
         terms = yolo_v1_loss_terms(

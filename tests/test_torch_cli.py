@@ -5,6 +5,7 @@ mAP, per-class AP, PR curves and detections; the JAX CLI's ``build_config``
 and the port's make the same config from the same flags, and a
 ``config.json`` the JAX CLI writes loads in the port."""
 
+import dataclasses
 import importlib.util
 import json
 import os
@@ -85,6 +86,63 @@ def test_evaluate_reads_the_run(trained, tmp_path, capsys):
         assert set(json.load(f)) <= {"cat", "dog", "bird"}
 
 
+@pytest.mark.parametrize("backbone,head,weights,freeze", [
+    ("darknet_tiny", "flatten_dense", True, True),
+    ("vgg16", "conv", False, True), ("mobilenetv2", "gap_dense", False, False),
+    ("darknet19", "conv", False, False)])
+def test_train_and_evaluate_the_transfer_family(tmp_path, capsys, backbone,
+                                                head, weights, freeze):
+    """cli.train (Trainer.fit) and cli.evaluate (Evaluator, InferenceModel)
+    on each v1 transfer backbone and head at 224² on the CPU. With
+    --pretrained-backbone (a darknet .weights file here) the frozen
+    checkpoint's backbone is the file's; frozen without it, the seeded
+    init's; not frozen, it trains. cli.evaluate reads the run back (its
+    config.json names the weights file, which evaluation does not read)."""
+    from keras_object_detection_torch.models import build_model
+    from keras_object_detection_torch.models.darknet_import import (
+        load_darknet_backbone, save_darknet_backbone)
+    from keras_object_detection_torch.train import create_train_state
+    from keras_object_detection_torch.train.checkpoint import CheckpointManager
+
+    data = write_dataset(tmp_path / "data", 4, seed=5, shape=(240, 200))
+    ckpt = str(tmp_path / "ckpt")
+    argv = ["--data-dir", data, "--preset", "tiny", "--epochs", "1",
+            "--device", "cpu", "--checkpoint-dir", ckpt, "--log-dir",
+            str(tmp_path / "logs"), "--backbone", backbone, "--head", head]
+    path = ""
+    if weights:
+        path = str(tmp_path / "backbone.weights")
+        save_darknet_backbone(build_model(
+            tconfig.tiny_cpu_config(), torch.Generator().manual_seed(7)
+        ).state_dict(), path)
+        argv += ["--pretrained-backbone", path]
+    cli_train.main(argv + (["--freeze-backbone"] if freeze else []))
+    out = capsys.readouterr().out
+    assert "epoch 1/1:" in out
+    assert ("darknet import: 6/6 convs" in out) == weights
+    with open(os.path.join(ckpt, "config.json")) as f:
+        run = tconfig.Config.from_json(f.read())
+    assert (run.model.backbone, run.model.head, run.model.freeze_backbone,
+            run.model.pretrained_backbone) == (backbone, head, freeze, path)
+    template = dataclasses.replace(run, model=dataclasses.replace(
+        run.model, pretrained_backbone=""))
+    state = CheckpointManager(ckpt).restore(create_train_state(template,
+                                                               device="cpu"))
+    start = build_model(template, torch.Generator().manual_seed(0)).state_dict()
+    if weights:
+        start, _ = load_darknet_backbone(start, path)
+    for k, v in state.model.state_dict().items():
+        if k.startswith("backbone.") and not k.endswith("num_batches_tracked"):
+            assert torch.equal(v, start[k]) == freeze, k
+    if weights:
+        os.remove(path)
+    cli_evaluate.main(["--checkpoint-dir", ckpt, "--data-dir", data,
+                       "--device", "cpu", "--image",
+                       os.path.join(data, "img000.jpg"), "--latency-runs", "1"])
+    out = capsys.readouterr().out
+    assert "evaluation:" in out and '"detections"' in out
+
+
 def _jax_cli():
     spec = importlib.util.spec_from_file_location("jax_train_cli",
                                                   ROOT / "train.py")
@@ -99,6 +157,9 @@ def _jax_cli():
      "cosine_restarts", "--optimizer", "sgd", "--letterbox", "--grad-accum",
      "2", "--cache-dir", "cache", "--device-cache", "--num-classes", "5",
      "--image-size", "224", "--compute-dtype", "float32", "--seed", "4"],
+    ["--preset", "voc", "--backbone", "vgg16", "--head", "flatten_dense",
+     "--pretrained-backbone", "vgg16.h5", "--freeze-backbone"],
+    ["--preset", "tiny", "--backbone", "mobilenetv2", "--head", "gap_dense"],
 ])
 def test_the_jax_clis_config_loads_in_the_port(flags, tmp_path, monkeypatch):
     argv = ["--data-dir", str(tmp_path), *flags]
@@ -120,7 +181,7 @@ def test_the_jax_clis_config_loads_in_the_port(flags, tmp_path, monkeypatch):
     (cli_train, ["--profile-dir", "p"], "ROADMAP 1.15"),
     (cli_train, ["--data-parallel", "4"], "ROADMAP 1.15"),
     (cli_train, ["--device-cache-layout", "sharded"], "ROADMAP 1.15"),
-    (cli_train, ["--pretrained-backbone", "w.h5"], "ROADMAP 1.9"),
+    (cli_train, ["--mixup", "0.5"], "ROADMAP 1.12"),
     (cli_evaluate, ["--tag-dir", "t"], "ROADMAP 1.15"),
     (cli_evaluate, ["--image", "a.jpg", "--names", "n"], "ROADMAP 1.15"),
     (cli_evaluate, ["--error-analysis"], "ROADMAP 1.13"),

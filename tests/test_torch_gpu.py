@@ -1,7 +1,9 @@
 """Tests of the PyTorch port that need an NVIDIA GPU: the CUDA kernels (NMS,
-the fused loss forward and backward, the BN statistics forward and backward)
-have no CPU mode, and the paths that run them (serving, the train step, the
-mAP accumulator, ``Trainer.fit``, the pinned-memory prefetch). They skip
+the fused loss forward and backward, the BN statistics forward and backward,
+at the flagship's and the transfer family's shapes) have no CPU mode, and
+the paths that run them (serving, the train step, the frozen-backbone and
+GAP-head steps, the mAP accumulator, ``Trainer.fit``, the pinned-memory
+prefetch). They skip
 without a card. This file imports neither JAX
 nor the JAX package, so on a machine without JAX it runs alone:
 
@@ -266,6 +268,66 @@ def test_bn_kernels_match_plain_versions(cuda, shape, dtype):
     assert torch.equal(again, got)  # a fixed summation order
 
 
+# the v1 transfer family's shapes at batch 64, 448²: the GAP dense head's
+# 2-D BatchNorm (4960 units; 4096 without BN is no BN), odd 2-D widths, and
+# MobileNetV2's largest, widest and depthwise inputs
+TRANSFER_BN_SHAPES = [(64, 4960), (3, 4960), (5, 7), (64, 96, 224, 224),
+                      (64, 16, 224, 224), (64, 144, 112, 112),
+                      (64, 960, 14, 14), (64, 1280, 14, 14)]
+
+
+@pytest.mark.parametrize("shape", TRANSFER_BN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bn_kernels_match_plain_versions_at_transfer_shapes(cuda, shape, dtype):
+    gen = torch.Generator().manual_seed(2)
+    x = (torch.randn(shape, generator=gen) * 2 + 0.5).to(cuda, dtype)
+    dy = torch.randn(shape, generator=gen).to(cuda, dtype)
+    if x.dim() == 4:
+        x = x.contiguous(memory_format=torch.channels_last)
+        dy = dy.contiguous(memory_format=torch.channels_last)
+    m = x.numel() // shape[1]
+    before = (bn.STATS_LAUNCHES, bn.GRAD_STATS_LAUNCHES)
+    got = bn.cuda_bn_stats_sums(x)
+    mean = got[0] / m
+    rstd = torch.rsqrt(torch.clamp_min(got[1] / m - mean * mean, 0.0) + 1e-3)
+    got_g = bn.cuda_bn_grad_sums(dy, x, mean, rstd)
+    assert (bn.STATS_LAUNCHES, bn.GRAD_STATS_LAUNCHES) == (before[0] + 1,
+                                                           before[1] + 1)
+    for a, w in ((got, bn.bn_stats_sums_plain(x)),
+                 (got_g, bn.bn_grad_sums_plain(dy, x, mean, rstd))):
+        scale = w.abs().amax(dim=1, keepdim=True) + 1
+        torch.testing.assert_close(a / scale, w / scale, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(4, 24, 9, 7), (6, 96)])
+def test_fused_bn_copies_a_dy_outside_the_kernel_layout(cuda, shape):
+    """A dy in another layout than the kernels' (an NCHW-contiguous one, as
+    a depthwise conv's backward may hand it over; a transposed 2-D view) is
+    copied to their layout, counted, and gives the same gradients."""
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(shape, generator=gen).to(cuda)
+    if x.dim() == 4:
+        x = x.contiguous(memory_format=torch.channels_last)
+    w = torch.randn(shape, generator=gen).to(cuda)
+    if w.dim() == 4:
+        w = w.contiguous(memory_format=torch.channels_last)
+    other = w.contiguous() if w.dim() == 4 else w.t().contiguous().t()
+    grads = []
+    for dy_like in (x.new_empty(0), other):
+        xx = x.clone().requires_grad_(True)
+        scale = torch.ones(shape[1], device=cuda, requires_grad=True)
+        y, _, _ = bn.fused_bn_train(xx, scale, torch.zeros(shape[1], device=cuda),
+                                    1e-3)
+        copies = bn.DY_LAYOUT_COPIES
+        dy = w if dy_like.numel() == 0 else dy_like
+        assert bn.kernel_layout(dy) == (dy_like.numel() == 0)
+        y.backward(dy)
+        assert bn.DY_LAYOUT_COPIES == copies + (dy_like.numel() != 0)
+        grads.append((xx.grad, scale.grad))
+    torch.testing.assert_close(grads[1][0], grads[0][0], rtol=0, atol=0)
+    torch.testing.assert_close(grads[1][1], grads[0][1], rtol=0, atol=0)
+
+
 def test_bn_kernels_reject_other_layouts(cuda):
     x = torch.randn(2, 16, 5, 5, device=cuda)  # NCHW-contiguous
     with pytest.raises(ValueError, match="channels_last"):
@@ -336,6 +398,89 @@ def test_train_step_on_the_gpu_goes_through_the_kernels(cuda, no_tf32):
     for (k, a), b in zip(gpu.model.state_dict().items(),
                          cpu.model.state_dict().values()):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4, msg=k)
+
+
+def _transfer_config(backbone, head, kernels, **model):
+    """A v1 transfer model at 64² (2x2 features, grid 2), float32, SGD."""
+    cfg = tiny_cpu_config()
+    return dataclasses.replace(
+        cfg, grid=dataclasses.replace(cfg.grid, grid=2),
+        model=dataclasses.replace(cfg.model, backbone=backbone, head=head,
+                                  image_size=64,
+                                  bn_mode="fused" if kernels else "flax",
+                                  **model),
+        train=dataclasses.replace(cfg.train, use_pallas_loss=kernels,
+                                  optimizer="sgd"))
+
+
+def _transfer_batch():
+    rng = np.random.RandomState(4)
+    images = rng.randint(0, 256, (4, 64, 64, 3), np.uint8)
+    boxes = np.zeros((4, 8, 5), np.float32)
+    boxes[:, :2] = [[0.5, 0.5, 0.3, 0.3, 1], [0.25, 0.3, 0.3, 0.4, 2]]
+    valid = np.zeros((4, 8), bool)
+    valid[:, :2] = True
+    return images, boxes, valid
+
+
+def test_frozen_vgg16_step_kernel_path_matches_plain_path(cuda, no_tf32):
+    """The reference's recipe, VGG16 + conv head with the backbone frozen,
+    one step on the card: the kernel path (K2, K3 once for the head's
+    BatchNorm, K4, K5 once) against the plain path from the same weights
+    and draws: loss and every head gradient to 1e-4, the backbone
+    bit-unchanged on both."""
+    images, boxes, valid = _transfer_batch()
+    out = {}
+    for kernels in (True, False):
+        cfg = _transfer_config("vgg16", "conv", kernels, freeze_backbone=True)
+        state = create_train_state(cfg, torch.Generator().manual_seed(0))
+        before = {k: v.clone() for k, v in state.model.state_dict().items()}
+        counts = _counts()
+        state, metrics = make_train_step(cfg)(state, images, boxes, valid, 3)
+        torch.cuda.synchronize()
+        launched = [a - b for a, b in zip(_counts(), counts)]
+        assert launched == ([1, 1, 1, 1] if kernels else [0, 0, 0, 0])
+        after = state.model.state_dict()
+        for k, v in after.items():
+            assert torch.equal(v, before[k]) == k.startswith("backbone."), k
+        out[kernels] = (metrics["total"].item(),
+                        {k: p.grad for k, p in state.model.named_parameters()
+                         if p.grad is not None})
+    (k_loss, k_grad), (p_loss, p_grad) = out[True], out[False]
+    assert abs(k_loss - p_loss) <= 1e-4 * abs(p_loss)
+    assert set(k_grad) == set(p_grad) and all(k.startswith("head.")
+                                              for k in k_grad)
+    for k, want in p_grad.items():
+        if k.endswith("conv.bias"):
+            continue
+        err = (torch.linalg.vector_norm(k_grad[k] - want)
+               / torch.linalg.vector_norm(want)).item()
+        assert err <= 1e-4, (k, err)
+
+
+def test_gap_dense_step_on_the_gpu_matches_the_cpu(cuda, no_tf32):
+    """MobileNetV2 + GAP dense head with its 2-D BatchNorm, one kernel-path
+    step on the card (K2 and K3 53 times: 52 backbone BatchNorms and the
+    head's) against the same step on the CPU: loss and running statistics
+    to 1e-4."""
+    cfg = _transfer_config("mobilenetv2", "gap_dense", True,
+                           head_dense_units=64)
+    images, boxes, valid = _transfer_batch()
+    step = make_train_step(cfg)
+    counts = _counts()
+    gpu, m_gpu = step(create_train_state(cfg, torch.Generator().manual_seed(1)),
+                      images, boxes, valid, 2)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_counts(), counts)] == [53, 53, 1, 1]
+    cpu, m_cpu = step(create_train_state(cfg, torch.Generator().manual_seed(1),
+                                         "cpu"), images, boxes, valid, 2)
+    torch.testing.assert_close(m_gpu["total"].cpu(), m_cpu["total"], rtol=1e-4,
+                               atol=0)
+    want = cpu.model.state_dict()
+    for k, v in gpu.model.state_dict().items():
+        if "running" in k:
+            torch.testing.assert_close(v.cpu(), want[k], rtol=1e-4, atol=1e-4,
+                                       msg=k)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])

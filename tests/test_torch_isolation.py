@@ -1,8 +1,10 @@
 """The PyTorch port and chip_smoke.py stand alone: they import no JAX, flax,
-optax or orbax, and nothing of the JAX package. With those blocked, the port
-serves, takes a train step on both paths, runs a one-epoch ``Trainer.fit``
-over a small decoded-cache dataset with ``Evaluator.evaluate`` on it, and
-both command lines answer ``--help``."""
+optax, orbax or TensorFlow, and nothing of the JAX package. With those
+blocked, the port serves, takes a train step on both paths and of each v1
+transfer backbone and head (frozen, and in the mxu and flax@N BN modes),
+runs a one-epoch ``Trainer.fit`` over a small decoded-cache dataset with
+``Evaluator.evaluate`` on it, and both command lines answer ``--help``;
+h5py is never imported (only reading a Keras file needs it)."""
 
 import pathlib
 import re
@@ -12,7 +14,7 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax",
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorflow", "keras",
            "keras_object_detection_tpu")
 PORT_FILES = sorted((ROOT / "keras_object_detection_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
@@ -42,6 +44,27 @@ for kernels in (False, True):
         state, np.zeros((2, 56, 56, 3), np.uint8), boxes,
         np.ones((2, 4), bool), 0)
     assert torch.isfinite(metrics["total"])
+# the v1 transfer family: a train step of each backbone and head, BN modes
+import keras_object_detection_torch.models.pretrained
+assert "h5py" not in sys.modules  # imported only when a .h5 is read
+for backbone, head, extra in (
+        ("vgg16", "conv", dict(freeze_backbone=True)),
+        ("mobilenetv2", "gap_dense", dict(head_dense_units=32,
+                                          bn_mode="fused")),
+        ("vgg16", "flatten_dense", dict(bn_mode="mxu")),
+        ("darknet_micro", "conv", dict(bn_mode="flax@1"))):
+    tc = dataclasses.replace(
+        cfg, grid=dataclasses.replace(cfg.grid, grid=1),
+        model=dataclasses.replace(cfg.model, backbone=backbone,
+                                  head=head, image_size=32, **extra),
+        train=dataclasses.replace(cfg.train, use_pallas_loss=True))
+    state = create_train_state(tc, device="cpu")
+    boxes = np.zeros((2, 4, 5), np.float32)
+    boxes[:, 0] = [0.5, 0.5, 0.3, 0.3, 1]
+    state, metrics = make_train_step(tc)(
+        state, np.zeros((2, 32, 32, 3), np.uint8), boxes,
+        np.ones((2, 4), bool), 0)
+    assert torch.isfinite(metrics["total"]), (backbone, head)
 sd = build_model(cfg, torch.Generator().manual_seed(0)).state_dict()
 images = np.random.RandomState(0).randint(0, 256, (2, 224, 224, 3), np.uint8)
 rows, valid = InferenceModel(cfg, sd, device="cpu").predict(images)
@@ -83,7 +106,8 @@ for cli in ("train", "evaluate"):
                           capture_output=True, text=True)
     assert proc.returncode == 0 and "usage:" in proc.stdout, proc.stderr
 leaked = [m for m in sys.modules
-          if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None]
+          if m.split(".")[0] in {BLOCKED!r} + ("h5py",)
+          and sys.modules[m] is not None]
 assert not leaked, leaked
 print("ok")
 """

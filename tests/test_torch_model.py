@@ -150,14 +150,20 @@ def test_eval_bn_runs_in_float32_like_installed_flax():
 
 
 def test_training_mode_bn_raises():
-    """Training-mode BatchNorm is ported for bn_mode flax and fused; the
-    modes not ported yet raise, naming their ROADMAP item."""
-    for mode in ("mxu", "flax@4"):
+    """Training-mode BatchNorm is ported for every bn_mode of the JAX
+    package (flax, fused, mxu, flax@N); a malformed mode raises ValueError,
+    as JAX's make_batch_norm does."""
+    for mode in ("flax", "fused", "mxu", "flax@4"):
         cfg = tconfig.tiny_cpu_config()
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, bn_mode=mode))
-        with pytest.raises(NotImplementedError, match="ROADMAP 1.9"):
-            build_model(cfg).train()
+        assert build_model(cfg).train().backbone.blocks[0].bn.bn_mode == mode
+    for mode in ("flax@0", "flax@", "mxu@2", "pallas"):
+        cfg = tconfig.tiny_cpu_config()
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, bn_mode=mode))
+        with pytest.raises(ValueError, match="bn_mode"):
+            build_model(cfg)
 
 
 @pytest.mark.parametrize("bn_mode", ["flax", "fused"])
@@ -187,7 +193,8 @@ def test_training_mode_forward_matches_jax(bn_mode, dtype, tol):
 
 @pytest.mark.parametrize("override,item", [
     ({"head": "fpn"}, "1.11"), ({"head": "anchor"}, "1.10"),
-    ({"head": "gap_dense"}, "1.9"), ({"backbone": "vgg16"}, "1.9"),
+    ({"passthrough": True}, "1.10"),
+    ({"backbone": "darknet53", "head": "gap_dense"}, "1.11"),
     ({"backbone": "darknet53"}, "1.11")])
 def test_unported_parts_raise(override, item):
     cfg = tconfig.tiny_cpu_config()

@@ -208,9 +208,10 @@ def test_default_device_is_the_gpu():
 
 @pytest.mark.parametrize("section,override,error,match", [
     ("model", {"remat": True}, NotImplementedError, "ROADMAP 1.7"),
-    ("model", {"freeze_backbone": True}, NotImplementedError, "ROADMAP 1.7"),
-    ("model", {"bn_mode": "mxu"}, NotImplementedError, "ROADMAP 1.9"),
-    ("model", {"bn_mode": "flax@2"}, NotImplementedError, "ROADMAP 1.9"),
+    ("model", {"remat": True, "remat_policy": "dots"}, NotImplementedError,
+     "ROADMAP 1.7"),
+    ("model", {"bn_mode": "mxu@2"}, ValueError, "bn_mode"),
+    ("model", {"bn_mode": "flax@0"}, ValueError, "bn_mode"),
     ("data", {"mosaic_prob": 0.5}, NotImplementedError, "ROADMAP 1.12"),
     ("data", {"mixup_prob": 0.5}, NotImplementedError, "ROADMAP 1.12"),
     ("train", {"multiscale_sizes": (224, 256)}, NotImplementedError,
@@ -271,11 +272,12 @@ def test_step_conditioning():
 
 def test_routing_replay_removes_a_max_pool_flip():
     """chip_smoke.routing, which the GPU-vs-CPU gradient checks use: a 1e-7
-    relative change of the input flips one max-pool near-tie of this batch
-    (1 of 652,288 ReLU and max-pool decisions), which moves that window's
-    gradient to a neighbouring pixel and the first conv's weight gradient
-    by over 1e-3 in norm; replaying the first forward's routing brings
-    every gradient back within 1e-5."""
+    relative change of the input (this noise seed; most seeds flip
+    nothing) flips one max-pool near-tie of this batch (1 of 652,288 ReLU
+    and max-pool decisions), which moves that window's gradient to a
+    neighbouring pixel and a weight gradient by over 1e-3 in norm;
+    replaying the first forward's routing brings every gradient back within
+    1e-5."""
     from chip_smoke import (routing, routing_differences, synthetic_batch,
                             tiny_train_config)
     from keras_object_detection_torch.core.grid import encode_grid
@@ -295,7 +297,7 @@ def test_routing_replay_removes_a_max_pool_flip():
         min_visibility=d.min_visibility, out_size=56)
     y_true = encode_grid(aboxes, avalid, g.num_classes, g.num_boxes, g.grid)
     nudged = x * (1 + 1e-7 * torch.randn(
-        x.shape, generator=torch.Generator().manual_seed(5)))
+        x.shape, generator=torch.Generator().manual_seed(29)))
 
     def grads(images, route, replay):
         state = create_train_state(cfg, torch.Generator().manual_seed(1),
