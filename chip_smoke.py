@@ -3,14 +3,14 @@
 
     python3 chip_smoke.py                 # from the repository root
     python3 chip_smoke.py --profile DIR   # also torch.profiler traces in DIR
-    python3 chip_smoke.py --parent DIR    # also time DIR's NMS and loss
-                                          # kernels (a checkout of another
+    python3 chip_smoke.py --parent DIR    # also time DIR's NMS, loss and
+                                          # BN kernels (a checkout of another
                                           # commit)
 
 Phases, each of which fails the run (non-zero exit) when it goes wrong:
 
 1. build   - compile ops/csrc/{nms,yolo_loss,bn_stats}.cu (and with
-             --parent the other checkout's nms.cu and yolo_loss.cu) with nvcc
+             --parent the other checkout's, where they differ) with nvcc
              for sm_90a, one nvcc each, all started together;
 2. nms     - the NMS kernel (K1) against its plain PyTorch version on the
              card, bit-equal (torch.equal) on rows and masks on every case of
@@ -43,10 +43,14 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
              at the shape of each BatchNorm at batch 64 of the flagship (25),
              of MobileNetV2 (52, the variants phase's test_model_config) and
              of the GAP dense head (the 2-D (64, 4960)), in bf16 and f32,
-             and at odd shapes (2-D ones too); times, bounds, and beside
-             them the one PyTorch call that computes each function
-             (torch.var_mean for K2, torch.batch_norm_backward_reduce for
-             K3), summed over each model's shapes;
+             and at odd shapes (2-D ones too), within 1e-5 relative and
+             bit-equal from call to call; offset (unaligned) views; CUDA-graph
+             replay; device times at every model shape, with --parent in
+             turns with the other checkout's kernels (parent, new, new,
+             parent), bounds, and beside them the one PyTorch call that
+             computes each function (torch.var_mean for K2,
+             torch.batch_norm_backward_reduce for K3), timed the same way
+             (CUDA graph) and per call, summed over each model's shapes;
 7. train-check - a small model's train step (darknet_micro @56, both
              kernel switches on, SGD, float32, TF32 off) on the GPU against
              the same step on the CPU from the same weights and draws, stage
@@ -93,8 +97,8 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
              images/s, peak memory, dy layout copies; the frozen VGG16
              tensors and their nadam moments bit-unchanged; then serving at
              batch 1 and 32 (K1 once a call, predict == the plain NMS);
-11. launches - CUDA launches per call of K1, K4 and K5 (1 each) and of
-             the other checkout's, from a torch.profiler trace, after the
+11. launches - CUDA launches per call of K1, K4, K5, K2 and K3 (1 each)
+             and of the other checkout's, from a torch.profiler trace, after the
              train and fit phases so that no profiler hook slows them.
 
 Then one JSON line describing each kernel, one line with the card's name and
@@ -339,8 +343,9 @@ def nms_bound_ms(rows: torch.Tensor, n2_rank: bool = False) -> tuple:
 
 
 def phase_build(parent: str = "") -> None:
-    """Every kernel source of this tree, and with ``parent`` the NMS and
-    loss sources of that checkout, one nvcc each, all started together."""
+    """Every kernel source of this tree, and with ``parent`` the NMS, loss
+    and BN-statistics sources of that checkout, one nvcc each, all started
+    together."""
     import pathlib
 
     from keras_object_detection_torch.ops import _build
@@ -349,7 +354,7 @@ def phase_build(parent: str = "") -> None:
     if parent:
         csrc = pathlib.Path(parent) / "keras_object_detection_torch" / "ops" / "csrc"
         # a source the parent shares with this tree builds once
-        jobs += [(name, csrc) for name in ("nms", "yolo_loss")
+        jobs += [(name, csrc) for name in KERNEL_SOURCES
                  if (csrc / f"{name}.cu").read_bytes()
                  != (_build.CSRC / f"{name}.cu").read_bytes()]
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
@@ -869,9 +874,10 @@ def phase_loss(dev, parent: str = "") -> dict:
             "calls": calls}
 
 
-def phase_launches(loss: dict, nms: dict) -> None:
-    """CUDA launches per call of K1 (at 32x49), K4 and K5 (and of the
-    parent's), from a profiler trace, into ``nms`` and ``loss["timing"]``.
+def phase_launches(loss: dict, nms: dict, bn: dict) -> None:
+    """CUDA launches per call of K1 (at 32x49), K4, K5, and K2 and K3 at
+    BN_LAUNCH_SHAPES (and of the parent's), from a profiler trace, into
+    ``nms``, ``loss["timing"]`` and ``bn["cuda_launches"]``.
     It runs after the train phase: a profiler run leaves tracing hooks that
     may slow later launches, and the step is timed without them."""
     launched = {tag: cuda_launches(fn) for tag, fn in nms["calls"].items()}
@@ -891,6 +897,18 @@ def phase_launches(loss: dict, nms: dict) -> None:
                              f"{len(launched['new'])} CUDA launches a call, not 1")
         for tag, v in launched.items():
             loss["timing"][name][tag]["cuda_launches"] = len(v)
+    bn["cuda_launches"] = {}
+    for shape, fns in bn["calls"].items():
+        for k in ("k2", "k3"):
+            launched = {tag: cuda_launches(f[k]) for tag, f in fns.items()}
+            log(f"[bn] {k.upper()} at {shape}: CUDA launches per call: "
+                + ", ".join(f"{tag} {len(v)} {v}" for tag, v in launched.items()))
+            if len(launched["new"]) != 1:
+                raise SystemExit(f"the BN kernel {k.upper()} takes "
+                                 f"{len(launched['new'])} CUDA launches a call "
+                                 f"at {shape}, not 1")
+            for tag, v in launched.items():
+                bn["cuda_launches"].setdefault(k, {}).setdefault(tag, len(v))
 
 
 def bn_shapes(dev, cfg=None, batch: int = 64) -> list:
@@ -974,7 +992,73 @@ def kernel_layout_tensor(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
-def phase_bn(dev) -> dict:
+def bn_inputs(shape, dtype, gen, dev):
+    """x (scaled and shifted normal) and dy (normal) of ``shape`` in the BN
+    kernels' layout, and the mean and rstd (eps 1e-3) of x from its plain
+    sums."""
+    from keras_object_detection_torch.ops import bn
+
+    x = torch.randn(shape, generator=gen, device=dev) * 2 + 0.5
+    dy = torch.randn(shape, generator=gen, device=dev)
+    x = kernel_layout_tensor(x.to(dtype))
+    dy = kernel_layout_tensor(dy.to(dtype))
+    m = x.numel() // shape[1]
+    sums = bn.bn_stats_sums_plain(x)
+    mean = sums[0] / m
+    rstd = torch.rsqrt(torch.clamp_min(sums[1] / m - mean * mean, 0.0) + 1e-3)
+    return x, dy, mean, rstd
+
+
+def bn_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest difference relative to each sum's largest channel (at least
+    1): float32 sums in another order."""
+    scale = want.abs().amax(dim=1, keepdim=True).clamp_min(1.0)
+    return ((got - want).abs() / scale).max().item()
+
+
+def bn_offset_view(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the BN kernels' layout, one element into a fresh buffer, so
+    that its data pointer is not 16-byte aligned."""
+    if x.dim() == 2:
+        return offset_view(x)
+    n, c, h, w = x.shape
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(n, h, w, c).permute(0, 3, 1, 2)
+    view.copy_(x)
+    return view
+
+
+def bn_graph_replays(bn, x, dy, mean, rstd) -> bool:
+    """Three K2 and K3 calls captured in one CUDA graph give the eager sums
+    bit for bit on each of two replays (the ticket counters are back at 0
+    after every launch)."""
+    want = (bn.cuda_bn_stats_sums(x), bn.cuda_bn_grad_sums(dy, x, mean, rstd))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [(bn.cuda_bn_stats_sums(x), bn.cuda_bn_grad_sums(dy, x, mean, rstd))
+                for _ in range(3)]
+    same = True
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        same = same and all(torch.equal(s, want[0]) and torch.equal(g, want[1])
+                            for s, g in outs)
+    return same
+
+
+BN_REPLAY_SHAPES = [(64, 1024, 7, 7), (64, 1280, 14, 14), (64, 4960),
+                    (64, 64, 28, 28), (5, 32, 13, 11)]
+BN_LAUNCH_SHAPES = [(64, 1024, 7, 7), (64, 4960)]
+
+
+def phase_bn(dev, parent: str = "") -> dict:
+    """K2 and K3 against their plain versions at every model shape of
+    ``bn_groups`` and BN_ODD_SHAPES, bf16 and f32, bit-equal from call to
+    call; offset (unaligned) views; CUDA-graph replay; then at every model
+    shape in bf16 the device time of each kernel (with ``parent`` in turns
+    with the other checkout's: parent, new, new, parent), its bound, its
+    plain version's and the library call's (device time and per call)."""
     from keras_object_detection_torch.ops import bn
 
     groups = bn_groups(dev)
@@ -982,89 +1066,152 @@ def phase_bn(dev) -> dict:
         log(f"[bn] {name}: {len(shapes)} BatchNorm inputs at batch 64: "
             + ", ".join("x".join(map(str, sh[1:])) for sh in shapes))
     gen = torch.Generator(device=dev).manual_seed(0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     max_rel = {"stats": 0.0, "grad": 0.0}
     max_abs = {"stats": 0.0, "grad": 0.0}
-    keys = ("k2", "k3", "p2", "p3", "b2", "b3", "lib2", "lib3")
-    tot = {name: dict.fromkeys(keys, 0.0) for name in groups}
-    largest = {}
-    lib_rel = 0.0
     cases = [(name, sh) for name, shapes in groups.items() for sh in shapes]
     cases += [("odd", sh) for sh in BN_ODD_SHAPES]
     for group, shape in cases:
         for dtype in (torch.bfloat16, torch.float32):
-            x = torch.randn(shape, generator=gen, device=dev) * 2 + 0.5
-            dy = torch.randn(shape, generator=gen, device=dev)
-            x = kernel_layout_tensor(x.to(dtype))
-            dy = kernel_layout_tensor(dy.to(dtype))
-            m = x.numel() // shape[1]
+            x, dy, mean, rstd = bn_inputs(shape, dtype, gen, dev)
             got = bn.cuda_bn_stats_sums(x)
-            want = bn.bn_stats_sums_plain(x)
-            mean = want[0] / m
-            rstd = torch.rsqrt(torch.clamp_min(want[1] / m - mean * mean, 0.0)
-                               + 1e-3)
             got_g = bn.cuda_bn_grad_sums(dy, x, mean, rstd)
+            again = bn.cuda_bn_stats_sums(x)
+            again_g = bn.cuda_bn_grad_sums(dy, x, mean, rstd)
+            want = bn.bn_stats_sums_plain(x)
             want_g = bn.bn_grad_sums_plain(dy, x, mean, rstd)
             torch.cuda.synchronize()
             for key, a, w in (("stats", got, want), ("grad", got_g, want_g)):
-                scale = w.abs().amax(dim=1, keepdim=True).clamp_min(1.0)
-                rel = ((a - w).abs() / scale).max().item()
+                rel = bn_rel_err(a, w)
                 max_rel[key] = max(max_rel[key], rel)
                 max_abs[key] = max(max_abs[key], (a - w).abs().max().item())
                 if rel > 1e-5:
                     raise SystemExit(f"BN {key} kernel disagrees at {shape} "
                                      f"{dtype}: {rel:.3e}")
-            if dtype != torch.bfloat16 or group == "odd":
-                continue
-            # timing: the steps' launches are bf16 at these shapes
-            dims = (0, 2, 3) if x.dim() == 4 else 0
-            k2 = graph_ms(lambda: bn.cuda_bn_stats_sums(x), reps=20, replays=5)
-            k3 = graph_ms(lambda: bn.cuda_bn_grad_sums(dy, x, mean, rstd),
-                          reps=20, replays=5)
-            p2 = cuda_ms(lambda: bn.bn_stats_sums_plain(x), 5, warmup=1)
-            p3 = cuda_ms(lambda: bn.bn_grad_sums_plain(dy, x, mean, rstd), 5,
-                         warmup=1)
-            lib2 = cuda_ms(lambda: torch.var_mean(x, dim=dims, correction=0), 5,
-                           warmup=1)
-            ones = torch.ones(shape[1], device=dev)
-            # the library call takes (N, C, ...) inputs; a 2-D one as (N, C, 1, 1)
-            x4, dy4 = ((x, dy) if x.dim() == 4 else
-                       (x[..., None, None], dy[..., None, None]))
-            lib3 = cuda_ms(lambda: bn_grad_library(dy4, x4, mean, rstd, ones), 5,
-                           warmup=1)
-            # the library call computes K3's function: its sums against plain
-            got_l = torch.stack(bn_grad_library(dy4, x4, mean, rstd, ones))
-            scale = want_g.abs().amax(dim=1, keepdim=True).clamp_min(1.0)
-            lib_rel = max(lib_rel, ((got_l - want_g).abs() / scale).max().item())
-            b2, _ = bn_bound_ms(shape, 2, False)
-            b3, _ = bn_bound_ms(shape, 2, True)
-            row = {"k2": k2, "k3": k3, "p2": p2, "p3": p3, "b2": b2, "b3": b3,
-                   "lib2": lib2, "lib3": lib3}
-            for key, v in row.items():
-                tot[group][key] += v
-            if group not in largest or x.numel() > largest[group]["elems"]:
-                largest[group] = dict(row, shape=list(shape), elems=x.numel())
-            del x, dy, x4, dy4
+            if not (torch.equal(got, again) and torch.equal(got_g, again_g)):
+                raise SystemExit(f"BN kernels differ from call to call at "
+                                 f"{shape} {dtype}")
     log(f"[bn] kernels vs plain over {len(cases)} shapes ({', '.join(f'{k} {len(v)}' for k, v in groups.items())}, "
         f"odd {len(BN_ODD_SHAPES)}), bf16 and f32: stats max rel err "
         f"{max_rel['stats']:.3e} (max abs {max_abs['stats']:.3e}), grad stats "
         f"max rel err {max_rel['grad']:.3e} (max abs {max_abs['grad']:.3e}); "
-        f"relative to each sum's largest channel, float32 sums in another order")
+        f"relative to each sum's largest channel, float32 sums in another "
+        f"order; bit-equal from call to call")
+
+    # offset views take the V = 1 path; graph replay wraps the counters
+    for shape in BN_REPLAY_SHAPES:
+        x, dy, mean, rstd = bn_inputs(shape, torch.bfloat16, gen, dev)
+        xs, dys = bn_offset_view(x), bn_offset_view(dy)
+        rel = max(bn_rel_err(bn.cuda_bn_stats_sums(xs), bn.bn_stats_sums_plain(x)),
+                  bn_rel_err(bn.cuda_bn_grad_sums(dys, xs, mean, rstd),
+                             bn.bn_grad_sums_plain(dy, x, mean, rstd)))
+        replayed = bn_graph_replays(bn, x, dy, mean, rstd)
+        log(f"[bn] {shape} bf16: offset views (data_ptr % 16 == "
+            f"{xs.data_ptr() % 16}) within {rel:.3e} of the plain sums; a CUDA "
+            f"graph of 3 K2 + K3 calls replays bit for bit twice: {replayed}")
+        if rel > 1e-5 or xs.data_ptr() % 16 == 0:
+            raise SystemExit(f"the BN kernels' unaligned path disagrees at {shape}")
+        if not replayed:
+            raise SystemExit(f"the BN kernels differ under graph replay at {shape}")
+
+    modules = {"new": bn}
+    if parent:
+        modules["parent"] = parent_module(parent, "bn", "bn_stats")
+    order = ["parent", "new", "new", "parent"] if parent else ["new"]
+    keys = ("k2", "k3", "p2", "p3", "b2", "b3", "lib2", "lib3", "lib2_call",
+            "lib3_call") + (("k2_parent", "k3_parent") if parent else ())
+    tot = {name: dict.fromkeys(keys, 0.0) for name in groups}
+    worst = {name: {"k2": (0.0, None), "k3": (0.0, None)} for name in groups}
+    largest, per_shape = {}, []
+    lib_rel = 0.0
+    calls, call_ms = {}, {}
+    for group, shapes in groups.items():
+        for shape in shapes:
+            x, dy, mean, rstd = bn_inputs(shape, torch.bfloat16, gen, dev)
+            fns = {tag: {"k2": lambda m=m, x=x: m.cuda_bn_stats_sums(x),
+                         "k3": lambda m=m, a=(dy, x, mean, rstd):
+                             m.cuda_bn_grad_sums(*a)}
+                   for tag, m in modules.items()}
+            per_call = shape in BN_LAUNCH_SHAPES and shape not in calls
+            if per_call:
+                calls[shape] = fns
+            runs = {(tag, k): [] for tag in modules for k in ("k2", "k3")}
+            for tag in order:
+                for k in ("k2", "k3"):
+                    runs[tag, k].append(graph_ms(fns[tag][k], reps=20, replays=5))
+                    if per_call:  # with the host's launch: the median of 5 runs of 200
+                        call_ms.setdefault(shape, {}).setdefault(tag, {}).setdefault(
+                            k, []).append(float(np.median(
+                                [cuda_ms(fns[tag][k], 200) for _ in range(5)])))
+            row = {k: float(np.mean(runs["new", k])) for k in ("k2", "k3")}
+            if parent:
+                for k in ("k2", "k3"):
+                    row[f"{k}_parent"] = float(np.mean(runs["parent", k]))
+                    ratio = row[k] / row[f"{k}_parent"]
+                    if ratio > worst[group][k][0]:
+                        worst[group][k] = (ratio, list(shape))
+            dims = (0, 2, 3) if x.dim() == 4 else 0
+            ones = torch.ones(shape[1], device=dev)
+            # the library call takes (N, C, ...) inputs; a 2-D one as (N, C, 1, 1)
+            x4, dy4 = ((x, dy) if x.dim() == 4 else
+                       (x[..., None, None], dy[..., None, None]))
+            lib2 = lambda: torch.var_mean(x, dim=dims, correction=0)
+            lib3 = lambda: bn_grad_library(dy4, x4, mean, rstd, ones)
+            row.update(
+                p2=cuda_ms(lambda: bn.bn_stats_sums_plain(x), 5, warmup=1),
+                p3=cuda_ms(lambda: bn.bn_grad_sums_plain(dy, x, mean, rstd), 5,
+                           warmup=1),
+                lib2=graph_ms(lib2, reps=20, replays=5),
+                lib3=graph_ms(lib3, reps=20, replays=5),
+                lib2_call=cuda_ms(lib2, 5, warmup=1),
+                lib3_call=cuda_ms(lib3, 5, warmup=1),
+                b2=bn_bound_ms(shape, 2, False)[0],
+                b3=bn_bound_ms(shape, 2, True)[0])
+            # the library call computes K3's function: its sums against plain
+            lib_rel = max(lib_rel, bn_rel_err(torch.stack(lib3()),
+                                              bn.bn_grad_sums_plain(dy, x, mean, rstd)))
+            for key, v in row.items():
+                tot[group][key] += v
+            per_shape.append(dict(row, group=group, shape=list(shape)))
+            if group not in largest or x.numel() > largest[group]["elems"]:
+                largest[group] = dict(row, shape=list(shape), elems=x.numel())
+            del x, dy, x4, dy4
     log(f"[bn] {BN_GRAD_LIBRARY_CALL} against K3's plain version: max rel "
         f"err {lib_rel:.3e} (the same two sums; timed, not used by the port)")
-    for group, L in largest.items():
-        log(f"[bn] {group}, largest {L['shape']} bf16: K2 {L['k2']:.5f} ms "
-            f"(plain {L['p2']:.4f}, torch.var_mean {L['lib2']:.4f}, bound "
-            f"{L['b2']:.5f} bytes), K3 {L['k3']:.5f} ms (plain {L['p3']:.4f}, "
-            f"batch_norm_backward_reduce {L['lib3']:.4f}, bound {L['b3']:.5f} "
-            f"bytes)")
+    for r in per_shape:
+        plan = bn.bn_launch_plan(math.prod(r["shape"]) // r["shape"][1],
+                                 r["shape"][1], 2, sms)
+        log(f"[bn] {r['group']} {'x'.join(map(str, r['shape']))} bf16, grid "
+            f"{plan.grid[0]}x{plan.grid[1]} of {plan.block[0]}x{plan.block[1]}: "
+            f"K2 {r['k2']:.5f} ms"
+            + (f" (parent {r['k2_parent']:.5f})" if parent else "")
+            + f", K3 {r['k3']:.5f}"
+            + (f" (parent {r['k3_parent']:.5f})" if parent else "")
+            + f"; bound {r['b2']:.5f} / {r['b3']:.5f}; var_mean {r['lib2']:.5f} "
+            f"device ({r['lib2_call']:.4f} per call), backward_reduce "
+            f"{r['lib3']:.5f} ({r['lib3_call']:.4f})")
+    for shape, tags in call_ms.items():
+        log(f"[bn] {shape} bf16, per call with the host's launch (ms): " + "; ".join(
+            f"{tag} K2 {', '.join(f'{v:.5f}' for v in ks['k2'])}, K3 "
+            f"{', '.join(f'{v:.5f}' for v in ks['k3'])}" for tag, ks in tags.items()))
     for group, t in tot.items():
         log(f"[bn] {group}: a step's {len(groups[group])} launches, bf16, "
-            f"summed device ms: K2 {t['k2']:.5f} (plain {t['p2']:.4f}, "
-            f"torch.var_mean {t['lib2']:.4f}, bound {t['b2']:.5f}), K3 "
-            f"{t['k3']:.5f} (plain {t['p3']:.4f}, batch_norm_backward_reduce "
-            f"{t['lib3']:.4f}, bound {t['b3']:.5f})")
+            f"summed device ms: K2 {t['k2']:.5f}"
+            + (f" (parent {t['k2_parent']:.5f})" if parent else "")
+            + f", {t['b2'] / t['k2']:.1%} of its bound {t['b2']:.5f} (plain "
+            f"{t['p2']:.4f}, torch.var_mean {t['lib2']:.5f} device, "
+            f"{t['lib2_call']:.4f} per call); K3 {t['k3']:.5f}"
+            + (f" (parent {t['k3_parent']:.5f})" if parent else "")
+            + f", {t['b3'] / t['k3']:.1%} of its bound {t['b3']:.5f} (plain "
+            f"{t['p3']:.4f}, batch_norm_backward_reduce {t['lib3']:.5f} device, "
+            f"{t['lib3_call']:.4f} per call)")
+        if parent:
+            log(f"[bn] {group}: worst shape new / parent: K2 "
+                f"{worst[group]['k2'][0]:.3f} at {worst[group]['k2'][1]}, K3 "
+                f"{worst[group]['k3'][0]:.3f} at {worst[group]['k3'][1]}")
     return {"max_rel": max_rel, "max_abs": max_abs, "total": tot,
-            "largest": largest, "groups": groups}
+            "largest": largest, "groups": groups, "worst": worst,
+            "calls": calls, "call_ms": call_ms}
 
 
 def train_config(kernels: bool):
@@ -1937,8 +2084,8 @@ def main() -> int:
                         "and of 3 flagship train steps here")
     parser.add_argument("--parent", default="",
                         help="a checkout of another commit (the parent's tree) "
-                        "whose NMS and loss kernels are timed in turns with "
-                        "these")
+                        "whose NMS, loss and BN kernels are timed in turns "
+                        "with these")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1957,12 +2104,12 @@ def main() -> int:
     phase_check(dev)
     serve = phase_serve(dev, args.profile)
     loss = phase_loss(dev, args.parent)
-    bn = phase_bn(dev)
+    bn = phase_bn(dev, args.parent)
     phase_train_check(dev)
     train = phase_train(dev, args.profile)
     fit = phase_fit(dev, train)
     variants = phase_variants(dev)
-    phase_launches(loss, nms)
+    phase_launches(loss, nms, bn)
     counts = train["kernels"]["counts"]
     no_library = ("no single PyTorch call computes this function")
     nt = nms["timing"]
@@ -2042,7 +2189,11 @@ def main() -> int:
             "max_abs_err": bn["max_abs"][key], "max_rel_err": bn["max_rel"][key],
             "shape": "the step's 25 BatchNorm inputs, bf16, batch 64",
             "ms": tot[k], "plain_ms": tot[p], "bound_ms": tot[b_],
-            "bound_by": "bytes", "library_ms": tot[lib], "library_call": call,
+            "bound_by": "bytes", "library_ms": tot[lib],
+            "library_call_ms": tot[f"{lib}_call"], "library_call": call,
+            "cuda_launches_per_call": bn["cuda_launches"][k]["new"],
+            "call_ms": {"x".join(map(str, shape)): float(np.mean(tags["new"][k]))
+                        for shape, tags in bn["call_ms"].items()},
             "largest_shape": big["shape"], "ms_largest": big[k],
             "plain_ms_largest": big[p], "bound_ms_largest": big[b_],
             "library_ms_largest": big[lib],
@@ -2051,7 +2202,16 @@ def main() -> int:
             **{f"{field}_{group}": bn["total"][group][key_]
                for group in ("mobilenetv2", "gap_dense_2d")
                for field, key_ in (("ms", k), ("plain_ms", p),
-                                   ("bound_ms", b_), ("library_ms", lib))},
+                                   ("bound_ms", b_), ("library_ms", lib),
+                                   ("library_call_ms", f"{lib}_call"))},
+            **({f"parent_ms{suffix}": bn["total"][group][f"{k}_parent"]
+                for group, suffix in (("flagship", ""),
+                                      ("mobilenetv2", "_mobilenetv2"),
+                                      ("gap_dense_2d", "_gap_dense_2d"))}
+               if f"{k}_parent" in tot else {}),
+            **({"parent_cuda_launches_per_call": bn["cuda_launches"][k]["parent"],
+                "worst_ratio_to_parent": {g: w[k] for g, w in bn["worst"].items()}}
+               if "parent" in bn["cuda_launches"][k] else {}),
             "shapes_mobilenetv2": len(bn["groups"]["mobilenetv2"]),
             "shape_gap_dense_2d": list(bn["groups"]["gap_dense_2d"][0])})
     log(f"[train] kernels path p50 {train['kernels']['p50_ms']:.3f} ms, "

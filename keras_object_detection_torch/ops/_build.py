@@ -1,5 +1,6 @@
 """Build the port's CUDA sources into shared libraries with a plain C
-interface, loaded with ``ctypes``.
+interface, loaded with ``ctypes``, and launch their C entry points on the
+current stream.
 
 ``load_library("nms")`` compiles ``ops/csrc/nms.cu`` with ``nvcc`` for
 ``sm_90a`` at first use into ``build/kernels/`` beside the package (listed
@@ -18,6 +19,8 @@ import shutil
 import subprocess
 import time
 from typing import Tuple
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -66,3 +69,15 @@ def load_library(name: str) -> ctypes.CDLL:
     process."""
     lib, _, _ = build(name)
     return ctypes.CDLL(str(lib))
+
+
+def launch(fn, device: torch.device, *args) -> int:
+    """``fn(*args, stream)`` on ``device``'s current stream, switching the
+    current device only where it differs. The stream is the raw handle,
+    since ``torch.cuda.current_stream()`` builds a Stream object each
+    call."""
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(device):
+        return fn(*args, stream)

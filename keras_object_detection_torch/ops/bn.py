@@ -6,9 +6,10 @@ Activations are NCHW tensors in ``channels_last`` memory, whose per-channel
 statistics are column sums of the ``(M, C)`` row view (M = N*H*W), or
 contiguous ``(M, C)`` tensors (a Dense layer's output), which are that view
 already. A CUDA tensor goes to the hand-written kernels of
-``ops/csrc/bn_stats.cu``, which take only those layouts and raise on any
-other; a CPU tensor goes to the plain versions here (float32 sums over every
-dimension but the channels', any layout).
+``ops/csrc/bn_stats.cu`` (one launch a call, cut as ``bn_launch_plan``
+says), which take only those layouts and raise on any other; a CPU tensor
+goes to the plain versions here (float32 sums over every dimension but the
+channels', any layout).
 
 Numerics follow ``flax.linen.BatchNorm`` (fast variance, float32 reductions):
 ``mean = s1 / M``, ``var = max(0, s2 / M - mean^2)``, the normalise in
@@ -22,10 +23,13 @@ layout and had to be copied to the kernels' layout before its kernel.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
+
+from keras_object_detection_torch.ops import _build
 
 STATS_LAUNCHES = 0
 GRAD_STATS_LAUNCHES = 0
@@ -68,19 +72,85 @@ def bn_grad_sums_plain(dy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
     return torch.stack([_channel_sums(dyf), _channel_sums(dyf * xhat)])
 
 
+BN_THREADS = 256  # threads a block, as KOT_BN_THREADS in bn_stats.cu
+BN_TILE_BYTES = 128  # bytes of a row one channel tile covers: a cache line
+BN_BLOCKS_PER_SM = 2  # blocks the plan asks for, per SM, where the shape allows
+BN_ROWS_AT_ONCE = 4  # rows a thread loads at once, at the least (K3's U)
+
+
+@dataclasses.dataclass(frozen=True)
+class BNPlan:
+    """How ``bn_stats.cu`` cuts an ``(m, c)`` row view: ``v`` channels a
+    16-byte load, blocks of ``block = (tx, ty)`` threads over ``grid = (gx,
+    gy)``: ``gx`` channel tiles of ``tx * v`` channels, ``gy`` row blocks of
+    ``rows_per_block`` rows. Where ``gy > 1`` each block writes one partial
+    row of ``stride`` floats (the tile's two sums, padded to a float4) into
+    ``scratch_floats`` of scratch, and tile ``i`` uses ticket counter
+    ``i``."""
+
+    v: int
+    block: Tuple[int, int]
+    grid: Tuple[int, int]
+    rows_per_block: int
+    stride: int
+    scratch_floats: int
+
+
+@functools.lru_cache(maxsize=4096)
+def bn_launch_plan(m: int, c: int, itemsize: int, sms: int,
+                   aligned: bool = True) -> BNPlan:
+    """The launch plan of K2/K3 for ``m`` rows of ``c`` channels of
+    ``itemsize`` bytes on a card of ``sms`` SMs; ``aligned``: every input's
+    data pointer is 16-byte aligned.
+
+    A tile is one 128-byte run of a row: ``tx`` threads of ``v`` channels,
+    ``tx`` a power of two up to 32 (a warp spans whole rows of the tile),
+    fewer where ``c`` is narrower; or a whole row of up to 32 threads where
+    128-byte tiles would cut a row whose length is no multiple of 64 bytes
+    (144 bf16 channels: 288 bytes). ``ty = 256 // tx`` threads stride over
+    the rows. The row blocks per tile are chosen so the grid holds at least
+    ``BN_BLOCKS_PER_SM * sms`` blocks wherever the rows allow each thread
+    one row. Where the tiles alone fill the card, or where they cannot be
+    filled so and a tile's rows fit in one round of loads (at most 4 a
+    thread, with ``ty`` cut to the fewest whole warps that allow it), a
+    block takes all ``m`` rows and there are no partials."""
+    vec = 16 // itemsize
+    v = vec if aligned and c % vec == 0 else 1
+    groups = c // v
+    tx = min(1 << (groups - 1).bit_length(), 32,
+             max(1, BN_TILE_BYTES // (itemsize * v)))
+    if tx < groups <= 32 and c * itemsize % 64:
+        # tiles cut inside a row whose length is no multiple of 64 bytes
+        # would share the 64-byte pieces at their borders: a whole row a tile
+        tx = groups
+    ty = BN_THREADS // tx
+    gx = -(-groups // tx)
+    target = BN_BLOCKS_PER_SM * sms
+    few = m * groups < target * BN_THREADS  # too few for a row a thread
+    if gx >= target or (few and m <= BN_ROWS_AT_ONCE * ty):
+        if m <= BN_ROWS_AT_ONCE * ty:
+            need = -(-m // BN_ROWS_AT_ONCE)
+            ty = min(ty, max(1 << (need - 1).bit_length(), 32 // tx))
+        rows, gy = m, 1
+    else:
+        rows = ty * max(1, (m * gx) // (target * ty))
+        gy = -(-m // rows)
+    stride = -(-2 * tx * v // 4) * 4
+    return BNPlan(v=v, block=(tx, ty), grid=(gx, gy), rows_per_block=rows,
+                  stride=stride, scratch_floats=gx * gy * stride if gy > 1 else 0)
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
-    from keras_object_detection_torch.ops._build import load_library
-
-    lib = load_library("bn_stats")
-    lib.kot_bn_chunks.argtypes = [ctypes.c_longlong]
-    lib.kot_bn_chunks.restype = ctypes.c_int
-    lib.kot_bn_stats.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                 ctypes.c_void_p, ctypes.c_longlong,
-                                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib = _build.load_library("bn_stats")
+    # partials, n_partials, tickets, n_tickets, out, m, c, dtype, v, tx, ty,
+    # gx, gy, rows, stream
+    tail = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 7 + [
+            ctypes.c_longlong, ctypes.c_void_p]
+    lib.kot_bn_stats.argtypes = [ctypes.c_void_p] + tail
     lib.kot_bn_stats.restype = ctypes.c_int
-    lib.kot_bn_grad_stats.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.kot_bn_grad_stats.argtypes = [ctypes.c_void_p] * 4 + tail
     lib.kot_bn_grad_stats.restype = ctypes.c_int
     lib.kot_bn_error_string.argtypes = [ctypes.c_int]
     lib.kot_bn_error_string.restype = ctypes.c_char_p
@@ -103,41 +173,75 @@ def _check(name: str, x: torch.Tensor) -> None:
                          f"{name} is neither")
 
 
-def _workspace(lib, x: torch.Tensor) -> Tuple[int, int, torch.Tensor, torch.Tensor]:
+_TICKETS: Dict[int, torch.Tensor] = {}
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _tickets(device: torch.device) -> torch.Tensor:
+    """The kernels' per-tile ticket counters on ``device``: the plan uses at
+    most ``BN_BLOCKS_PER_SM * SMs`` of them, made at the first call and
+    kept, so that a CUDA graph captured later replays on the same counters.
+    The kernel leaves each at 0 after every launch. One stream at a time may
+    use them: two launches in flight at once on one card would share them."""
+    tickets = _TICKETS.get(device.index)
+    if tickets is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the BN kernels make their ticket counters at "
+                               "their first call on a device; make that call "
+                               "before capturing a CUDA graph")
+        tickets = torch.zeros(BN_BLOCKS_PER_SM * _sm_count(device.index),
+                              dtype=torch.int32, device=device)
+        torch.cuda.synchronize(device)  # the zeros land before any stream reads them
+        _TICKETS[device.index] = tickets
+    return tickets
+
+
+def _launch(fn, what: str, inputs, args, x: torch.Tensor) -> torch.Tensor:
+    """``fn(*inputs, *args, partials, its floats, tickets, their count, out,
+    m, c, dtype, plan..., stream)`` on ``x``'s device and current stream
+    (``_build.launch``); returns ``out``. A negative code is a plan or
+    scratch the kernel refuses (ValueError), a positive one a CUDA error
+    (RuntimeError)."""
     c = x.shape[1]
     m = x.numel() // c
-    partials = torch.empty((lib.kot_bn_chunks(m), 2, c), dtype=torch.float32,
-                           device=x.device)
     out = torch.empty((2, c), dtype=torch.float32, device=x.device)
-    return m, c, partials, out
-
-
-def _raise_on(lib, err: int, what: str) -> None:
+    if m == 0:
+        return out.zero_()
+    aligned = all(t.data_ptr() % 16 == 0 for t in inputs)
+    plan = bn_launch_plan(m, c, x.element_size(), _sm_count(x.device.index),
+                          aligned)
+    tickets = _tickets(x.device)
+    partials = (torch.empty(plan.scratch_floats, dtype=torch.float32,
+                            device=x.device) if plan.scratch_floats else None)
+    err = _build.launch(fn, x.device, *[t.data_ptr() for t in inputs], *args,
+                        partials.data_ptr() if partials is not None else None,
+                        plan.scratch_floats, tickets.data_ptr(), tickets.numel(),
+                        out.data_ptr(), m, c, _DTYPE_CODES[x.dtype], plan.v,
+                        *plan.block, *plan.grid, plan.rows_per_block)
     if err:
-        raise RuntimeError(f"{what} launch failed: "
-                           + lib.kot_bn_error_string(err).decode())
+        msg = f"{what}: " + _library().kot_bn_error_string(err).decode()
+        raise (ValueError if err < 0 else RuntimeError)(msg)
+    return out
 
 
 def cuda_bn_stats_sums(x: torch.Tensor) -> torch.Tensor:
-    """K2 on the card: ``bn_stats_sums_plain`` of a channels_last tensor."""
+    """K2 on the card, one launch: ``bn_stats_sums_plain`` of a
+    channels_last tensor, the same bits on every call."""
     global STATS_LAUNCHES
     _check("x", x)
-    lib = _library()
-    m, c, partials, out = _workspace(lib, x)
-    if m == 0:
-        return out.zero_()
-    with torch.cuda.device(x.device):
-        err = lib.kot_bn_stats(x.data_ptr(), partials.data_ptr(), out.data_ptr(),
-                               m, c, _DTYPE_CODES[x.dtype],
-                               torch.cuda.current_stream().cuda_stream)
-    _raise_on(lib, err, "BN statistics kernel")
-    STATS_LAUNCHES += 1
+    out = _launch(_library().kot_bn_stats, "BN statistics kernel", (x,), (), x)
+    STATS_LAUNCHES += x.numel() > 0
     return out
 
 
 def cuda_bn_grad_sums(dy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
                       rstd: torch.Tensor) -> torch.Tensor:
-    """K3 on the card: ``bn_grad_sums_plain`` of channels_last tensors."""
+    """K3 on the card, one launch: ``bn_grad_sums_plain`` of channels_last
+    tensors, the same bits on every call."""
     global GRAD_STATS_LAUNCHES
     _check("dy", dy)
     _check("x", x)
@@ -149,17 +253,9 @@ def cuda_bn_grad_sums(dy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
                 or not v.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous float32 (C,) tensor "
                              "on x's device")
-    lib = _library()
-    m, c, partials, out = _workspace(lib, x)
-    if m == 0:
-        return out.zero_()
-    with torch.cuda.device(x.device):
-        err = lib.kot_bn_grad_stats(
-            dy.data_ptr(), x.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-            partials.data_ptr(), out.data_ptr(), m, c, _DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(lib, err, "BN gradient statistics kernel")
-    GRAD_STATS_LAUNCHES += 1
+    out = _launch(_library().kot_bn_grad_stats, "BN gradient statistics kernel",
+                  (dy, x), (mean.data_ptr(), rstd.data_ptr()), x)
+    GRAD_STATS_LAUNCHES += x.numel() > 0
     return out
 
 

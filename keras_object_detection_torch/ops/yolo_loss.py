@@ -30,6 +30,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from keras_object_detection_torch.losses.yolo import yolo_v1_loss_terms
+from keras_object_detection_torch.ops import _build
 
 _EPS_IOU = 1e-6
 _EPS_SQRT = 1e-6
@@ -231,18 +232,6 @@ def _check_rows(t: torch.Tensor, p: torch.Tensor, num_classes: int,
         raise ValueError("the loss kernel takes at least one row")
 
 
-def _launch(fn, device: torch.device, *args) -> int:
-    """``fn(*args, stream)`` on ``device``'s current stream, switching the
-    current device only where it differs. The stream is the raw handle,
-    since ``torch.cuda.current_stream()`` builds a Stream object each
-    call."""
-    stream = torch._C._cuda_getCurrentRawStream(device.index)
-    if device.index == torch.cuda.current_device():
-        return fn(*args, stream)
-    with torch.cuda.device(device):
-        return fn(*args, stream)
-
-
 def _raise_on(lib, err: int, what: str) -> None:
     """A negative code is an input the kernel does not take (ValueError), a
     positive one a CUDA error (RuntimeError)."""
@@ -263,10 +252,11 @@ def cuda_yolo_v1_loss_forward(t: torch.Tensor, p: torch.Tensor,
     lib = _library()
     partials, tickets = _forward_scratch(lib, t.device)
     out = torch.empty(5, dtype=torch.float32, device=t.device)
-    err = _launch(lib.kot_loss_forward, t.device, t.data_ptr(), p.data_ptr(),
-                  partials.data_ptr(), tickets.data_ptr(), out.data_ptr(),
-                  t.shape[0], num_classes, num_boxes, float(lambda_coord),
-                  float(lambda_noobj), int(noobj_mode == "all"))
+    err = _build.launch(lib.kot_loss_forward, t.device, t.data_ptr(),
+                        p.data_ptr(), partials.data_ptr(), tickets.data_ptr(),
+                        out.data_ptr(), t.shape[0], num_classes, num_boxes,
+                        float(lambda_coord), float(lambda_noobj),
+                        int(noobj_mode == "all"))
     _raise_on(lib, err, "loss forward kernel")
     FORWARD_LAUNCHES += 1
     return out
@@ -286,10 +276,10 @@ def cuda_yolo_v1_loss_backward(t: torch.Tensor, p: torch.Tensor,
     g = g.contiguous()
     lib = _library()
     dp = torch.empty_like(p)
-    err = _launch(lib.kot_loss_backward, t.device, t.data_ptr(), p.data_ptr(),
-                  g.data_ptr(), dp.data_ptr(), t.shape[0], num_classes,
-                  num_boxes, float(lambda_coord), float(lambda_noobj),
-                  int(noobj_mode == "all"))
+    err = _build.launch(lib.kot_loss_backward, t.device, t.data_ptr(),
+                        p.data_ptr(), g.data_ptr(), dp.data_ptr(), t.shape[0],
+                        num_classes, num_boxes, float(lambda_coord),
+                        float(lambda_noobj), int(noobj_mode == "all"))
     _raise_on(lib, err, "loss backward kernel")
     BACKWARD_LAUNCHES += 1
     return dp

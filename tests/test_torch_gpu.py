@@ -238,17 +238,22 @@ def test_fused_loss_on_the_gpu_goes_through_the_kernels(cuda):
 
 
 BN_SHAPES = [(64, 64, 56, 56), (8, 192, 28, 28), (3, 24, 7, 7), (5, 32, 13, 11),
-             (2, 1024, 7, 7), (7, 20, 5, 3)]
+             (2, 1024, 7, 7), (7, 20, 5, 3), (64, 1024, 7, 7),
+             (64, 1280, 14, 14), (64, 4960)]
 
 
 @pytest.mark.parametrize("shape", BN_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_bn_kernels_match_plain_versions(cuda, shape, dtype):
+    """Within 1e-5 of the plain sums, one launch counted a call, and the
+    same bits from call to call (a fixed summation order)."""
+    from chip_smoke import kernel_layout_tensor
+
     gen = torch.Generator().manual_seed(1)
     x = (torch.randn(shape, generator=gen) * 2 + 0.5).to(cuda, dtype)
     dy = torch.randn(shape, generator=gen).to(cuda, dtype)
-    x = x.contiguous(memory_format=torch.channels_last)
-    dy = dy.contiguous(memory_format=torch.channels_last)
+    x = kernel_layout_tensor(x)
+    dy = kernel_layout_tensor(dy)
     before = (bn.STATS_LAUNCHES, bn.GRAD_STATS_LAUNCHES)
     m = x.numel() // shape[1]
     got = bn.cuda_bn_stats_sums(x)
@@ -264,8 +269,57 @@ def test_bn_kernels_match_plain_versions(cuda, shape, dtype):
     scale = want_g.abs().amax(dim=1, keepdim=True) + 1
     torch.testing.assert_close(got_g / scale, want_g / scale, rtol=1e-5,
                                atol=1e-5)
-    again = bn.cuda_bn_stats_sums(x)
-    assert torch.equal(again, got)  # a fixed summation order
+    assert torch.equal(bn.cuda_bn_stats_sums(x), got)
+    assert torch.equal(bn.cuda_bn_grad_sums(dy, x, mean, rstd), got_g)
+
+
+def _bn_inputs(shape, device, seed=4):
+    from chip_smoke import bn_inputs
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return bn_inputs(shape, torch.bfloat16, gen, device)
+
+
+@pytest.mark.parametrize("shape", [(64, 1024, 7, 7), (64, 1280, 14, 14),
+                                   (64, 4960), (64, 64, 28, 28), (5, 7)])
+def test_bn_kernels_replay_in_a_cuda_graph(cuda, shape):
+    """Three K2 and K3 calls in one CUDA graph give the eager bits on each
+    of two replays: every tile's ticket counter is back at 0 after a
+    launch."""
+    from chip_smoke import bn_graph_replays
+
+    assert bn_graph_replays(bn, *_bn_inputs(shape, cuda))
+
+
+@pytest.mark.parametrize("shape", [(64, 1024, 7, 7), (64, 4960), (5, 32, 13, 11),
+                                   (64, 16, 56, 56)])
+def test_bn_kernels_take_unaligned_views(cuda, shape):
+    """Inputs whose data pointer is not 16-byte aligned (an offset view in
+    the kernels' layout) take the one-channel-a-load path: within 1e-5 of
+    the plain sums, the same bits from call to call."""
+    from chip_smoke import bn_offset_view, bn_rel_err
+
+    x, dy, mean, rstd = _bn_inputs(shape, cuda)
+    xs, dys = bn_offset_view(x), bn_offset_view(dy)
+    assert xs.data_ptr() % 16 and dys.data_ptr() % 16
+    assert bn.kernel_layout(xs) and bn.kernel_layout(dys)
+    got = bn.cuda_bn_stats_sums(xs)
+    got_g = bn.cuda_bn_grad_sums(dys, xs, mean, rstd)
+    assert bn_rel_err(got, bn.bn_stats_sums_plain(x)) <= 1e-5
+    assert bn_rel_err(got_g, bn.bn_grad_sums_plain(dy, x, mean, rstd)) <= 1e-5
+    assert torch.equal(bn.cuda_bn_stats_sums(xs), got)
+    assert torch.equal(bn.cuda_bn_grad_sums(dys, xs, mean, rstd), got_g)
+
+
+@pytest.mark.parametrize("shape", [(64, 1024, 7, 7), (64, 4960)])
+def test_bn_kernels_are_one_cuda_launch_each(cuda, shape):
+    """K2 and K3 are one CUDA launch a call, where the row blocks meet at a
+    ticket (7x7x1024) and where one block covers all rows (64, 4960)."""
+    from chip_smoke import cuda_launches
+
+    x, dy, mean, rstd = _bn_inputs(shape, cuda)
+    assert len(cuda_launches(lambda: bn.cuda_bn_stats_sums(x))) == 1
+    assert len(cuda_launches(lambda: bn.cuda_bn_grad_sums(dy, x, mean, rstd))) == 1
 
 
 # the v1 transfer family's shapes at batch 64, 448²: the GAP dense head's
