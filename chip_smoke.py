@@ -97,7 +97,22 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
              images/s, peak memory, dy layout copies; the frozen VGG16
              tensors and their nadam moments bit-unchanged; then serving at
              batch 1 and 32 (K1 once a call, predict == the plain NMS);
-11. launches - CUDA launches per call of K1, K4, K5, K2 and K3 (1 each)
+11. recipe  - the v1 training recipe on the flagship's kernel path (batch
+             64, mosaic 1.0, mixup 0.5, adamw with weight decay 5e-4): the
+             step at each multiscale size of RECIPE_SIZES (S = 5 ... 9),
+             p50, images/s, peak memory, launches a step (K2 25, K3 25, K4
+             1, K5 1); at 320² and 576² every K2-K5 call of a step held
+             against its plain version on the step's own inputs; remat off
+             / full / dots at 448² (loss, running statistics and gradients
+             bit-equal to off, K2 25 / 50 / 50 and K3 25 a step, p50, peak
+             memory); box_loss_mode ciou on the plain
+             loss (p50; the loss and its gradient on the step's grids
+             against the CPU's to 1e-5), diou and alpha_iou finite; a
+             2-epoch Trainer.fit from the device cache at two multiscale
+             sizes with steps_per_dispatch 4 and 1, bit-equal with
+             deterministic cuDNN, and their fit images/s; mosaic_batch and
+             mixup_batch alone at batch 64, 448²; one JSON line "recipe";
+12. launches - CUDA launches per call of K1, K4, K5, K2 and K3 (1 each)
              and of the other checkout's, from a torch.profiler trace, after the
              train and fit phases so that no profiler hook slows them.
 
@@ -2058,6 +2073,491 @@ def phase_variants(dev) -> dict:
     return out
 
 
+RECIPE_SIZES = (320, 384, 448, 512, 576)
+RECIPE_GRIDS = {320: 5, 384: 6, 448: 7, 512: 8, 576: 9}  # darknet24's S
+RECIPE_CHECKED = (320, 576)  # kernel inputs held against the plain versions
+RECIPE_WARMUP, RECIPE_STEPS = 2, 5
+REMAT_LAUNCHES = {None: 25, "full": 50, "dots": 50}  # K2 a step; K3 25
+
+
+def recipe_config(**train):
+    """train_config(kernels=True) with the v1 recipe: mosaic 1.0, mixup 0.5,
+    adamw with weight decay 5e-4, multiscale over RECIPE_SIZES; ``train``
+    replaces further train fields."""
+    cfg = train_config(True)
+    return dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, mosaic_prob=1.0,
+                                      mixup_prob=0.5),
+        train=dataclasses.replace(cfg.train, **{
+            "optimizer": "adamw", "weight_decay": 5e-4,
+            "multiscale_sizes": RECIPE_SIZES, **train}))
+
+
+def capture_kernel_calls(step, state, batch, seed: int) -> dict:
+    """One step with the arguments of every K2, K3, K4 and K5 call kept
+    (the wrappers are looked up at each call, so they can be wrapped)."""
+    from keras_object_detection_torch.ops import bn, yolo_loss
+
+    calls = {"k2": [], "k3": [], "k4": [], "k5": []}
+
+    def keep(name, fn):
+        def wrapped(*args):
+            calls[name].append(args)
+            return fn(*args)
+        return wrapped
+
+    with contextlib.ExitStack() as stack:
+        for module, attr, name in (
+                (bn, "cuda_bn_stats_sums", "k2"),
+                (bn, "cuda_bn_grad_sums", "k3"),
+                (yolo_loss, "cuda_yolo_v1_loss_forward", "k4"),
+                (yolo_loss, "cuda_yolo_v1_loss_backward", "k5")):
+            stack.enter_context(unittest.mock.patch.object(
+                module, attr, keep(name, getattr(module, attr))))
+        step(state, *batch, seed)
+        torch.cuda.synchronize()
+    return calls
+
+
+def kernel_errors(calls: dict) -> dict:
+    """Each kernel on the captured arguments against its plain version:
+    max abs error, and max error relative to each sum's largest channel
+    (K2, K3; ``bn_rel_err``) or to each sum (K4); K5 must be bit-equal."""
+    from keras_object_detection_torch.ops import bn
+    from keras_object_detection_torch.ops import yolo_loss as yl
+
+    out = {}
+    for name, kernel, plain in (
+            ("k2", bn.cuda_bn_stats_sums, bn.bn_stats_sums_plain),
+            ("k3", bn.cuda_bn_grad_sums, bn.bn_grad_sums_plain),
+            ("k4", yl.cuda_yolo_v1_loss_forward, yl.yolo_v1_loss_forward_plain),
+            ("k5", yl.cuda_yolo_v1_loss_backward,
+             yl.yolo_v1_loss_backward_plain)):
+        abs_err = rel_err = 0.0
+        for args in calls[name]:
+            got, want = kernel(*args), plain(*args)
+            abs_err = max(abs_err, (got - want).abs().max().item())
+            if name == "k4":
+                rel = ((got - want).abs() / want.abs().clamp_min(1e-30)).max()
+                rel_err = max(rel_err, rel.item())
+            elif name in ("k2", "k3"):
+                rel_err = max(rel_err, bn_rel_err(got, want))
+            elif not torch.equal(got, want):
+                raise SystemExit("K5 differs from its plain version on the "
+                                 "recipe step's rows")
+        out[name] = {"calls": len(calls[name]), "max_abs_err": abs_err,
+                     "max_rel_err": rel_err,
+                     "shapes": sorted({tuple(a[0].shape) for a in calls[name]})}
+    limits = {"k2": 1e-5, "k3": 1e-5, "k4": 1e-6, "k5": 0.0}
+    bad = {k: v["max_rel_err"] for k, v in out.items()
+           if v["max_rel_err"] > limits[k]}
+    if bad:
+        raise SystemExit(f"kernels disagree with their plain versions on the "
+                         f"recipe step's inputs: {bad} (limits {limits})")
+    return out
+
+
+def kernel_times(calls: dict) -> dict:
+    """Each kernel's device time summed over one step's captured calls
+    (CUDA graph, as phase_bn times them), its plain version's (per call),
+    its bound and, for K2 and K3, the library call's (graph), in ms."""
+    from keras_object_detection_torch.ops import bn
+    from keras_object_detection_torch.ops import yolo_loss as yl
+
+    out = {}
+    for name, kernel, plain in (
+            ("k2", bn.cuda_bn_stats_sums, bn.bn_stats_sums_plain),
+            ("k3", bn.cuda_bn_grad_sums, bn.bn_grad_sums_plain),
+            ("k4", yl.cuda_yolo_v1_loss_forward, yl.yolo_v1_loss_forward_plain),
+            ("k5", yl.cuda_yolo_v1_loss_backward,
+             yl.yolo_v1_loss_backward_plain)):
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+               "library_ms": 0.0 if name in ("k2", "k3") else None}
+        for args in calls[name]:
+            tot["ms"] += graph_ms(lambda: kernel(*args), reps=20, replays=5)
+            tot["plain_ms"] += cuda_ms(lambda: plain(*args), 3, warmup=1)
+            x = args[0] if name == "k2" else args[1]
+            if name in ("k2", "k3"):
+                tot["bound_ms"] += bn_bound_ms(tuple(x.shape), x.element_size(),
+                                               name == "k3")[0]
+                ones = torch.ones(x.shape[1], device=x.device)
+                lib = ((lambda: torch.var_mean(x, dim=(0, 2, 3), correction=0))
+                       if name == "k2" else
+                       (lambda: bn_grad_library(*args[:3], args[3], ones)))
+                tot["library_ms"] += graph_ms(lib, reps=20, replays=5)
+            else:
+                n = args[0].shape[0]
+                tot["bound_ms"] += loss_bound_ms(n, *args[2 if name == "k4"
+                                                          else 3:][:2],
+                                                 name == "k5")[0]
+        out[name] = tot
+    return out
+
+
+def recipe_sizes(dev, smi: str) -> dict:
+    """The recipe step at each multiscale size: p50, images/s, peak memory,
+    launches a step; at RECIPE_CHECKED the kernels on the step's own inputs
+    against their plain versions."""
+    from keras_object_detection_torch.train import (create_train_state,
+                                                    make_train_step,
+                                                    multiscale_grid)
+
+    cfg = recipe_config()
+    state = create_train_state(cfg, torch.Generator().manual_seed(0))
+    b = cfg.data.batch_size
+    # decoded at the largest size, as the train CLI decodes for multiscale
+    batch = synthetic_batch(b, max(RECIPE_SIZES), cfg.data.max_boxes_per_image,
+                            dev)
+    out = {}
+    for size in RECIPE_SIZES:
+        grid = multiscale_grid(cfg, size)
+        if grid != RECIPE_GRIDS[size]:
+            raise SystemExit(f"multiscale grid {grid} at {size}, expected "
+                             f"{RECIPE_GRIDS[size]}")
+        step = make_train_step(cfg, image_size=size, grid=grid)
+        torch.cuda.reset_peak_memory_stats(dev)
+        times, metrics, counts = time_steps(state, step, batch, seed=1,
+                                            warmup=RECIPE_WARMUP,
+                                            steps=RECIPE_STEPS)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        p50 = float(np.median(times))
+        loss = metrics["total"].item()
+        per_step = {k: v / RECIPE_STEPS for k, v in counts.items()}
+        want = {"bn_stats": 25, "bn_grad_stats": 25, "yolo_loss_forward": 1,
+                "yolo_loss_backward": 1}
+        log(f"[recipe] {size}² (S={grid}, {b * grid * grid} loss rows) on "
+            f"{smi}: step p50 {p50:.3f} ms (min {min(times):.3f}, max "
+            f"{max(times):.3f}), {b / p50 * 1e3:.1f} images/s, peak device "
+            f"memory {peak:.3f} GiB, loss {loss:.4f}; launches over "
+            f"{RECIPE_STEPS} steps {counts}")
+        if per_step != want or not np.isfinite(loss):
+            raise SystemExit(f"recipe step at {size}: launches {per_step} a "
+                             f"step (expected {want}), loss {loss}")
+        out[size] = {"p50_ms": p50, "images_per_s": b / p50 * 1e3,
+                     "peak_gib": peak, "loss": loss, "counts": counts}
+        if size in RECIPE_CHECKED:
+            calls = capture_kernel_calls(step, state, batch, 1)
+            errs = kernel_errors(calls)
+            times = kernel_times(calls)
+            del calls
+            log(f"[recipe] {size}²: kernels against their plain versions on "
+                f"the step's own inputs: " + "; ".join(
+                    f"{k.upper()} {v['calls']} calls, max abs "
+                    f"{v['max_abs_err']:.3e}, max rel {v['max_rel_err']:.3e}"
+                    for k, v in errs.items()))
+            log(f"[recipe] {size}²: a step's calls, device ms (CUDA graph) / "
+                f"plain ms / bound ms / library ms: " + "; ".join(
+                    f"{k.upper()} {v['ms']:.5f} / {v['plain_ms']:.4f} / "
+                    f"{v['bound_ms']:.5f} / "
+                    + ("null" if v["library_ms"] is None
+                       else f"{v['library_ms']:.5f}")
+                    for k, v in times.items()))
+            out[size].update(errors=errs, times=times)
+        del step
+        torch.cuda.empty_cache()
+    del state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def recipe_remat(dev, smi: str) -> dict:
+    """remat off / full / dots at 448 (the recipe without multiscale): one
+    step from the same state and draws with deterministic cuDNN, whose loss,
+    running statistics and gradients must equal those without remat bit for
+    bit; then timed steps, peak memory and K2/K3 launches a step."""
+    from keras_object_detection_torch.train import (create_train_state,
+                                                    make_train_step)
+
+    base = recipe_config(multiscale_sizes=())
+    batch = synthetic_batch(base.data.batch_size, base.model.image_size,
+                            base.data.max_boxes_per_image, dev)
+    out, first = {}, {}
+    for policy in (None, "full", "dots"):
+        name = policy or "off"
+        cfg = dataclasses.replace(base, model=dataclasses.replace(
+            base.model, remat=policy is not None,
+            remat_policy=policy or "full"))
+        step = make_train_step(cfg)
+        state = create_train_state(cfg, torch.Generator().manual_seed(0))
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            state, metrics = step(state, *batch, 7)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        first[name] = (
+            metrics["total"].clone(),
+            torch.cat([v.reshape(-1) for k, v in state.model.state_dict().items()
+                       if "running" in k]),
+            {k: p.grad.clone() for k, p in state.model.named_parameters()
+             if not zero_gradient(k)})
+        torch.cuda.reset_peak_memory_stats(dev)
+        times, _, counts = time_steps(state, step, batch, seed=1, warmup=1,
+                                      steps=RECIPE_STEPS)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        p50 = float(np.median(times))
+        per_step = {k: v / RECIPE_STEPS for k, v in counts.items()}
+        want = {"bn_stats": REMAT_LAUNCHES[policy], "bn_grad_stats": 25,
+                "yolo_loss_forward": 1, "yolo_loss_backward": 1}
+        log(f"[recipe] remat {name} at {cfg.model.image_size}² on {smi}: step "
+            f"p50 {p50:.3f} ms "
+            f"(min {min(times):.3f}, max {max(times):.3f}), peak device "
+            f"memory {peak:.3f} GiB; launches a step {per_step}")
+        if per_step != want:
+            raise SystemExit(f"remat {name}: launches {per_step} a step, "
+                             f"expected {want}")
+        out[name] = {"p50_ms": p50,
+                     "images_per_s": cfg.data.batch_size / p50 * 1e3,
+                     "peak_gib": peak, "counts": counts}
+        del state, step
+        torch.cuda.empty_cache()
+    loss0, stats0, grads0 = first["off"]
+    for name in ("full", "dots"):
+        loss, stats, grads = first[name]
+        errs = {k: rel_norm(grads[k], grads0[k]) for k in grads0}
+        worst = max(errs, key=errs.get)
+        same_loss, same_stats = torch.equal(loss, loss0), torch.equal(stats, stats0)
+        n_equal = sum(torch.equal(grads[k], grads0[k]) for k in grads0)
+        log(f"[recipe] remat {name} against off, one step from the same state "
+            f"and draws: loss {loss.item():.6f} vs {loss0.item():.6f} "
+            f"bit-equal {same_loss}; running statistics bit-equal "
+            f"{same_stats}; gradients bit-equal in {n_equal} of {len(grads0)} "
+            f"tensors (all required), largest rel err in norm "
+            f"{errs[worst]:.3e} ({worst})")
+        if not (same_loss and same_stats and n_equal == len(grads0)):
+            raise SystemExit(f"remat {name} changed the step")
+        out[name].update(grad_max_rel=errs[worst], grads_equal=n_equal,
+                         tensors=len(grads0))
+    return out
+
+
+def recipe_box_losses(dev, smi: str) -> dict:
+    """The plain loss with box_loss_mode ciou (K2/K3 still run): p50, and
+    the loss and its gradient in y_pred on the step's own grids against the
+    same loss on the CPU; diou and alpha_iou: one finite step each."""
+    from keras_object_detection_torch.losses import yolo as yolo_losses
+    from keras_object_detection_torch.train import (create_train_state,
+                                                    make_train_step)
+    from keras_object_detection_torch.train import loop
+
+    out = {}
+    for mode in ("ciou", "diou", "alpha_iou"):
+        cfg = recipe_config(multiscale_sizes=(), use_pallas_loss=False,
+                            box_loss_mode=mode)
+        g = cfg.grid
+        state = create_train_state(cfg, torch.Generator().manual_seed(0))
+        batch = synthetic_batch(cfg.data.batch_size, cfg.model.image_size,
+                                cfg.data.max_boxes_per_image, dev)
+        step = make_train_step(cfg)
+        if mode == "ciou":
+            times, metrics, counts = time_steps(state, step, batch, seed=1,
+                                                warmup=1, steps=RECIPE_STEPS)
+            per_step = {k: v / RECIPE_STEPS for k, v in counts.items()}
+            want = {"bn_stats": 25, "bn_grad_stats": 25,
+                    "yolo_loss_forward": 0, "yolo_loss_backward": 0}
+            if per_step != want:
+                raise SystemExit(f"ciou step: launches {per_step} a step, "
+                                 f"expected {want}")
+            grids = []
+            real = loop.yolo_v1_loss_terms
+
+            def keep(y_true, y_pred, *args):
+                grids.append((y_true.detach(), y_pred.detach()))
+                return real(y_true, y_pred, *args)
+
+            with unittest.mock.patch.object(loop, "yolo_v1_loss_terms", keep):
+                step(state, *batch, 1)
+            y_true, y_pred = grids[0]
+            totals, dps = [], []
+            for where in (dev, "cpu"):
+                p = y_pred.to(where).clone().requires_grad_(True)
+                total = yolo_losses.yolo_v1_loss_terms(
+                    y_true.to(where), p, g.num_classes, g.num_boxes,
+                    box_loss_mode=mode)["total"]
+                total.backward()
+                totals.append(total.item())
+                dps.append(p.grad.cpu())
+            rel = abs(totals[0] - totals[1]) / abs(totals[1])
+            grad_err = ((dps[0] - dps[1]).abs().max()
+                        / dps[1].abs().max().clamp_min(1e-30)).item()
+            p50 = float(np.median(times))
+            log(f"[recipe] box_loss_mode ciou (plain loss) at "
+                f"{cfg.model.image_size}² on {smi}: step p50 {p50:.3f} ms, "
+                f"{cfg.data.batch_size / p50 * 1e3:.1f} images/s, loss "
+                f"{metrics['total'].item():.4f}; on the step's grids the card's "
+                f"loss {totals[0]:.6f} vs the CPU's {totals[1]:.6f} (rel "
+                f"{rel:.3e}, tolerance 1e-5), gradient in y_pred max err "
+                f"{grad_err:.3e} of its largest (tolerance 1e-5); launches a "
+                f"step {per_step}")
+            if not (rel <= 1e-5 and grad_err <= 1e-5):
+                raise SystemExit("the ciou loss on the card disagrees with "
+                                 "the CPU's")
+            out[mode] = {"p50_ms": p50, "loss_rel": rel, "grad_err": grad_err,
+                         "counts": counts}
+        else:
+            state, metrics = step(state, *batch, 1)
+            loss = metrics["total"].item()
+            finite = np.isfinite(loss) and all(
+                bool(torch.isfinite(p.grad).all())
+                for p in state.model.parameters() if p.grad is not None)
+            log(f"[recipe] box_loss_mode {mode}: one step, loss {loss:.4f}, "
+                f"loss and gradients finite: {finite}")
+            if not finite:
+                raise SystemExit(f"box_loss_mode {mode}: non-finite step")
+            out[mode] = {"loss": loss}
+        del state, step, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def recipe_fit(dev, smi: str) -> dict:
+    """Trainer.fit of the recipe from the device cache with
+    steps_per_dispatch 4 and 1 in turns (4, 1, 1, 4: the first run also
+    pays the sizes' first launches): 2 epochs of 4 steps at two multiscale
+    sizes (seed 1 draws 384 then 576), mAP every epoch from the loss pass's
+    stash. With deterministic cuDNN every run must log the same epoch
+    metrics, launch the same kernels as often and end with the same
+    parameters, bit for bit. The seeded weights diverge in eval mode, so
+    val_mAP reads 0 here; the CPU test holds a nonzero mAP equal across K."""
+    from keras_object_detection_torch.data import YoloDataset
+    from keras_object_detection_torch.ops import cuda_nms
+    from keras_object_detection_torch.train import Trainer
+
+    size = train_config(True).model.image_size
+    train_dir, train_cache = fit_split("recipe_train", FIT_TRAIN, 11, size)
+    val_dir, val_cache = fit_split("recipe_val", FIT_VAL, 12, size)
+    out, runs = {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for turn, spd in enumerate((4, 1, 1, 4)):
+            cfg = fit_config(f"recipe_k{spd}_{turn}", device_cache=True)
+            cfg = dataclasses.replace(
+                cfg, data=dataclasses.replace(cfg.data, mosaic_prob=1.0,
+                                              mixup_prob=0.5),
+                train=dataclasses.replace(
+                    cfg.train, optimizer="adamw", weight_decay=5e-4, seed=1,
+                    multiscale_sizes=RECIPE_SIZES, steps_per_dispatch=spd))
+            d = cfg.data
+            mk = lambda data, cache, train: YoloDataset(
+                data, size, d.batch_size, max_boxes=d.max_boxes_per_image,
+                shuffle=train, drop_remainder=train, seed=cfg.train.seed,
+                cache_dir=cache)
+            trainer, state, logs, counts, seconds = fit_run(
+                cfg, mk(train_dir, train_cache, True),
+                mk(val_dir, val_cache, False))
+            trainer.close()
+            sizes = [r["train_size"] for r in logs]
+            log(f"[recipe] fit, steps_per_dispatch {spd}, on {smi}: sizes "
+                f"{sizes}, " + "; ".join(
+                    f"epoch {r['step'] + 1}: total {r['total']:.4f}, val_loss "
+                    f"{r['val_loss']:.4f}, val_mAP {r['val_mAP']:.6f}, "
+                    f"{r['images_per_s']:.1f} images/s" for r in logs)
+                + f"; launches {counts}; {seconds:.3f} s")
+            if len(set(sizes)) < 2:
+                raise SystemExit(f"the recipe fit drew one size: {sizes}")
+            runs[turn] = (logs, {k: v.clone() for k, v in
+                                 state.model.state_dict().items()})
+            run = {"sizes": sizes, "seconds": seconds, "counts": counts,
+                   "images_per_s": [r["images_per_s"] for r in logs]}
+            out.setdefault(spd, {"turns": []})["turns"].append(run)
+            out[spd]["counts"] = counts
+            del trainer, state
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    measured = lambda k: k == "time" or k.endswith("_s")  # noqa: E731
+    logs1, sd1 = runs[1]
+    counts1 = out[1]["turns"][0]["counts"]
+    for turn in (0, 2, 3):
+        logs, sd = runs[turn]
+        counts = out[(4, 1, 1, 4)[turn]]["turns"][turn // 2]["counts"]
+        same_logs = [{k: v for k, v in r.items() if not measured(k)}
+                     for r in logs] == [{k: v for k, v in r.items()
+                                         if not measured(k)} for r in logs1]
+        differing = [k for k in sd1 if not torch.equal(sd[k], sd1[k])]
+        log(f"[recipe] fit turn {turn + 1} (steps_per_dispatch "
+            f"{(4, 1, 1, 4)[turn]}) vs turn 2 (1): epoch metrics equal "
+            f"{same_logs}; tensors that differ {len(differing)} of "
+            f"{len(sd1)} {differing[:5]}; launches equal {counts == counts1}")
+        if not same_logs or differing or counts != counts1:
+            raise SystemExit("the recipe fits trained apart")
+    return out
+
+
+def recipe_arms(dev, smi: str) -> dict:
+    """Device ms of mosaic_batch and of mixup_batch alone at batch 64, 448²
+    (CUDA events over 10 calls, draws already on the card)."""
+    from keras_object_detection_torch.data.augment import (
+        mixup_batch, mosaic_batch, sample_mixup_draws, sample_mosaic_draws)
+
+    cfg = train_config(True)
+    images, boxes, valid = synthetic_batch(
+        cfg.data.batch_size, cfg.model.image_size,
+        cfg.data.max_boxes_per_image, dev)
+    g = torch.Generator().manual_seed(0)
+    mosaic = sample_mosaic_draws(cfg.data.batch_size, g).to(dev)
+    mixup = sample_mixup_draws(cfg.data.batch_size, g).to(dev)
+    ms = {"mosaic": cuda_ms(lambda: mosaic_batch(images, boxes, valid, mosaic,
+                                                 1.0), 10),
+          "mixup": cuda_ms(lambda: mixup_batch(images, boxes, valid, mixup,
+                                               1.0), 10)}
+    big = synthetic_batch(cfg.data.batch_size, max(RECIPE_SIZES),
+                          cfg.data.max_boxes_per_image, dev)
+    ms["mosaic_largest"] = cuda_ms(lambda: mosaic_batch(*big, mosaic, 1.0), 10)
+    log(f"[recipe] alone at batch {cfg.data.batch_size}, "
+        f"{cfg.model.image_size}² on {smi}: mosaic_batch "
+        f"{ms['mosaic']:.3f} ms, mixup_batch {ms['mixup']:.3f} ms a call "
+        f"(device, CUDA events over 10 calls); mosaic_batch at "
+        f"{max(RECIPE_SIZES)}² (the multiscale decode) {ms['mosaic_largest']:.3f} ms")
+    return ms
+
+
+def recipe_kernel_entry(recipe: dict, name: str, key: str) -> dict:
+    """The recipe phase's keys of one kernel's entry in the kernels line:
+    its launches over the timed steps at each size and under each remat
+    policy, over each recipe fit, and its errors on the step's own inputs at
+    RECIPE_CHECKED."""
+    return {
+        "launches_recipe": {str(size): v["counts"][name]
+                            for size, v in recipe["sizes"].items()},
+        "launches_recipe_steps": RECIPE_STEPS,
+        "launches_remat": {policy: v["counts"][name]
+                           for policy, v in recipe["remat"].items()},
+        "launches_recipe_fit": {f"steps_per_dispatch_{k}": v["counts"][name]
+                                for k, v in recipe["fit"].items()},
+        **{f"recipe_err_{size}": {f: recipe["sizes"][size]["errors"][key][f]
+                                  for f in ("max_abs_err", "max_rel_err",
+                                            "shapes")}
+           for size in RECIPE_CHECKED},
+        **{f"{f}_recipe_{size}": recipe["sizes"][size]["times"][key][f]
+           for size in RECIPE_CHECKED
+           for f in ("ms", "plain_ms", "bound_ms", "library_ms")}}
+
+
+def phase_recipe(dev) -> dict:
+    """The v1 recipe on the flagship (see the module docstring, phase 11)."""
+    smi = card()
+    t0 = time.perf_counter()
+    out = {"sizes": recipe_sizes(dev, smi), "remat": recipe_remat(dev, smi),
+           "box_losses": recipe_box_losses(dev, smi),
+           "fit": recipe_fit(dev, smi), "arms_ms": recipe_arms(dev, smi)}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[recipe] {out['seconds']:.1f} s")
+    print(json.dumps({"recipe": {
+        "card": smi,
+        "sizes": {str(k): {f: v[f] for f in ("p50_ms", "images_per_s",
+                                             "peak_gib", "counts")}
+                  | {f: v[f] for f in ("errors", "times") if f in v}
+                  for k, v in out["sizes"].items()},
+        "remat": out["remat"], "box_losses": out["box_losses"],
+        "fit": {str(k): v for k, v in out["fit"].items()},
+        "arms_ms": out["arms_ms"], "seconds": out["seconds"]}},
+        default=lambda x: list(x) if isinstance(x, tuple) else str(x)))
+    return out
+
+
 def profile_train(state, step, batch, profile_dir: str) -> None:
     from torch.profiler import ProfilerActivity, profile
 
@@ -2109,6 +2609,7 @@ def main() -> int:
     train = phase_train(dev, args.profile)
     fit = phase_fit(dev, train)
     variants = phase_variants(dev)
+    recipe = phase_recipe(dev)
     phase_launches(loss, nms, bn)
     counts = train["kernels"]["counts"]
     no_library = ("no single PyTorch call computes this function")
@@ -2149,6 +2650,8 @@ def main() -> int:
                 k1[f"parent_ms_{name.replace(' ', '_')}"] = t["parent"]["ms"]
     k1["launches_variants"] = {name: v["serve"]["launches"]
                                for name, v in variants.items()}
+    k1["launches_recipe_fit"] = {f"steps_per_dispatch_{k}": v["counts"]["nms"]
+                                 for k, v in recipe["fit"].items()}
     kernels = [k1]
     for name, key, line in (("yolo_loss_forward", "forward", 107),
                             ("yolo_loss_backward", "backward", 149)):
@@ -2168,6 +2671,8 @@ def main() -> int:
             "library_ms": None, "library_note": no_library}
         entry["launches_variants"] = {v: out["counts"][name]
                                       for v, out in variants.items()}
+        entry.update(recipe_kernel_entry(recipe, name, "k4" if key == "forward"
+                                         else "k5"))
         if "parent" in lt:
             entry.update(parent_ms=lt["parent"]["ms"],
                          parent_call_ms=lt["parent"]["call_ms"],
@@ -2213,7 +2718,9 @@ def main() -> int:
                 "worst_ratio_to_parent": {g: w[k] for g, w in bn["worst"].items()}}
                if "parent" in bn["cuda_launches"][k] else {}),
             "shapes_mobilenetv2": len(bn["groups"]["mobilenetv2"]),
-            "shape_gap_dense_2d": list(bn["groups"]["gap_dense_2d"][0])})
+            "shape_gap_dense_2d": list(bn["groups"]["gap_dense_2d"][0]),
+            **recipe_kernel_entry(recipe, name, "k2" if key == "stats"
+                                  else "k3")})
     log(f"[train] kernels path p50 {train['kernels']['p50_ms']:.3f} ms, "
         f"{train['kernels']['images_per_s']:.1f} images/s; plain path p50 "
         f"{train['plain']['p50_ms']:.3f} ms, "

@@ -26,11 +26,7 @@ import dataclasses
 import os
 
 # flag -> the ROADMAP item that ports its feature
-UNPORTED_FLAGS = {
-    "anchors": "1.10", "profile_dir": "1.15",
-    "multiscale": "1.12", "multiscale_every": "1.12", "mosaic": "1.12",
-    "mixup": "1.12",
-}
+UNPORTED_FLAGS = {"anchors": "1.10", "profile_dir": "1.15"}
 
 
 def parse_args(argv=None):
@@ -56,7 +52,8 @@ def parse_args(argv=None):
     p.add_argument("--epochs", type=int)
     p.add_argument("--optimizer",
                    choices=["adam", "nadam", "sgd", "adamw", "sgdw"])
-    p.add_argument("--weight-decay", type=float)
+    p.add_argument("--weight-decay", type=float,
+                   help="decoupled weight decay for adamw/sgdw")
     p.add_argument("--schedule",
                    choices=["constant", "piecewise_warmup", "cosine_restarts"])
     p.add_argument("--lr", type=float)
@@ -89,12 +86,20 @@ def parse_args(argv=None):
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint in --checkpoint-dir")
     p.add_argument("--profile-dir")
-    p.add_argument("--multiscale", metavar="S1,S2,...")
-    p.add_argument("--multiscale-every", type=int)
+    p.add_argument("--multiscale", metavar="S1,S2,...",
+                   help="multi-scale training: comma-separated input sizes "
+                        "drawn per epoch (each a multiple of the backbone "
+                        "stride); evaluation stays at --image-size")
+    p.add_argument("--multiscale-every", type=int,
+                   help="re-draw the multiscale size every N epochs")
     p.add_argument("--letterbox", action="store_true",
                    help="aspect-preserving resize with gray padding")
-    p.add_argument("--mosaic", type=float, metavar="PROB")
-    p.add_argument("--mixup", type=float, metavar="PROB")
+    p.add_argument("--mosaic", type=float, metavar="PROB",
+                   help="mosaic augmentation probability per image "
+                        "(four images composed into quadrants; 0 disables)")
+    p.add_argument("--mixup", type=float, metavar="PROB",
+                   help="detection mixup probability per image (blend with "
+                        "a partner, keep the box union; 0 disables)")
     p.add_argument("--grad-accum", type=int, metavar="N",
                    help="split each batch into N microbatches (summed "
                         "gradients, one update)")
@@ -153,11 +158,16 @@ def build_config(args):
                   device_cache=args.device_cache or None,
                   device_cache_layout=args.device_cache_layout,
                   train_decode_size=args.train_decode_size,
-                  letterbox=args.letterbox or None),
+                  letterbox=args.letterbox or None,
+                  mosaic_prob=args.mosaic, mixup_prob=args.mixup),
         train=over(cfg.train, epochs=args.epochs, optimizer=args.optimizer,
                    schedule=sched, checkpoint_dir=args.checkpoint_dir,
                    log_dir=args.log_dir, seed=args.seed,
                    grad_accum_steps=args.grad_accum,
+                   multiscale_sizes=(tuple(int(v) for v in
+                                           args.multiscale.split(","))
+                                     if args.multiscale else None),
+                   multiscale_every=args.multiscale_every,
                    weight_decay=args.weight_decay,
                    ignore_threshold=args.ignore_threshold,
                    obj_target=args.obj_target),
@@ -182,8 +192,12 @@ def main(argv=None) -> None:
     d = cfg.data
     cache = (lambda split: os.path.join(d.cache_dir, split)
              if d.cache_dir else None)
+    # multiscale trains some epochs above image_size: decode at the largest
+    # training resolution so that no epoch upsamples
+    ms_max = max(cfg.train.multiscale_sizes or (0,))
     train_ds = YoloDataset(
-        d.train_dir, d.train_input_size(cfg.model.image_size), d.batch_size,
+        d.train_dir, d.train_input_size(max(cfg.model.image_size, ms_max)),
+        d.batch_size,
         max_boxes=d.max_boxes_per_image, shuffle=d.shuffle,
         drop_remainder=d.drop_remainder, num_workers=d.num_workers,
         seed=cfg.train.seed, cache_in_memory=d.cache_in_memory,

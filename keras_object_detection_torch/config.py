@@ -4,8 +4,9 @@ the port never imports the JAX package. A ``config.json`` written next to a
 JAX checkpoint loads here unchanged.
 
 Field meanings are documented at the JAX package's definitions; the comments
-here only mark what this port implements so far. ``check_ported`` raises on a
-switch whose value the port does not implement yet, naming its ROADMAP item.
+here only mark what this port implements. ``check_ported`` raises on a switch
+whose value is unknown; features of families the port does not have yet
+raise where they are built, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -140,7 +141,7 @@ class ScheduleConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     epochs: int = 1000
-    # The port trains with adam | nadam | sgd so far.
+    # adam | nadam | sgd | adamw | sgdw
     optimizer: str = "nadam"
     schedule: ScheduleConfig = dataclasses.field(default_factory=ScheduleConfig)
     checkpoint_dir: str = "checkpoints"
@@ -155,7 +156,7 @@ class TrainConfig:
     noobj_mode: str = "selected"
     # True: the fused loss with its hand-written forward/backward kernels
     use_pallas_loss: bool = False
-    # The port implements "mse" so far.
+    # mse | diou | ciou | alpha_iou (the last three on the plain loss only)
     box_loss_mode: str = "mse"
     ignore_threshold: Optional[float] = None
     obj_target: str = "one"
@@ -240,9 +241,8 @@ class Config:
         )
 
 
-# switch value -> the ROADMAP item that ports it
-_OPTIMIZERS_TO_PORT = {"adamw": "1.7", "sgdw": "1.7"}
-_BOX_LOSSES_TO_PORT = {"diou": "1.16", "ciou": "1.16", "alpha_iou": "1.16"}
+OPTIMIZERS = ("adam", "nadam", "sgd", "adamw", "sgdw")
+BOX_LOSS_MODES = ("mse", "diou", "ciou", "alpha_iou")
 
 
 def check_bn_mode(bn_mode: str) -> None:
@@ -257,38 +257,22 @@ def check_bn_mode(bn_mode: str) -> None:
 
 
 def check_ported(config: "Config", training: bool = False) -> None:
-    """Raise on a switch of ``config`` that the port does not implement yet
-    (``NotImplementedError`` naming its ROADMAP item) or that is unknown
-    (``ValueError``). ``training`` adds the train step's switches."""
-    m, d, t = config.model, config.data, config.train
+    """Raise ``ValueError`` on a switch of ``config`` whose value is unknown
+    or belongs to another family. ``training`` adds the train step's
+    switches."""
+    m, t = config.model, config.train
     check_bn_mode(m.bn_mode)
     if not training:
         return
-    if t.optimizer in _OPTIMIZERS_TO_PORT:
-        raise NotImplementedError(
-            f"optimizer {t.optimizer!r} is not ported yet (ROADMAP "
-            f"{_OPTIMIZERS_TO_PORT[t.optimizer]})")
-    if t.optimizer not in ("adam", "nadam", "sgd"):
+    if t.optimizer not in OPTIMIZERS:
         raise ValueError(f"unknown optimizer {t.optimizer!r}; options: "
-                         "adam, nadam, sgd")
-    if t.box_loss_mode in _BOX_LOSSES_TO_PORT:
-        raise NotImplementedError(
-            f"box_loss_mode {t.box_loss_mode!r} is not ported yet (ROADMAP "
-            f"{_BOX_LOSSES_TO_PORT[t.box_loss_mode]})")
-    if t.box_loss_mode != "mse":
-        raise ValueError(f"unknown box_loss_mode {t.box_loss_mode!r}")
+                         f"{', '.join(OPTIMIZERS)}")
+    if t.box_loss_mode not in BOX_LOSS_MODES:
+        raise ValueError(f"unknown box_loss_mode {t.box_loss_mode!r}; "
+                         f"options: {', '.join(BOX_LOSS_MODES)}")
     if t.noobj_mode not in ("selected", "all"):
         raise ValueError(f"noobj_mode must be 'selected' or 'all', got "
                          f"{t.noobj_mode!r}")
-    if m.remat:
-        # a recomputed forward would update the BN running stats twice
-        raise NotImplementedError("remat is not ported yet (ROADMAP 1.7)")
-    for name, on in (("mosaic_prob", d.mosaic_prob > 0),
-                     ("mixup_prob", d.mixup_prob > 0),
-                     ("multiscale_sizes", bool(t.multiscale_sizes))):
-        if on:
-            raise NotImplementedError(
-                f"{name} is not ported yet (ROADMAP 1.12)")
     if t.ignore_threshold is not None or t.obj_target != "one":
         raise ValueError("ignore_threshold / obj_target are anchor/fpn-family "
                          "knobs; the v1 loss has neither")

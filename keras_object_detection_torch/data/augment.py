@@ -19,6 +19,11 @@ kernel widened by ``max(1 / scale, 1)`` when downsampling (antialias), the
 weights renormalised by their sum, and zero weight for output samples that
 fall outside ``[-0.5, in - 0.5]``. Each image gets two ``(in, out)`` weight
 matrices, applied as batched matrix products.
+
+Before the crop the train step may compose mosaics (``mosaic_batch``, four
+images resized into the quadrants of one, by the same resampler) and blend
+images with a partner (``mixup_batch``); their draws are explicit too
+(``MosaicDraws``, ``MixupDraws``).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 _F32_EPS = 1.1920928955078125e-07  # numpy.finfo(numpy.float32).eps
@@ -275,3 +281,167 @@ def preprocess_eval_batch(images_u8: torch.Tensor) -> torch.Tensor:
     """The eval path's Normalize(0, 1): u8 / 255 in float32, bit-equal to
     the jitted JAX function."""
     return images_u8.to(torch.float32) * _INV_255
+
+
+def _resample(imgs: torch.Tensor, out_size: int, sy: torch.Tensor,
+              sx: torch.Tensor, ty: torch.Tensor, tx: torch.Tensor
+              ) -> torch.Tensor:
+    """``jax.image.scale_and_translate(method="linear")`` of ``(n, H, W,
+    3)`` float images to ``(n, out, out, 3)``, per image scale and
+    translation, zero outside the mapped input."""
+    in_size = imgs.shape[1]
+    wy = linear_weight_matrix(in_size, out_size, sy, ty)  # (n, in, out)
+    wx = linear_weight_matrix(in_size, out_size, sx, tx)
+    chw = imgs.permute(0, 3, 1, 2)
+    out = torch.matmul(torch.matmul(wy.transpose(1, 2)[:, None], chw),
+                       wx[:, None])
+    return out.permute(0, 2, 3, 1)
+
+
+def _to_u8(img: torch.Tensor) -> torch.Tensor:
+    """``round(clip(img, 0, 1) * 255)`` as u8 (half to even, as jnp.round)."""
+    return torch.round(torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8)
+
+
+@dataclasses.dataclass
+class MosaicDraws:
+    """Every random number of one batch's mosaic: ``perms`` ``(batch, 3)``,
+    three permutations of the batch that name each output image's second
+    to fourth sources (the first is the image itself); ``center`` ``(batch,
+    2)``, each mosaic's ``(cx, cy)`` in relative units; ``apply``
+    ``(batch,)`` uniform, the image is a mosaic where it is below the
+    probability."""
+
+    perms: torch.Tensor
+    center: torch.Tensor
+    apply: torch.Tensor
+
+    def to(self, device) -> "MosaicDraws":
+        return MosaicDraws(*(getattr(self, f.name).to(device)
+                             for f in dataclasses.fields(self)))
+
+
+def sample_mosaic_draws(batch: int, generator: torch.Generator,
+                        center_range: Tuple[float, float] = (0.25, 0.75)
+                        ) -> MosaicDraws:
+    """Draw one batch's ``MosaicDraws`` on the CPU from ``generator``."""
+    lo, hi = center_range
+    perms = torch.stack([torch.randperm(batch, generator=generator)
+                         for _ in range(3)], dim=1)
+    center = lo + torch.rand((batch, 2), generator=generator) * (hi - lo)
+    return MosaicDraws(perms, center, torch.rand(batch, generator=generator))
+
+
+def mosaic_batch(images_u8: torch.Tensor, boxes: torch.Tensor,
+                 valid: torch.Tensor, draws: MosaicDraws, prob: float = 1.0,
+                 out_size: Optional[int] = None):
+    """YOLOv4's mosaic (counterpart of ``mosaic_batch``): output image b is
+    composed of four sources, b itself and ``draws.perms[b]``, each resized
+    whole into one quadrant of the unit square split at ``draws.center[b]``
+    (top left, top right, bottom left, bottom right) by one linear
+    ``scale_and_translate``; a pixel belongs to the right / bottom quadrants
+    from the centre on (``>=``). Boxes follow their source's affine map and
+    those not wider and taller than one output pixel are dropped. Where
+    ``draws.apply >= prob`` the image passes through (resized to
+    ``out_size``), its boxes in the first N of the 4N slots.
+
+    Returns ``(B, out, out, 3)`` u8, ``(B, 4N, 5)`` boxes and ``(B, 4N)``
+    validity, on the images' device (``draws`` must be there too)."""
+    b, in_size = images_u8.shape[0], images_u8.shape[1]
+    out_size = in_size if out_size is None else out_size
+    dev = images_u8.device
+    imgs = preprocess_eval_batch(images_u8)
+    src = torch.cat([torch.arange(b, device=dev)[:, None], draws.perms], 1)
+    cx, cy = draws.center[:, 0:1], draws.center[:, 1:2]  # (B, 1)
+    zero = torch.zeros_like(cx)
+    qx0 = torch.cat([zero, cx, zero, cx], 1)  # (B, 4): TL, TR, BL, BR
+    qy0 = torch.cat([zero, zero, cy, cy], 1)
+    qw = torch.cat([cx, 1.0 - cx, cx, 1.0 - cx], 1)
+    qh = torch.cat([cy, cy, 1.0 - cy, 1.0 - cy], 1)
+
+    pasted = _resample(imgs[src.reshape(-1)], out_size,
+                       (qh * out_size / in_size).reshape(-1),
+                       (qw * out_size / in_size).reshape(-1),
+                       (qy0 * out_size).reshape(-1),
+                       (qx0 * out_size).reshape(-1))
+    pasted = pasted.reshape(b, 4, out_size, out_size, 3)
+    pos = (torch.arange(out_size, device=dev) + 0.5) / out_size
+    owner = ((pos[None, None, :] >= cx[:, :, None]).to(torch.int64)
+             + 2 * (pos[None, :, None] >= cy[:, :, None]).to(torch.int64))
+    index = owner[:, None, :, :, None].expand(b, 1, out_size, out_size, 3)
+    mimg = torch.gather(pasted, 1, index)[:, 0]
+
+    sboxes, svalid = boxes[src], valid[src]  # (B, 4, N, 5), (B, 4, N)
+    bx = sboxes[..., 0] * qw[..., None] + qx0[..., None]
+    by = sboxes[..., 1] * qh[..., None] + qy0[..., None]
+    bw = sboxes[..., 2] * qw[..., None]
+    bh = sboxes[..., 3] * qh[..., None]
+    keep = svalid & (bw > 1.0 / out_size) & (bh > 1.0 / out_size)
+    mboxes = torch.stack([bx, by, bw, bh, sboxes[..., 4]], dim=-1)
+    mboxes = torch.where(keep[..., None], mboxes, torch.zeros_like(mboxes))
+    n = boxes.shape[1]
+    mboxes, keep = mboxes.reshape(b, 4 * n, 5), keep.reshape(b, 4 * n)
+
+    pimg = imgs
+    if out_size != in_size:  # jax.image.resize(..., "linear")
+        s = torch.full((b,), out_size / in_size, dtype=torch.float32, device=dev)
+        pimg = _resample(imgs, out_size, s, s, torch.zeros_like(s),
+                         torch.zeros_like(s))
+    pboxes = torch.cat([boxes, boxes.new_zeros(b, 3 * n, 5)], 1)
+    pvalid = torch.cat([valid, valid.new_zeros(b, 3 * n)], 1)
+
+    apply = draws.apply < prob
+    img = torch.where(apply[:, None, None, None], mimg, pimg)
+    out_boxes = torch.where(apply[:, None, None], mboxes, pboxes)
+    out_valid = torch.where(apply[:, None], keep, pvalid)
+    return _to_u8(img), out_boxes, out_valid
+
+
+@dataclasses.dataclass
+class MixupDraws:
+    """Every random number of one batch's mixup: ``perm`` ``(batch,)``, each
+    image's partner; ``lam`` ``(batch,)`` float32 Beta(alpha, alpha)
+    draws (folded to ``max(lam, 1 - lam)`` by ``mixup_batch``); ``apply``
+    ``(batch,)`` uniform, the image blends where it is below the
+    probability."""
+
+    perm: torch.Tensor
+    lam: torch.Tensor
+    apply: torch.Tensor
+
+    def to(self, device) -> "MixupDraws":
+        return MixupDraws(*(getattr(self, f.name).to(device)
+                            for f in dataclasses.fields(self)))
+
+
+def sample_mixup_draws(batch: int, generator: torch.Generator,
+                       alpha: float = 1.5) -> MixupDraws:
+    """Draw one batch's ``MixupDraws`` on the CPU from ``generator``. torch's
+    Beta sampler takes no generator, so ``lam`` comes from a numpy
+    generator seeded from ``generator``."""
+    perm = torch.randperm(batch, generator=generator)
+    seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
+    lam = np.random.default_rng(seed).beta(alpha, alpha, batch)
+    return MixupDraws(perm, torch.from_numpy(lam.astype(np.float32)),
+                      torch.rand(batch, generator=generator))
+
+
+def mixup_batch(images_u8: torch.Tensor, boxes: torch.Tensor,
+                valid: torch.Tensor, draws: MixupDraws, prob: float = 1.0):
+    """Detection mixup (counterpart of ``mixup_batch``): where ``draws.apply
+    < prob`` image b becomes ``lam * x + (1 - lam) * x[perm[b]]`` with
+    ``lam = max(lam, 1 - lam)``, rounded half to even into u8, and keeps
+    both images' boxes; elsewhere it passes through with the partner's
+    half of the boxes invalid. Returns ``(B, H, W, 3)`` u8, ``(B, 2N, 5)``
+    boxes and ``(B, 2N)`` validity (boxes zero where invalid)."""
+    lam = torch.maximum(draws.lam, 1.0 - draws.lam)[:, None, None, None]
+    apply = draws.apply < prob
+    x = images_u8.to(torch.float32)
+    mixed = lam * x + (1 - lam) * x[draws.perm]
+    img = torch.where(apply[:, None, None, None], mixed, x)
+    img_u8 = torch.round(torch.clamp(img, 0.0, 255.0)).to(torch.uint8)
+    out_boxes = torch.cat([boxes, boxes[draws.perm]], 1)
+    out_valid = torch.cat([valid, valid[draws.perm] & apply[:, None]], 1)
+    out_boxes = torch.where(out_valid[..., None], out_boxes,
+                            torch.zeros_like(out_boxes))
+    return img_u8, out_boxes, out_valid

@@ -9,7 +9,8 @@ its features in that dtype; parameters are float32.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import functools
+from typing import Callable, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -53,13 +54,24 @@ class VGG16Backbone(nn.Module):
                 channels = width
         self.out_channels = channels
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.dtype)
-        convs = iter(self.convs)
+    def segments(self) -> List[Callable]:
+        """The forward as pieces in order, for ``remat``: one a stage."""
+        first = 0
+        out = []
         for _, reps in self.widths:
-            for _ in range(reps):
-                x = F.relu(conv_same(next(convs), x))
-            x = max_pool_2x2(x)
+            out.append(functools.partial(self._stage, first, reps))
+            first += reps
+        return out
+
+    def _stage(self, first: int, reps: int, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        for k in range(first, first + reps):
+            x = F.relu(conv_same(self.convs[k], x))
+        return max_pool_2x2(x)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for fn in self.segments():
+            x = fn(x)
         return x
 
 
@@ -132,11 +144,21 @@ class MobileNetV2Backbone(nn.Module):
         self.bns = nn.ModuleList([bn(32), bn(1280)])
         self.out_channels = 1280
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = relu6(self.bns[0](conv_same(self.convs[0], x.to(self.dtype), 2)))
-        for block in self.blocks:
-            x = block(x)
+    def segments(self) -> List[Callable]:
+        """The forward as pieces in order, for ``remat``: the stem, each
+        inverted residual block, the last conv."""
+        return [self._stem, *self.blocks, self._last]
+
+    def _stem(self, x: torch.Tensor) -> torch.Tensor:
+        return relu6(self.bns[0](conv_same(self.convs[0], x.to(self.dtype), 2)))
+
+    def _last(self, x: torch.Tensor) -> torch.Tensor:
         return relu6(self.bns[1](self.convs[1](x)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for fn in self.segments():
+            x = fn(x)
+        return x
 
 
 def _darknet(name: str, default_activation: str = "relu"):

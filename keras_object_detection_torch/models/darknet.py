@@ -9,7 +9,8 @@ and the passthrough/pyramid taps (ROADMAP 1.10/1.11) are not ported yet.
 
 from __future__ import annotations
 
-from typing import Any, Sequence
+import functools
+from typing import Any, Callable, List, Sequence
 
 import torch
 from torch import nn
@@ -153,7 +154,25 @@ class DarknetBackbone(nn.Module):
                     conv(conv_b)
         self.out_channels = channels
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def segments(self) -> List[Callable]:
+        """The forward as pieces in order, for ``remat``: each conv block
+        with the pools that follow it."""
+        groups: List[list] = []
         for step in self.plan:
-            x = max_pool_2x2(x) if step == "M" else self.blocks[step](x)
+            if step == "M" and groups:
+                groups[-1][1] += 1
+            else:
+                groups.append([step, 0])
+        return [functools.partial(self._segment, step, pools)
+                for step, pools in groups]
+
+    def _segment(self, step, pools: int, x: torch.Tensor) -> torch.Tensor:
+        x = max_pool_2x2(x) if step == "M" else self.blocks[step](x)
+        for _ in range(pools):
+            x = max_pool_2x2(x)
+        return x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for fn in self.segments():
+            x = fn(x)
         return x

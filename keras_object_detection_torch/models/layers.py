@@ -11,6 +11,7 @@ compute dtype, as flax's ``nn.Conv(dtype=...)`` casts its kernel and bias.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple, Union
 
@@ -91,7 +92,10 @@ class BatchNorm(nn.Module):
     All then update the running statistics as flax does, without gradient:
     ``r = momentum * r + (1 - momentum) * batch_stat`` with the biased
     variance (not ``nn.BatchNorm2d``'s unbiased one). ``momentum`` is 0.99
-    (Keras's, as the JAX ConvBlock sets it) or MobileNetV2's 0.999."""
+    (Keras's, as the JAX ConvBlock sets it) or MobileNetV2's 0.999. A
+    forward that ``remat`` recomputes in the backward skips that update
+    (``updates_running_stats`` is False then), so a step updates them
+    once."""
 
     def __init__(self, features: int, eps: float = 1e-3, bn_mode: str = "flax",
                  momentum: float = 0.99):
@@ -104,6 +108,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.updates_running_stats = True
 
     def _normalize(self, x, mean, var):
         mul = torch.rsqrt(var + self.eps) * self.weight
@@ -130,11 +135,57 @@ class BatchNorm(nn.Module):
                 mean = sub.mean(dim=dims)
                 var = (sub * sub).mean(dim=dims) - mean * mean
             y = self._normalize(x, mean, var)
+        if not self.updates_running_stats:
+            return y
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1 - m) * var)
         return y
+
+
+@contextlib.contextmanager
+def _recompute(recompute_context, module: nn.Module):
+    """``recompute_context``, with the BatchNorms of ``module`` not updating
+    their running statistics (restored however the recompute ends: torch
+    stops a recompute early once it has what the backward needs)."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for bn in bns:
+        bn.updates_running_stats = False
+    try:
+        with recompute_context:
+            yield
+    finally:
+        for bn in bns:
+            bn.updates_running_stats = True
+
+
+def remat(fn, module: nn.Module, policy: str, *args):
+    """``fn(*args)`` whose activations the backward recomputes
+    (``jax.checkpoint`` as the JAX step applies it under
+    ``ModelConfig.remat``), through ``torch.utils.checkpoint``. ``policy``
+    ``"full"`` keeps only ``args``; ``"dots"`` (``dots_saveable``) also
+    keeps the outputs of convolutions and matrix products and recomputes
+    the BatchNorm, activation and pooling around them. ``module`` holds the
+    BatchNorms that ``fn`` runs (the model's: no other forward runs during
+    a backward): their recompute does not update the running statistics
+    again. Values are those of ``fn(*args)``: the recompute runs
+    the same operations on the same inputs (the forward draws nothing from
+    torch's global generators, so their state is not kept)."""
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+
+    def contexts():
+        if policy == "dots":
+            ops = torch.ops.aten
+            forward, recompute = create_selective_checkpoint_contexts(
+                [ops.convolution.default, ops.mm.default, ops.addmm.default])
+        else:
+            forward, recompute = contextlib.nullcontext(), contextlib.nullcontext()
+        return forward, _recompute(recompute, module)
+
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=contexts,
+                      preserve_rng_state=False)
 
 
 def lecun_normal_(weight: torch.Tensor, fan_in: int,

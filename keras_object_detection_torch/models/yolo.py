@@ -10,7 +10,7 @@ The model takes NHWC float images and returns the grid-shaped
 
 from __future__ import annotations
 
-import contextlib
+import functools
 from typing import Optional, Sequence, Union
 
 import torch
@@ -21,7 +21,7 @@ from keras_object_detection_torch.config import Config
 from keras_object_detection_torch.models.backbones import BACKBONES
 from keras_object_detection_torch.models.layers import (BatchNorm, Conv2d,
                                                         ConvBlock, Dense,
-                                                        Dropout)
+                                                        Dropout, remat)
 
 # head -> the ROADMAP item that ports it
 _HEADS_TO_PORT = {"anchor": "1.10", "fpn": "1.11"}
@@ -125,10 +125,11 @@ class MultiConvDenseHead(nn.Module):
         return x.reshape(x.shape[0], self.grid, self.grid, self.cell_depth)
 
 
+@functools.lru_cache(maxsize=None)
 def backbone_feature_size(backbone: str, image_size: int) -> int:
     """The side of the feature map ``backbone`` emits at ``image_size``,
     from a forward of a copy on PyTorch's ``meta`` device (shapes only, as
-    JAX's ``eval_shape``)."""
+    JAX's ``eval_shape``), kept per (backbone, size)."""
     with torch.device("meta"):
         probe = BACKBONES[backbone](torch.float32, generator=torch.Generator())
         return probe.eval()(torch.empty(1, 3, image_size, image_size)).shape[-1]
@@ -144,7 +145,12 @@ class YoloV1(nn.Module):
     running statistics and never update them) and runs without gradient, so
     its backward is never built. ``dropout`` of ``forward`` is the
     flatten_dense head's keep mask or the generator to draw it from; the
-    other heads ignore it."""
+    other heads ignore it.
+
+    ``remat_policy`` (``"full"`` or ``"dots"``, None for off) recomputes the
+    activations of a training forward in the backward (``layers.remat``),
+    segment by segment: each piece of ``backbone.segments()`` and the head.
+    Values and running statistics are those of the forward without it."""
 
     def __init__(self, backbone: str = "darknet24", head: str = "conv",
                  grid: int = 7, num_classes: int = 20, num_boxes: int = 2,
@@ -152,8 +158,10 @@ class YoloV1(nn.Module):
                  activation: str = "relu", *, generator: torch.Generator,
                  bn_mode: str = "flax", image_size: int = 448,
                  head_dense_units: int = 4960, head_batchnorm: bool = True,
-                 flat_output: bool = False, freeze_backbone: bool = False):
+                 flat_output: bool = False, freeze_backbone: bool = False,
+                 remat_policy: Optional[str] = None):
         super().__init__()
+        self.remat_policy = remat_policy
         if head not in HEADS:
             if head in _HEADS_TO_PORT:
                 raise NotImplementedError(
@@ -205,9 +213,18 @@ class YoloV1(nn.Module):
         # NHWC -> NCHW view: its strides are channels_last, which the convs keep
         x = images.to(self.compute_dtype).permute(0, 3, 1, 2)
         x = x.contiguous(memory_format=torch.channels_last)
-        with torch.no_grad() if self.freeze_backbone else contextlib.nullcontext():
+        policy = (self.remat_policy if self.training
+                  and torch.is_grad_enabled() else None)
+        if self.freeze_backbone:
+            with torch.no_grad():
+                x = self.backbone(x)
+        elif policy:
+            for fn in self.backbone.segments():
+                x = remat(fn, self, policy, x)
+        else:
             x = self.backbone(x)
-        y = self.head(x, dropout)
+        y = (remat(self.head, self, policy, x, dropout) if policy
+             else self.head(x, dropout))
         return y.reshape(y.shape[0], -1) if self.flat_output else y
 
 
@@ -229,5 +246,7 @@ def build_model(config: Config,
                    bn_mode=m.bn_mode, image_size=m.image_size,
                    head_dense_units=m.head_dense_units,
                    head_batchnorm=m.head_batchnorm,
-                   freeze_backbone=m.freeze_backbone)
+                   freeze_backbone=m.freeze_backbone,
+                   remat_policy=(("dots" if m.remat_policy == "dots" else "full")
+                                 if m.remat else None))
     return model.eval()

@@ -53,7 +53,9 @@ def state_to_host(state) -> Dict[str, Any]:
         "model": {k: _host(v) for k, v in state.model.state_dict().items()},
         "opt": {"name": opt.name, "lr": _host(opt.lr), "count": int(opt.count),
                 "mu": [_host(t) for t in opt.mu],
-                "nu": [_host(t) for t in opt.nu]},
+                "nu": [_host(t) for t in opt.nu],
+                "trace": [_host(t) for t in opt.trace],
+                "weight_decay": opt.weight_decay},
         "ema": (None if state.ema is None
                 else {k: _host(v) for k, v in state.ema.items()}),
     }
@@ -66,14 +68,18 @@ def state_from_host(template, payload: Dict[str, Any]):
     state = copy.deepcopy(template)
     state.model.load_state_dict(payload["model"], strict=True)
     opt, saved = state.opt, payload["opt"]
-    if saved["name"] != opt.name or len(saved["mu"]) != len(opt.mu):
+    trace = saved.get("trace", [])  # checkpoints written before sgdw: none
+    if (saved["name"] != opt.name or len(saved["mu"]) != len(opt.mu)
+            or len(trace) != len(opt.trace)):
         raise ValueError(f"the checkpoint's optimizer is {saved['name']!r}, "
                          f"the template's {opt.name!r}")
     with torch.no_grad():
         opt.lr.copy_(saved["lr"])
-        for dst, src in zip(opt.mu + opt.nu, saved["mu"] + saved["nu"]):
+        for dst, src in zip(opt.mu + opt.nu + opt.trace,
+                            saved["mu"] + saved["nu"] + trace):
             dst.copy_(src)
     opt.count = saved["count"]
+    opt.weight_decay = saved.get("weight_decay", opt.weight_decay)
     if payload["ema"] is not None:
         dev = next(state.model.parameters()).device
         state.ema = {k: v.to(dev, copy=True) for k, v in payload["ema"].items()}

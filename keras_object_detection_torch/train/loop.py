@@ -5,7 +5,8 @@ the v1 conv head): the train step, the eval step and the ``Trainer``.
     step = make_train_step(cfg)
     state, metrics = step(state, images_u8, boxes, valid, seed)
 
-One step: augmentation draws -> ``augment_batch`` -> ``encode_grid`` ->
+One step: the draws -> ``mosaic_batch`` and ``mixup_batch`` where the
+config switches them on -> ``augment_batch`` -> ``encode_grid`` ->
 forward with training-mode BatchNorm (and the flatten_dense head's dropout,
 its mask drawn from the step's own generator) -> the v1 loss -> backward ->
 the optimizer update, the BN running statistics (updated in the forward) and
@@ -24,29 +25,33 @@ training mode, the eval step in eval mode. ``create_train_state``,
 ``Trainer.fit`` is the training run: epochs of steps over a ``YoloDataset``
 (or the same data held on the device), validation loss and mAP, the
 reference's mAP policy, best-by-val-loss checkpoints, plateau LR scaling,
-early stopping and resume. Multiscale training and ``steps_per_dispatch``
-are not ported yet (ROADMAP 1.12), nor several devices (1.15).
+early stopping and resume; multiscale training (a resolution drawn per
+epoch, ``multiscale_grid``) and ``steps_per_dispatch`` (``_train_batches``).
+Several devices are not ported yet (ROADMAP 1.15).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, Iterable, Optional, Sequence, Tuple, Union
+from typing import (Any, Dict, Iterable, Iterator, List, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
 
 from keras_object_detection_torch.config import Config, check_ported
 from keras_object_detection_torch.core.grid import encode_grid
-from keras_object_detection_torch.data.augment import (AugmentDraws,
-                                                       augment_batch,
-                                                       preprocess_eval_batch,
-                                                       sample_augment_draws)
+from keras_object_detection_torch.data.augment import (
+    AugmentDraws, MixupDraws, MosaicDraws, augment_batch, mixup_batch,
+    mosaic_batch, preprocess_eval_batch, sample_augment_draws,
+    sample_mixup_draws, sample_mosaic_draws)
 from keras_object_detection_torch.data.pipeline import (DeviceCachedDataset,
                                                         YoloDataset)
 from keras_object_detection_torch.losses.yolo import yolo_v1_loss_terms
-from keras_object_detection_torch.models.yolo import YoloV1, build_model
+from keras_object_detection_torch.models.yolo import (YoloV1,
+                                                     backbone_feature_size,
+                                                     build_model)
 from keras_object_detection_torch.ops.map import (COCO_IOU_THRESHOLDS,
                                                   MeanAveragePrecision)
 from keras_object_detection_torch.ops.yolo_loss import fused_yolo_v1_loss
@@ -104,7 +109,8 @@ def create_train_state(config: Config,
     model = model.to(dev, memory_format=torch.channels_last).train()
     params = list(model.parameters())
     opt = optim.init_opt_state(config.train.optimizer, params,
-                               config.train.schedule.base_lr)
+                               config.train.schedule.base_lr,
+                               config.train.weight_decay)
     ema = None
     if config.train.ema_decay is not None:
         ema = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -127,24 +133,172 @@ def step_generator(seed: int, step: int,
     return torch.Generator().manual_seed(int(state))
 
 
+def _stream(seed: int, step: int, micro: Optional[int],
+            arm: int) -> torch.Generator:
+    """A CPU generator of one step's (or microbatch's) draws of one arm: 1
+    the dropout masks, 2 the mosaic, 3 the mixup. Each arm is a stream of
+    its own, apart from ``step_generator``'s, so switching one on or off
+    leaves every other arm's draws as they were."""
+    words = [seed, step, 0 if micro is None else micro + 1, arm]
+    state = np.random.SeedSequence(words).generate_state(1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(state))
+
+
 def dropout_generator(seed: int, step: int,
                       micro: Optional[int] = None) -> torch.Generator:
     """The CPU generator of one step's (or microbatch's) dropout masks, a
     stream apart from the augmentation draws' (JAX's ``dkey`` beside
     ``akey``)."""
-    words = [seed, step, 0 if micro is None else micro + 1, 1]
-    state = np.random.SeedSequence(words).generate_state(1, np.uint64)[0]
-    return torch.Generator().manual_seed(int(state))
+    return _stream(seed, step, micro, 1)
 
 
-def make_train_step(config: Config):
+def stage(tensors: Sequence[torch.Tensor], device) -> List[torch.Tensor]:
+    """CPU ``tensors`` on ``device``; on a GPU in one host-to-device copy,
+    their bytes packed at 16-byte offsets into one pinned buffer (PyTorch's
+    pinned-memory allocator reuses it only after the copy has ended)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return [t.to(device) for t in tensors]
+    sizes = [t.numel() * t.element_size() for t in tensors]
+    offsets = np.concatenate([[0], np.cumsum([-(-n // 16) * 16 for n in sizes])])
+    host = torch.empty(int(offsets[-1]), dtype=torch.uint8, pin_memory=True)
+    for t, o, n in zip(tensors, offsets, sizes):
+        host[o:o + n] = t.contiguous().reshape(-1).view(torch.uint8)
+    dev = host.to(device, non_blocking=True)
+    return [dev[o:o + n].view(t.dtype).reshape(t.shape)
+            for t, o, n in zip(tensors, offsets, sizes)]
+
+
+@dataclasses.dataclass
+class StepDraws:
+    """Every random number of one (micro)batch of a train step: the colour
+    and crop draws, the mosaic's and the mixup's (None where they are off)
+    and the flatten_dense head's dropout keep mask (None for other
+    heads)."""
+
+    augment: AugmentDraws
+    mosaic: Optional[MosaicDraws] = None
+    mixup: Optional[MixupDraws] = None
+    keep: Optional[torch.Tensor] = None
+
+    def _parts(self):
+        return [p for p in (self.augment, self.mosaic, self.mixup)
+                if p is not None]
+
+    def tensors(self) -> List[torch.Tensor]:
+        """Every tensor, in the order ``replaced`` takes them."""
+        out = [getattr(p, f.name) for p in self._parts()
+               for f in dataclasses.fields(p)
+               if isinstance(getattr(p, f.name), torch.Tensor)]
+        return out + ([] if self.keep is None else [self.keep])
+
+    def replaced(self, tensors: Iterator[torch.Tensor]) -> "StepDraws":
+        """These draws with their tensors taken in turn from ``tensors``."""
+
+        def part(p):
+            if p is None:
+                return None
+            return dataclasses.replace(p, **{
+                f.name: next(tensors) for f in dataclasses.fields(p)
+                if isinstance(getattr(p, f.name), torch.Tensor)})
+
+        return StepDraws(part(self.augment), part(self.mosaic),
+                         part(self.mixup),
+                         None if self.keep is None else next(tensors))
+
+    def to(self, device) -> "StepDraws":
+        """On ``device``, in one copy (``stage``)."""
+        tensors = self.tensors()
+        if all(t.device == device for t in tensors):
+            return self
+        return self.replaced(iter(stage(tensors, device)))
+
+
+def sample_step_draws(config: Config, model: YoloV1, batch: int, seed: int,
+                      step: int) -> List[StepDraws]:
+    """One train step's draws on the CPU, one ``StepDraws`` per microbatch
+    of ``batch / grad_accum_steps`` images: the colour and crop draws from
+    ``step_generator``, the mosaic's (``mosaic_prob > 0``), the mixup's
+    (``mixup_prob > 0``) and the dropout mask each from its own stream
+    (``_stream``)."""
+    d = config.data
+    accum = max(config.train.grad_accum_steps or 1, 1)
+    n = batch // accum
+    out = []
+    for i in range(accum):
+        micro = i if accum > 1 else None
+        out.append(StepDraws(
+            sample_augment_draws(n, step_generator(seed, step, micro),
+                                 tuple(d.color_jitter), tuple(d.crop_scale),
+                                 tuple(d.crop_ratio)),
+            sample_mosaic_draws(n, _stream(seed, step, micro, 2),
+                                tuple(d.mosaic_center_range))
+            if d.mosaic_prob > 0 else None,
+            sample_mixup_draws(n, _stream(seed, step, micro, 3),
+                               d.mixup_alpha)
+            if d.mixup_prob > 0 else None,
+            model.draw_dropout(n, dropout_generator(seed, step, micro))))
+    return out
+
+
+def multiscale_grid(config: Config, size: int) -> int:
+    """The target grid S of a multiscale training resolution ``size``: the
+    conv head's true output grid there (its stride ``max(feat // grid,
+    1)``, SAME), with the backbone's feature side measured from the module
+    (``backbone_feature_size``); a GAP dense head always emits the
+    configured grid. Raises ``ValueError`` where ``size`` is not a multiple
+    of the backbone's pixel stride or leaves no features."""
+    if config.model.head == "gap_dense":
+        return config.grid.grid
+    backbone, canon = config.model.backbone, config.model.image_size
+    feat0 = backbone_feature_size(backbone, canon)
+    if feat0 <= 0:
+        raise ValueError(
+            f"backbone emits no spatial features at image_size {canon}")
+    if canon % feat0 == 0:
+        stride_px = canon // feat0
+        if size % stride_px:
+            raise ValueError(
+                f"multiscale size {size} must be a multiple of the backbone "
+                f"pixel stride {stride_px}")
+    feat = backbone_feature_size(backbone, size)
+    if feat <= 0:
+        raise ValueError(f"multiscale size {size} is too small for the "
+                         f"{backbone} backbone")
+    head_stride = max(feat // config.grid.grid, 1)
+    return -(-feat // head_stride)  # ceil (SAME conv)
+
+
+def validate_multiscale(config: Config) -> None:
+    """Refuse multiscale sizes for a head whose parameter shapes depend on
+    the resolution (flatten_dense), or that ``multiscale_grid`` refuses."""
+    if not config.train.multiscale_sizes:
+        return
+    if config.model.head == "flatten_dense":
+        raise ValueError(
+            "multiscale_sizes requires a resolution-agnostic head: 'conv' or "
+            "'gap_dense' (flatten_dense Dense kernels have "
+            "resolution-dependent shapes)")
+    for size in config.train.multiscale_sizes:
+        multiscale_grid(config, size)
+
+
+def make_train_step(config: Config, image_size: Optional[int] = None,
+                    grid: Optional[int] = None):
     """Build ``step(state, images_u8, boxes, valid, seed, draws=None)``.
 
     ``images_u8`` is ``(B, H, W, 3)`` uint8, ``boxes`` ``(B, N, 5)``
     ``[cx, cy, w, h, class]`` and ``valid`` ``(B, N)``; they are moved to
     the model's device. ``seed`` (an int >= 0) with ``state.step`` seeds the
-    augmentation draws; ``draws`` (one ``AugmentDraws`` per microbatch)
-    replaces them, so a test can feed the JAX step's own.
+    draws (``sample_step_draws``); ``draws`` (one ``StepDraws``, or one
+    ``AugmentDraws`` whose dropout mask then comes from the seed, per
+    microbatch) replaces them, so a test can feed the JAX step's own.
+
+    With ``DataConfig.mosaic_prob`` and ``mixup_prob`` the batch goes
+    through ``mosaic_batch`` (at its own resolution, before the crop) and
+    ``mixup_batch`` first, as in JAX; the box budget grows to 4N and then
+    2x. ``image_size`` and ``grid`` set the crop's output resolution and the
+    target grid of a multiscale step (default: the config's).
 
     With ``grad_accum_steps = k`` the batch is cut into k strided
     microbatches (rows ``i::k``), their gradients and loss terms summed, and
@@ -154,7 +308,13 @@ def make_train_step(config: Config):
     check_ported(config, training=True)
     g, d, t = config.grid, config.data, config.train
     accum = max(t.grad_accum_steps or 1, 1)
-    out_size = config.model.image_size
+    out_size = config.model.image_size if image_size is None else image_size
+    out_grid = g.grid if grid is None else grid
+    if t.use_pallas_loss and t.box_loss_mode != "mse":
+        raise ValueError(
+            "use_pallas_loss implements only the reference MSE box terms; "
+            f"box_loss_mode={t.box_loss_mode!r} requires the plain loss "
+            "(use_pallas_loss=False)")
 
     def loss_terms(y_true, y_pred) -> Dict[str, torch.Tensor]:
         if t.use_pallas_loss:
@@ -165,20 +325,27 @@ def make_train_step(config: Config):
                                   t.lambda_coord, t.lambda_noobj, t.noobj_mode,
                                   t.box_loss_mode)
 
-    def backward_on(model, images_u8, boxes, valid, draws, keep):
+    def backward_on(model, images_u8, boxes, valid, draws: StepDraws):
+        if d.mosaic_prob > 0:
+            images_u8, boxes, valid = mosaic_batch(
+                images_u8, boxes, valid, draws.mosaic, d.mosaic_prob)
+        if d.mixup_prob > 0:
+            images_u8, boxes, valid = mixup_batch(
+                images_u8, boxes, valid, draws.mixup, d.mixup_prob)
         images, aboxes, avalid = augment_batch(
-            images_u8, boxes, valid, draws, hflip_prob=d.hflip_prob,
+            images_u8, boxes, valid, draws.augment, hflip_prob=d.hflip_prob,
             color_strengths=tuple(d.color_jitter),
             crop_ratio=tuple(d.crop_ratio), min_visibility=d.min_visibility,
             out_size=out_size)
-        y_true = encode_grid(aboxes, avalid, g.num_classes, g.num_boxes, g.grid)
-        y_pred = model(images, keep).reshape(y_true.shape)  # flat heads too
+        y_true = encode_grid(aboxes, avalid, g.num_classes, g.num_boxes,
+                             out_grid)
+        y_pred = model(images, draws.keep).reshape(y_true.shape)  # flat heads too
         terms = loss_terms(y_true, y_pred)
         terms["total"].backward()
         return {k: v.detach() for k, v in terms.items()}
 
     def step(state: TrainState, images_u8, boxes, valid, seed: int,
-             draws: Optional[Union[AugmentDraws, Sequence[AugmentDraws]]] = None):
+             draws=None):
         model = state.model
         params = list(model.parameters())
         # a frozen backbone takes no gradient; the optimizer sees zeros, as
@@ -194,15 +361,19 @@ def make_train_step(config: Config):
             raise ValueError(f"grad_accum_steps={accum} must divide the batch "
                              f"size {b}")
         if draws is None:
-            draws = [sample_augment_draws(
-                b // accum, step_generator(seed, state.step,
-                                           i if accum > 1 else None),
-                tuple(d.color_jitter), tuple(d.crop_scale), tuple(d.crop_ratio))
-                for i in range(accum)]
-        elif isinstance(draws, AugmentDraws):
+            draws = sample_step_draws(config, model, b, seed, state.step)
+        elif isinstance(draws, (AugmentDraws, StepDraws)):
             draws = [draws]
         if len(draws) != accum:
             raise ValueError(f"{len(draws)} draws for {accum} microbatches")
+        draws = [x if isinstance(x, StepDraws) else StepDraws(
+            x, keep=model.draw_dropout(b // accum, dropout_generator(
+                seed, state.step, i if accum > 1 else None)))
+            for i, x in enumerate(draws)]
+        if any((d.mosaic_prob > 0 and x.mosaic is None)
+               or (d.mixup_prob > 0 and x.mixup is None) for x in draws):
+            raise ValueError("the draws lack the mosaic's or the mixup's, "
+                             "which the config switches on")
 
         model.train()
         for p in params:
@@ -210,11 +381,8 @@ def make_train_step(config: Config):
         metrics: Dict[str, torch.Tensor] = {}
         for i in range(accum):
             rows = slice(i, None, accum)
-            keep = model.draw_dropout(b // accum, dropout_generator(
-                seed, state.step, i if accum > 1 else None))
             terms = backward_on(model, images_u8[rows], boxes[rows],
-                                valid[rows], draws[i].to(dev),
-                                None if keep is None else keep.to(dev))
+                                valid[rows], draws[i].to(dev))
             metrics = {k: metrics[k] + v if k in metrics else v
                        for k, v in terms.items()}
         optim.apply_updates(state.opt, params, [
@@ -352,16 +520,14 @@ class Trainer:
                 or m.model_parallel != 1:
             raise NotImplementedError("training on several devices is not "
                                       "ported yet (ROADMAP 1.15)")
-        if (t.steps_per_dispatch or 1) != 1:
-            raise NotImplementedError("steps_per_dispatch is not ported yet "
-                                      "(ROADMAP 1.12)")
+        validate_multiscale(config)
         accum = max(t.grad_accum_steps or 1, 1)
         if config.data.batch_size % accum:
             raise ValueError(f"batch_size {config.data.batch_size} must be "
                              f"divisible by grad_accum_steps {accum}")
         self.config = config
         self.device = _device(device)
-        self._train_step = make_train_step(config)
+        self._train_steps = {None: make_train_step(config)}  # by size
         self._eval_step = make_eval_step(config)
         self.logger = MetricLogger(t.log_dir, use_tensorboard=use_tensorboard)
         self.ckpt = CheckpointManager(t.checkpoint_dir)
@@ -427,13 +593,60 @@ class Trainer:
             return False
         return improved or ((epoch + 1) % t.map_eval_every == 0)
 
-    def _train_batches(self, train_ds: YoloDataset,
-                       dev_train: Optional[DeviceCachedDataset]):
+    def _step_for(self, size: Optional[int]):
+        """The train step at a multiscale ``size`` (None: the config's
+        ``image_size``), built once per size."""
+        if size == self.config.model.image_size:
+            size = None
+        if size not in self._train_steps:
+            self._train_steps[size] = make_train_step(
+                self.config, image_size=size,
+                grid=multiscale_grid(self.config, size))
+        return self._train_steps[size]
+
+    def _epoch_size(self, epoch: int) -> Optional[int]:
+        """The epoch's multiscale resolution, drawn from
+        ``multiscale_sizes`` anew every ``multiscale_every`` epochs by a
+        numpy ``RandomState`` seeded as JAX's; None when single-scale."""
+        t = self.config.train
+        if not t.multiscale_sizes:
+            return None
+        period = max(t.multiscale_every, 1)
+        r = np.random.RandomState(
+            ((t.seed + 7) * 1000003 + epoch // period) % (2 ** 32))
+        return int(r.choice(np.asarray(t.multiscale_sizes)))
+
+    def _train_batches(self, state: TrainState, train_ds: YoloDataset,
+                       dev_train: Optional[DeviceCachedDataset], seed: int):
+        """``(images, boxes, valid, draws)`` for each step of an epoch:
+        from the host loader with the step's own draws (None), or from the
+        device cache in chunks of ``steps_per_dispatch`` K steps (-1: the
+        whole epoch; the last chunk holds the rest) whose row indices and
+        draws (``sample_step_draws``, the same as the step's own) go to the
+        device in one copy. The batches and draws do not depend on K, so
+        neither does any step."""
         if dev_train is None:
-            yield from train_ds.prefetched(self.device)
-        else:
-            for images, boxes, valid, _ in dev_train.epoch():
-                yield images, boxes, valid
+            for images, boxes, valid in train_ds.prefetched(self.device):
+                yield images, boxes, valid, None
+            return
+        spd = self.config.train.steps_per_dispatch or 1
+        rows = list(dev_train.epoch_indices())
+        k = len(rows) if spd == -1 else spd
+        for c in range(0, len(rows), max(k, 1)):
+            chunk = rows[c:c + k]
+            # read state.step here: the previous chunk's steps have run
+            draws = [sample_step_draws(self.config, state.model,
+                                       dev_train.batch_size, seed,
+                                       state.step + i)
+                     for i in range(len(chunk))]
+            staged = iter(stage([torch.from_numpy(np.stack(chunk))]
+                                + [t for step in draws for x in step
+                                   for t in x.tensors()], self.device))
+            idx_rows = next(staged)
+            draws = [[x.replaced(staged) for x in step] for step in draws]
+            for idx, step_draws in zip(idx_rows, draws):
+                yield (dev_train.images[idx], dev_train.boxes[idx],
+                       dev_train.valid[idx], step_draws)
 
     def fit(self, train_ds: YoloDataset, val_ds: Optional[YoloDataset] = None,
             epochs: Optional[int] = None, state: Optional[TrainState] = None,
@@ -484,9 +697,12 @@ class Trainer:
             t0 = time.time()
             acc: Dict[str, torch.Tensor] = {}
             nb = 0
-            for images, boxes, valid in self._train_batches(train_ds, dev_train):
-                state, metrics = self._train_step(state, images, boxes, valid,
-                                                  seed)
+            ms_size = self._epoch_size(epoch)
+            train_step = self._step_for(ms_size)
+            for images, boxes, valid, draws in self._train_batches(
+                    state, train_ds, dev_train, seed):
+                state, metrics = train_step(state, images, boxes, valid, seed,
+                                            draws)
                 nb += 1
                 for k, v in metrics.items():
                     acc[k] = v if k not in acc else acc[k] + v
@@ -495,6 +711,8 @@ class Trainer:
                       if keys else [])  # the epoch's one readback
             logs: Dict[str, Any] = {k: v / max(nb, 1)
                                     for k, v in zip(keys, values)}
+            if ms_size is not None:
+                logs["train_size"] = ms_size
             logs["lr"] = lr
             logs["epoch_time_s"] = time.time() - t0
             logs["images_per_s"] = (nb * train_ds.batch_size

@@ -1,6 +1,7 @@
 """Optimizers with optax's arithmetic, written out by hand (counterpart of
-``keras_object_detection_tpu/train/loop.py`` ``_make_optimizer`` for
-``adam``, ``nadam`` and ``sgd`` under ``optax.inject_hyperparams``).
+``keras_object_detection_tpu/train/loop.py`` ``_make_optimizer``: ``adam``,
+``nadam``, ``sgd``, ``adamw`` and ``sgdw`` under
+``optax.inject_hyperparams``).
 
 ``torch.optim.NAdam`` is not ``optax.nadam``: their parameters part by about
 one step after three steps. So each update repeats optax's
@@ -14,7 +15,15 @@ one step after three steps. So each update repeats optax's
   correctly rounded power of the float32 ``b`` (as the compiled XLA ``pow``
   of optax's jitted bias correction gives it);
 - nadam: ``mu_hat = b1 * mu / bc1(count + 1) + (1 - b1) * g / bc1(count)``;
-- ``u = mu_hat / (sqrt(nu_hat) + eps)``, then ``p + (-lr) * u``.
+- ``u = mu_hat / (sqrt(nu_hat) + eps)``, then ``p + (-lr) * u``;
+- adamw (``optax.adamw``, no mask: every parameter decays, BatchNorm
+  scale and bias and conv biases too): ``u = adam's u + wd * p``, then
+  ``p + (-lr) * u``;
+- sgdw (``add_decayed_weights`` then ``optax.sgd(momentum=0.9)``):
+  ``trace = (g + wd * p) + 0.9 * trace``, then ``p + (-lr) * trace``.
+
+``wd`` is ``TrainConfig.weight_decay`` as a float32 hyperparameter, as
+``inject_hyperparams`` holds it.
 
 The learning rate is a float32 tensor in the state (optax's injected
 hyperparameter): ``set_learning_rate`` swaps it without rebuilding anything.
@@ -29,6 +38,9 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from keras_object_detection_torch.config import OPTIMIZERS
+
+
 def _f32(x) -> float:
     return float(np.float32(x))
 
@@ -38,30 +50,41 @@ def _f32(x) -> float:
 B1, B2, EPS = _f32(0.9), _f32(0.999), _f32(1e-8)
 ONE_MINUS_B1 = _f32(np.float32(1.0) - np.float32(B1))
 ONE_MINUS_B2 = _f32(np.float32(1.0) - np.float32(B2))
+MOMENTUM = _f32(0.9)  # sgdw's trace decay
 
 
 @dataclasses.dataclass
 class OptState:
-    """``name`` (adam | nadam | sgd), the learning rate (a 0-dim float32
-    tensor on the parameters' device), optax's step ``count`` and, for adam
-    and nadam, the moments ``mu`` and ``nu`` (one per parameter)."""
+    """``name`` (one of ``OPTIMIZERS``), the learning rate (a 0-dim float32
+    tensor on the parameters' device), optax's step ``count``, for adam,
+    nadam and adamw the moments ``mu`` and ``nu``, for sgdw the momentum
+    ``trace`` (one per parameter), and the float32 ``weight_decay`` of
+    adamw and sgdw (0 for the others)."""
 
     name: str
     lr: torch.Tensor
     count: int = 0
     mu: List[torch.Tensor] = dataclasses.field(default_factory=list)
     nu: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    trace: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    weight_decay: float = 0.0
 
 
-def init_opt_state(name: str, params: Sequence[torch.Tensor],
-                   lr: float) -> OptState:
-    if name not in ("adam", "nadam", "sgd"):
-        raise ValueError(f"unknown optimizer {name!r}; options: adam, nadam, sgd")
+def init_opt_state(name: str, params: Sequence[torch.Tensor], lr: float,
+                   weight_decay: float = 0.0) -> OptState:
+    """``weight_decay`` is read by adamw and sgdw only."""
+    if name not in OPTIMIZERS:
+        raise ValueError(f"unknown optimizer {name!r}; options: "
+                         f"{', '.join(OPTIMIZERS)}")
     device = params[0].device if params else torch.device("cpu")
     state = OptState(name, torch.tensor(lr, dtype=torch.float32, device=device))
-    if name != "sgd":
+    if name in ("adamw", "sgdw"):
+        state.weight_decay = _f32(weight_decay)
+    if name in ("adam", "nadam", "adamw"):
         state.mu = [torch.zeros_like(p) for p in params]
         state.nu = [torch.zeros_like(p) for p in params]
+    if name == "sgdw":
+        state.trace = [torch.zeros_like(p) for p in params]
     return state
 
 
@@ -82,9 +105,16 @@ def apply_updates(state: OptState, params: Sequence[torch.Tensor],
                   grads: Sequence[torch.Tensor]) -> None:
     """One optimizer step: update ``params`` in place from ``grads``."""
     neg_lr = -state.lr
+    wd = state.weight_decay
     if state.name == "sgd":
         for p, g in zip(params, grads):
             p.copy_(p + neg_lr * g)
+        state.count += 1
+        return
+    if state.name == "sgdw":
+        for p, g, tr in zip(params, grads, state.trace):
+            tr.copy_((g + wd * p) + MOMENTUM * tr)
+            p.copy_(p + neg_lr * tr)
         state.count += 1
         return
     count = state.count + 1
@@ -100,5 +130,7 @@ def apply_updates(state: OptState, params: Sequence[torch.Tensor],
         else:
             mu_hat = mu / bc1
         u = mu_hat / (torch.sqrt(nu / bc2) + EPS)
+        if state.name == "adamw":
+            u = u + wd * p
         p.copy_(p + neg_lr * u)
     state.count = count

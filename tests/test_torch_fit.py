@@ -274,8 +274,6 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("section,override,match", [
-    ("train", {"steps_per_dispatch": 4}, "ROADMAP 1.12"),
-    ("train", {"multiscale_sizes": (48, 56)}, "ROADMAP 1.12"),
     ("mesh", {"data_parallel": 2}, "ROADMAP 1.15"),
 ])
 def test_unported_trainer_switches_raise(tmp_path, section, override, match):

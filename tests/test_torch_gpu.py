@@ -1,11 +1,11 @@
 """Tests of the PyTorch port that need an NVIDIA GPU: the CUDA kernels (NMS,
 the fused loss forward and backward, the BN statistics forward and backward,
-at the flagship's and the transfer family's shapes) have no CPU mode, and
-the paths that run them (serving, the train step, the frozen-backbone and
-GAP-head steps, the mAP accumulator, ``Trainer.fit``, the pinned-memory
-prefetch). They skip
-without a card. This file imports neither JAX
-nor the JAX package, so on a machine without JAX it runs alone:
+at the flagship's, the transfer family's and the multiscale shapes) have no
+CPU mode, and the paths that run them (serving, the train step, the
+frozen-backbone and GAP-head steps, the recipe step with remat, the mAP
+accumulator, ``Trainer.fit``, the pinned-memory prefetch). They skip
+without a card. This file imports neither JAX nor the JAX package, so on a
+machine without JAX it runs alone:
 
     python -m pytest --noconftest tests/test_torch_gpu.py -q -m gpu
 """
@@ -752,3 +752,108 @@ def test_decoded_jpegs_match_on_the_gpu_machine(cuda, tmp_path):
     for (hi, hb, hv), (di, db, dv, _) in zip(host.epoch(), dev.epoch()):
         for a, b in zip((di, db, dv), (hi, hb, hv)):
             np.testing.assert_array_equal(a.cpu().numpy(), b)
+
+
+def _recipe_micro_config(kernels, **model):
+    """_micro_config with the v1 recipe: mosaic 1.0, mixup 0.5, adamw with
+    weight decay 5e-4; ``kernels`` picks the path."""
+    cfg = _micro_config()
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model,
+                                       bn_mode="fused" if kernels else "flax",
+                                       **model),
+        data=dataclasses.replace(cfg.data, mosaic_prob=1.0, mixup_prob=0.5),
+        train=dataclasses.replace(cfg.train, use_pallas_loss=kernels,
+                                  optimizer="adamw", weight_decay=5e-4))
+
+
+def test_recipe_step_kernel_path_matches_plain_path(cuda, no_tf32):
+    """The recipe step (mosaic, mixup, adamw) at a multiscale size (48²,
+    S=6, from 56² images) on the card: the kernel path (K2, K3 5 times, K4,
+    K5 once) against the plain path from the same weights and draws, loss
+    and every gradient to 1e-4 in norm, as the frozen VGG16 step's."""
+    from keras_object_detection_torch.train import multiscale_grid
+
+    images, boxes, valid = _micro_batch(6)
+    out = {}
+    for kernels in (True, False):
+        cfg = _recipe_micro_config(kernels)
+        assert multiscale_grid(cfg, 48) == 6
+        state = create_train_state(cfg, torch.Generator().manual_seed(0))
+        counts = _counts()
+        state, metrics = make_train_step(cfg, image_size=48, grid=6)(
+            state, images, boxes, valid, 3)
+        torch.cuda.synchronize()
+        launched = [a - b for a, b in zip(_counts(), counts)]
+        assert launched == ([5, 5, 1, 1] if kernels else [0, 0, 0, 0])
+        out[kernels] = (metrics["total"].item(),
+                        {k: p.grad for k, p in state.model.named_parameters()
+                         if not k.endswith("conv.bias")})
+    (k_loss, k_grad), (p_loss, p_grad) = out[True], out[False]
+    assert abs(k_loss - p_loss) <= 1e-4 * abs(p_loss)
+    for k, want in p_grad.items():
+        err = (torch.linalg.vector_norm(k_grad[k] - want)
+               / torch.linalg.vector_norm(want)).item()
+        assert err <= 1e-4, (k, err)
+
+
+@pytest.mark.parametrize("size", [320, 576])
+def test_kernels_match_plain_versions_at_multiscale_shapes(cuda, size):
+    """K2 and K3 at the flagship's 25 BatchNorm shapes at batch 64 and
+    ``size``² in bf16 (within 1e-5 of each sum's largest channel), K4 and
+    K5 at its 64·S² loss rows (S = 5 at 320, 9 at 576; C20/B2): K4 within
+    1e-6 relative, K5 bit-equal."""
+    from chip_smoke import bn_inputs, bn_rel_err, bn_shapes, loss_case
+    from keras_object_detection_torch.config import voc_full_config
+
+    cfg = voc_full_config()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, image_size=size))
+    shapes = bn_shapes(cuda, cfg)
+    assert len(shapes) == 25 and shapes[-1][2] == {320: 5, 576: 9}[size]
+    gen = torch.Generator(device=cuda).manual_seed(size)
+    for shape in shapes:
+        x, dy, mean, rstd = bn_inputs(shape, torch.bfloat16, gen, cuda)
+        assert bn_rel_err(bn.cuda_bn_stats_sums(x),
+                          bn.bn_stats_sums_plain(x)) <= 1e-5, shape
+        assert bn_rel_err(bn.cuda_bn_grad_sums(dy, x, mean, rstd),
+                          bn.bn_grad_sums_plain(dy, x, mean, rstd)) <= 1e-5, \
+            shape
+    rows = 64 * shapes[-1][2] ** 2
+    t_np, p_np, c, b = loss_case("C20 B2", rows)
+    t, p = torch.from_numpy(t_np).to(cuda), torch.from_numpy(p_np).to(cuda)
+    got = yolo_loss.cuda_yolo_v1_loss_forward(t, p, c, b)
+    want = yolo_loss.yolo_v1_loss_forward_plain(t, p, c, b)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    g = torch.tensor(0.75, device=cuda)
+    assert torch.equal(yolo_loss.cuda_yolo_v1_loss_backward(t, p, g, c, b),
+                       yolo_loss.yolo_v1_loss_backward_plain(t, p, g, c, b))
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_remat_step_is_bit_equal_on_the_card(cuda, no_tf32, policy):
+    """Two recipe steps on the kernel path with remat against two without,
+    from the same weights and draws, deterministic cuDNN: loss, every
+    parameter and running statistic bit-equal; the recompute launches K2 a
+    second time for each BatchNorm (10 a step), K3 once (5)."""
+    images, boxes, valid = _micro_batch(7)
+    flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = {}
+        for remat in (False, True):
+            cfg = _recipe_micro_config(True, remat=remat, remat_policy=policy)
+            state = create_train_state(cfg, torch.Generator().manual_seed(2))
+            step = make_train_step(cfg)
+            counts = _counts()
+            for _ in range(2):
+                state, metrics = step(state, images, boxes, valid, 4)
+            torch.cuda.synchronize()
+            launched = [a - b for a, b in zip(_counts(), counts)]
+            assert launched == [20 if remat else 10, 10, 2, 2]
+            out[remat] = (metrics["total"], state.model.state_dict())
+    finally:
+        torch.backends.cudnn.deterministic = flag
+    assert torch.equal(out[True][0], out[False][0])
+    for k, v in out[True][1].items():
+        assert torch.equal(v, out[False][1][k]), k

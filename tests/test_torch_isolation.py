@@ -3,7 +3,10 @@ optax, orbax or TensorFlow, and nothing of the JAX package. With those
 blocked, the port serves, takes a train step on both paths and of each v1
 transfer backbone and head (frozen, and in the mxu and flax@N BN modes),
 runs a one-epoch ``Trainer.fit`` over a small decoded-cache dataset with
-``Evaluator.evaluate`` on it, and both command lines answer ``--help``;
+``Evaluator.evaluate`` on it and a two-epoch one with the v1 recipe
+(mosaic, mixup, multiscale, adamw, remat, ``steps_per_dispatch`` over the
+device cache), takes a step with each IoU box loss and sgdw, and both
+command lines answer ``--help``;
 h5py is never imported (only reading a Keras file needs it)."""
 
 import pathlib
@@ -98,6 +101,28 @@ trainer.close()
 assert trainer.ckpt.all_steps == [0]
 out = Evaluator(tc, device="cpu").evaluate(state, ds)
 assert np.isfinite(out["loss"]) and 0.0 <= out["mAP"] <= 1.0
+# the v1 recipe: mosaic, mixup, multiscale, adamw, remat, steps_per_dispatch
+rc = dataclasses.replace(
+    tc, model=dataclasses.replace(tc.model, remat=True, remat_policy="dots",
+                                  bn_mode="fused"),
+    data=dataclasses.replace(tc.data, mosaic_prob=1.0, mixup_prob=0.5,
+                             device_cache=True),
+    train=dataclasses.replace(tc.train, optimizer="adamw",
+                              multiscale_sizes=(48, 56), steps_per_dispatch=2,
+                              checkpoint_dir=os.path.join(tmp, "rc"),
+                              log_dir=os.path.join(tmp, "rl")))
+trainer = Trainer(rc, device="cpu", use_tensorboard=False)
+state = trainer.fit(ds, ds, epochs=2, verbose=False)
+trainer.close()
+assert state.step == 4 and trainer.ckpt.latest_step == 1
+for mode in ("diou", "ciou", "alpha_iou"):
+    bc = dataclasses.replace(rc, train=dataclasses.replace(
+        rc.train, box_loss_mode=mode, optimizer="sgdw"))
+    state = create_train_state(bc, device="cpu")
+    state, metrics = make_train_step(bc)(
+        state, np.zeros((2, 56, 56, 3), np.uint8), boxes[:2],
+        np.ones((2, 4), bool), 0)
+    assert torch.isfinite(metrics["total"]), mode
 for cli in ("train", "evaluate"):
     proc = subprocess.run([sys.executable, "-c", "import sys; "
                            f"sys.modules.update(dict.fromkeys({BLOCKED!r})); "

@@ -207,18 +207,9 @@ def test_default_device_is_the_gpu():
 
 
 @pytest.mark.parametrize("section,override,error,match", [
-    ("model", {"remat": True}, NotImplementedError, "ROADMAP 1.7"),
-    ("model", {"remat": True, "remat_policy": "dots"}, NotImplementedError,
-     "ROADMAP 1.7"),
     ("model", {"bn_mode": "mxu@2"}, ValueError, "bn_mode"),
     ("model", {"bn_mode": "flax@0"}, ValueError, "bn_mode"),
-    ("data", {"mosaic_prob": 0.5}, NotImplementedError, "ROADMAP 1.12"),
-    ("data", {"mixup_prob": 0.5}, NotImplementedError, "ROADMAP 1.12"),
-    ("train", {"multiscale_sizes": (224, 256)}, NotImplementedError,
-     "ROADMAP 1.12"),
-    ("train", {"optimizer": "adamw"}, NotImplementedError, "ROADMAP 1.7"),
-    ("train", {"optimizer": "sgdw"}, NotImplementedError, "ROADMAP 1.7"),
-    ("train", {"box_loss_mode": "ciou"}, NotImplementedError, "ROADMAP 1.16"),
+    ("train", {"box_loss_mode": "giou"}, ValueError, "box_loss_mode"),
     ("train", {"optimizer": "lamb"}, ValueError, "unknown optimizer"),
     ("train", {"ignore_threshold": 0.5}, ValueError, "anchor/fpn"),
 ])
