@@ -112,7 +112,27 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
              sizes with steps_per_dispatch 4 and 1, bit-equal with
              deterministic cuDNN, and their fit images/s; mosaic_batch and
              mixup_batch alone at batch 64, 448²; one JSON line "recipe";
-12. launches - CUDA launches per call of K1, K4, K5, K2 and K3 (1 each)
+12. yolov2  - the YOLOv2 anchor family at full width (yolov2_config:
+             Darknet-19 with LeakyReLU + the passthrough anchor head, 416²,
+             S=13, darknet's 5 VOC priors, C=20, bf16, batch 64, nadam,
+             ignore threshold 0.6, IoU objectness, bn_mode fused): 3 warm-up
+             and 5 timed steps, p50, images/s, peak memory, launches a step
+             (K2 21, K3 21, K4 0, K5 0), a finite loss; the v2 loss with its
+             ignore mask and IoU target on the step's grids, card against
+             CPU, to 1e-5 (terms and gradient); K2/K3 at each of the step's
+             21 BatchNorm inputs against their plain versions (1e-5),
+             bit-equal from call to call, device time, bound and library
+             call per shape; one step of the kernel and the plain path
+             compared as compare_paths does; serving at batch 1 and 32
+             (845 candidates an image cut to 512, K1 once a call, predict ==
+             the plain NMS of the cut rows, p50 and per-stage ms, K1's time
+             at 1x512 and 32x512); a 2-epoch Trainer.fit from a decoded
+             cache at 416² (128 train, 64 val images; K1 2 a mAP update at
+             N = 512, mAP in [0, 1], ground truth as prediction AP 1, the
+             card's mAP = the CPU's); one step each at 320² and 608² (S = 10
+             and 19, the passthrough fold at both ends); one JSON line
+             "yolov2";
+13. launches - CUDA launches per call of K1, K4, K5, K2 and K3 (1 each)
              and of the other checkout's, from a torch.profiler trace, after the
              train and fit phases so that no profiler hook slows them.
 
@@ -495,22 +515,26 @@ def phase_check(dev) -> None:
 
 
 def stage_ms(model, images: torch.Tensor) -> dict:
-    """Device milliseconds of each serving stage at this batch."""
-    from keras_object_detection_torch.core.grid import decode_grid
+    """Device milliseconds of each serving stage at this batch: forward,
+    the model's decode (decode_grid, or decode_anchor_grid for the anchor
+    head), the top-k cut where the candidates exceed max_candidates, NMS."""
     from keras_object_detection_torch.ops.cuda_nms import \
         cuda_batched_non_max_suppression
+    from keras_object_detection_torch.ops.nms import top_k_candidates
 
-    e, g = model.config.eval, model.config.grid
+    e = model.config.eval
     with torch.inference_mode():
         raw = model.predict_raw(images)
         decoded = model.predict_decoded(images)
-        return {
-            "forward": cuda_ms(lambda: model.predict_raw(images), 10),
-            "decode": cuda_ms(lambda: decode_grid(
-                raw, g.num_classes, g.num_boxes, g.grid), 50),
-            "nms": cuda_ms(lambda: cuda_batched_non_max_suppression(
-                decoded, e.iou_threshold, e.conf_threshold), 50),
-        }
+        out = {"forward": cuda_ms(lambda: model.predict_raw(images), 10),
+               "decode": cuda_ms(lambda: model._decode(raw), 50)}
+        if e.max_candidates and decoded.shape[1] > e.max_candidates:
+            out["top_k"] = cuda_ms(lambda: top_k_candidates(
+                decoded, e.max_candidates), 50)
+            decoded = top_k_candidates(decoded, e.max_candidates)
+        out["nms"] = cuda_ms(lambda: cuda_batched_non_max_suppression(
+            decoded, e.iou_threshold, e.conf_threshold), 50)
+        return out
 
 
 def conv_flops_per_image(model, images: torch.Tensor) -> int:
@@ -1557,18 +1581,20 @@ def phase_train(dev, profile_dir) -> dict:
 
 
 def first_step(kernels: bool, dev, dtype: str = "bfloat16",
-               reverse: bool = False) -> tuple:
-    """One flagship step of one path from seeded weights and draws: (loss,
-    the BN running statistics flattened, each parameter's gradient but the
-    conv biases'). ``reverse`` runs the batch, and each image's draws with
-    it, in reverse order, which changes only the order of the step's sums."""
+               reverse: bool = False, config=None) -> tuple:
+    """One step of one path from seeded weights and draws: (loss, the BN
+    running statistics flattened, each parameter's gradient but the conv
+    biases'). ``config(kernels)`` gives the configuration (default
+    ``train_config``, the flagship). ``reverse`` runs the batch, and each
+    image's draws with it, in reverse order, which changes only the order
+    of the step's sums."""
     from keras_object_detection_torch.data.augment import (AugmentDraws,
                                                            sample_augment_draws)
     from keras_object_detection_torch.train import (create_train_state,
                                                     make_train_step)
     from keras_object_detection_torch.train.loop import step_generator
 
-    cfg = train_config(kernels)
+    cfg = (config or train_config)(kernels)
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, compute_dtype=dtype))
     d = cfg.data
@@ -1595,21 +1621,23 @@ def first_step(kernels: bool, dev, dtype: str = "bfloat16",
     return out
 
 
-def compare_paths(dev) -> dict:
-    """One flagship step of the kernel path and of the plain path from the
-    same weights and draws: loss, running statistics and every parameter's
-    gradient. bf16 rounding makes the early layers' gradients of this
-    network at a random init nearly independent of their float32 values, on
-    either path, so the yardstick of the gradients is the float32 step (the
-    plain path with ``compute_dtype="float32"``): the kernel path must be
-    about as close to it as the plain path is."""
-    runs = {"kernels": first_step(True, dev), "plain": first_step(False, dev),
-            "float32": first_step(False, dev, "float32")}
+def compare_paths(dev, config=None, tag: str = "train") -> dict:
+    """One step of the kernel path and of the plain path from the same
+    weights and draws (``config``: as ``first_step``'s, default the
+    flagship): loss, running statistics and every parameter's gradient.
+    bf16 rounding makes the early layers' gradients of this network at a
+    random init nearly independent of their float32 values, on either path,
+    so the yardstick of the gradients is the float32 step (the plain path
+    with ``compute_dtype="float32"``): the kernel path must be about as
+    close to it as the plain path is."""
+    runs = {"kernels": first_step(True, dev, config=config),
+            "plain": first_step(False, dev, config=config),
+            "float32": first_step(False, dev, "float32", config=config)}
     (k_loss, k_stats, k_grad), (p_loss, p_stats, p_grad), (f_loss, _, f_grad) = (
         runs["kernels"], runs["plain"], runs["float32"])
     loss_rel = abs(k_loss - p_loss) / abs(p_loss)
     stat_err = ((k_stats - p_stats).abs() / (p_stats.abs() + 1e-2)).max().item()
-    log(f"[train] one step from the same state and draws: loss kernels "
+    log(f"[{tag}] one step from the same state and draws: loss kernels "
         f"{k_loss:.5f} vs plain {p_loss:.5f} (rel {loss_rel:.3e}, tolerance "
         f"2e-2; float32 {f_loss:.5f}), running stats max rel err "
         f"{stat_err:.3e} (tolerance 1e-2: bf16 activations, the two paths' "
@@ -1621,7 +1649,7 @@ def compare_paths(dev) -> dict:
     ratio = max(kf / pf for _, kf, pf in rows)
     flat = [torch.cat([g[k].reshape(-1) for k in f_grad])
             for g in (k_grad, p_grad, f_grad)]
-    log(f"[train] gradients, rel err in norm from the float32 step, kernels "
+    log(f"[{tag}] gradients, rel err in norm from the float32 step, kernels "
         f"(plain): all {rel_norm(flat[0], flat[2]):.3e} "
         f"({rel_norm(flat[1], flat[2]):.3e}); "
         + ", ".join(f"{k} {kf:.3e} ({pf:.3e})" for k, kf, pf in
@@ -1679,10 +1707,11 @@ def fit_split(split: str, n: int, seed: int, size: int = 448,
     return data, cache
 
 
-def fit_config(run: str, device_cache: bool = False):
-    """train_config(kernels=True) for a training run: mAP every epoch, the
-    padded val batch masked, checkpoints and logs under build/fit_run/."""
-    cfg = train_config(True)
+def fit_config(run: str, device_cache: bool = False, base=None):
+    """``base`` (default train_config(kernels=True)) for a training run: mAP
+    every epoch, the padded val batch masked, checkpoints and logs under
+    build/fit_run/."""
+    cfg = base or train_config(True)
     out = os.path.join(os.path.dirname(FIT_DIR), "fit_run", run)
     shutil.rmtree(out, ignore_errors=True)
     return dataclasses.replace(
@@ -1735,10 +1764,12 @@ def fit_run(cfg, train_ds, val_ds) -> tuple:
 
 
 def check_fit_launches(name: str, counts: dict, steps: int,
-                       map_updates: int) -> None:
-    want = {"bn_stats": 25 * steps, "bn_grad_stats": 25 * steps,
-            "yolo_loss_forward": steps, "yolo_loss_backward": steps,
-            "nms": 2 * map_updates}
+                       map_updates: int, bn: int = 25, loss: int = 1) -> None:
+    """A fit's launches: ``bn`` K2 and K3 and ``loss`` K4 and K5 a train
+    step, K1 twice a mAP update."""
+    want = {"bn_stats": bn * steps, "bn_grad_stats": bn * steps,
+            "yolo_loss_forward": loss * steps,
+            "yolo_loss_backward": loss * steps, "nms": 2 * map_updates}
     log(f"[fit] {name}: kernel launches {counts} over {steps} train steps and "
         f"{map_updates} mAP updates (expected {want})")
     if counts != want:
@@ -1942,17 +1973,23 @@ def phase_fit(dev, train: dict) -> dict:
     return out
 
 
-def serve_variant(cfg, state_dict, dev) -> dict:
+def serve_variant(cfg, state_dict, dev, runs: tuple = (10, 5),
+                  stages: bool = False) -> dict:
     """Serving at batch 1 and 32 through InferenceModel: K1 launches of the
     two predict calls (counts at 0 just before, read just after), predict()
-    against the plain NMS of predict_decoded(), p50 latencies."""
+    at both batches against the plain NMS of predict_decoded() after the
+    same top-k cut to max_candidates (a no-op at or below it), p50
+    latencies over ``runs`` calls; ``stages`` adds stage_ms at both
+    batches."""
     from keras_object_detection_torch.eval import InferenceModel
     from keras_object_detection_torch.ops import cuda_nms
-    from keras_object_detection_torch.ops.nms import batched_non_max_suppression
+    from keras_object_detection_torch.ops.nms import (
+        batched_non_max_suppression, top_k_candidates)
 
     model = InferenceModel(cfg, state_dict)  # the default device: the GPU
+    e = cfg.eval
     rng = np.random.RandomState(1)
-    size, s = cfg.model.image_size, cfg.grid.grid
+    size = cfg.model.image_size
     batch1, batch32 = (torch.from_numpy(rng.randint(
         0, 256, (b, size, size, 3), np.uint8)).to(dev) for b in (1, 32))
     cuda_nms.LAUNCHES = 0
@@ -1960,18 +1997,33 @@ def serve_variant(cfg, state_dict, dev) -> dict:
     rows32, valid32 = model.predict(batch32)
     torch.cuda.synchronize()
     launches = cuda_nms.LAUNCHES
-    plain = batched_non_max_suppression(model.predict_decoded(batch32),
-                                        cfg.eval.iou_threshold,
-                                        cfg.eval.conf_threshold)
-    ok = (launches == 2 and tuple(rows1.shape) == (1, s * s, 6)
-          and tuple(rows32.shape) == (32, s * s, 6)
-          and bool(torch.isfinite(rows32).all())
-          and torch.equal(plain[0], rows32) and torch.equal(plain[1], valid32))
-    lat1 = model.benchmark_latency(batch1, runs=10)
-    lat32 = model.benchmark_latency(batch32, runs=5)
+    ok = launches == 2
+    for images, rows, valid in ((batch1, rows1, valid1),
+                                (batch32, rows32, valid32)):
+        cut = model.predict_decoded(images)
+        candidates = cut.shape[1]
+        if e.max_candidates:
+            cut = top_k_candidates(cut, e.max_candidates)
+        plain = batched_non_max_suppression(cut, e.iou_threshold,
+                                            e.conf_threshold)
+        ok = (ok and tuple(rows.shape) == tuple(cut.shape)
+              and bool(torch.isfinite(rows).all())
+              and torch.equal(plain[0], rows) and torch.equal(plain[1], valid))
+    lat1 = model.benchmark_latency(batch1, runs=runs[0])
+    lat32 = model.benchmark_latency(batch32, runs=runs[1])
+    out = {"launches": launches, "ok": ok, "p50_ms_1": lat1["p50_ms"],
+           "p50_ms_32": lat32["p50_ms"], "kept_32": int(valid32.sum()),
+           "candidates": candidates, "nms_n": int(rows32.shape[1])}
+    if stages:
+        out["stages_1"] = stage_ms(model, batch1)
+        out["stages_32"] = stage_ms(model, batch32)
+        out["nms_rows"] = {1: top_k_candidates(model.predict_decoded(batch1),
+                                               e.max_candidates),
+                           32: top_k_candidates(
+                               model.predict_decoded(batch32),
+                               e.max_candidates)}
     del model
-    return {"launches": launches, "ok": ok, "p50_ms_1": lat1["p50_ms"],
-            "p50_ms_32": lat32["p50_ms"], "kept_32": int(valid32.sum())}
+    return out
 
 
 def phase_variants(dev) -> dict:
@@ -2558,7 +2610,398 @@ def phase_recipe(dev) -> dict:
     return out
 
 
-def profile_train(state, step, batch, profile_dir: str) -> None:
+# the yolov2 phase: YOLOv2 at full width, voc_full_config with these fields
+# replaced. The priors are darknet's public cfg/yolo-voc.cfg anchors, in
+# 13-cell grid units there, here as image ratios.
+YOLOV2_ANCHORS = tuple((w / 13, h / 13) for w, h in (
+    (1.3221, 1.73145), (3.19275, 4.00944), (5.05587, 8.09892),
+    (9.47112, 4.84053), (11.2364, 10.0071)))
+YOLOV2_BN = 21  # K2 and K3 a step: 18 in Darknet-19, 3 in the head
+# state_dict values at full width (tests/test_torch_anchor_model.py holds
+# its names and shapes against the JAX model's)
+YOLOV2_VALUES = 41_244_093
+YOLOV2_WARMUP, YOLOV2_STEPS = 3, 5
+YOLOV2_SIZES = {320: 10, 608: 19}  # YOLOv2's multiscale ends and their S
+YOLOV2_FIT_TRAIN, YOLOV2_FIT_VAL = 128, 64
+
+
+def yolov2_config(kernels: bool = True, **train):
+    """voc_full_config as the paper's YOLOv2: Darknet-19 (LeakyReLU) +
+    the passthrough anchor head at 416², S = 13, darknet's 5 VOC priors,
+    C = 20, bf16, batch 64, nadam, darknet v2's ignore threshold 0.6 and
+    IoU objectness; ``kernels`` picks bn_mode fused (K2/K3) or flax."""
+    from keras_object_detection_torch.config import voc_full_config
+
+    cfg = voc_full_config()
+    return dataclasses.replace(
+        cfg, grid=dataclasses.replace(cfg.grid, grid=13,
+                                      anchors=YOLOV2_ANCHORS),
+        model=dataclasses.replace(
+            cfg.model, backbone="darknet19", head="anchor", passthrough=True,
+            activation="leaky_relu", image_size=416,
+            bn_mode="fused" if kernels else "flax"),
+        train=dataclasses.replace(cfg.train, optimizer="nadam",
+                                  ignore_threshold=0.6, obj_target="iou",
+                                  **train))
+
+
+def anchor_logits(y_true: torch.Tensor, num_anchors: int) -> torch.Tensor:
+    """Raw head output that decodes to the targets ``y_true`` (ground
+    truth as prediction): objectness and class logits of +-20, offsets
+    through the inverse sigmoid, sizes as they are."""
+    b, s = y_true.shape[:2]
+    t = y_true.reshape(b, s, s, num_anchors, -1)
+    xy = t[..., 1:3].clamp(1e-6, 1 - 1e-6)
+    out = torch.cat([torch.where(t[..., :1] > 0, 20.0, -20.0),
+                     torch.log(xy / (1 - xy)), t[..., 3:5],
+                     t[..., 5:] * 40.0 - 20.0], dim=-1)
+    return out.reshape(y_true.shape)
+
+
+def yolov2_loss_on_card(cfg, step, state, batch, dev, smi: str) -> dict:
+    """The v2 loss with the ignore mask and the IoU target on the step's
+    own grids and augmented boxes, on the card and on the CPU: each term
+    and the gradient in y_pred within 1e-5."""
+    from keras_object_detection_torch.losses import yolov2
+    from keras_object_detection_torch.train import loop
+
+    kept = []
+    real = loop.yolo_v2_loss_terms
+
+    def keep(y_true, y_pred, *args, **kwargs):
+        kept.append((y_true.detach(), y_pred.detach(),
+                     kwargs["gt_boxes"].detach(), kwargs["gt_valid"]))
+        return real(y_true, y_pred, *args, **kwargs)
+
+    with unittest.mock.patch.object(loop, "yolo_v2_loss_terms", keep):
+        step(state, *batch, 2)
+    g, t = cfg.grid, cfg.train
+    terms, grads = [], []
+    for where in (dev, "cpu"):
+        y_true, y_pred, boxes, valid = (x.to(where) for x in kept[0])
+        p = y_pred.clone().requires_grad_(True)
+        out = yolov2.yolo_v2_loss_terms(
+            y_true, p, g.num_classes, g.anchors, t.lambda_coord,
+            t.lambda_noobj, ignore_threshold=t.ignore_threshold,
+            gt_boxes=boxes, gt_valid=valid, obj_target=t.obj_target)
+        out["total"].backward()
+        terms.append({k: v.item() for k, v in out.items()})
+        grads.append(p.grad.cpu())
+    rel = {k: abs(terms[0][k] - terms[1][k]) / max(abs(terms[1][k]), 1e-30)
+           for k in terms[1]}
+    grad_err = ((grads[0] - grads[1]).abs().max()
+                / grads[1].abs().max().clamp_min(1e-30)).item()
+    log(f"[yolov2] the v2 loss on the step's grids ({tuple(kept[0][1].shape)}, "
+        f"{int(kept[0][3].sum())} boxes) on {smi}: card " + ", ".join(
+            f"{k} {terms[0][k]:.6f}" for k in terms[0])
+        + "; CPU " + ", ".join(f"{k} {terms[1][k]:.6f}" for k in terms[1])
+        + f"; largest rel {max(rel.values()):.3e}, gradient max err "
+        f"{grad_err:.3e} of its largest (tolerance 1e-5 each)")
+    if max(rel.values()) > 1e-5 or grad_err > 1e-5:
+        raise SystemExit("the v2 loss on the card disagrees with the CPU's")
+    return {"terms": terms[0], "max_rel": max(rel.values()),
+            "grad_err": grad_err}
+
+
+def yolov2_bn_kernels(calls: dict, smi: str) -> dict:
+    """K2 and K3 at each of the step's 21 BatchNorm inputs: within 1e-5
+    of the plain versions (kernel_errors), bit-equal from call to call, and
+    per call the device time (CUDA graph), the plain version's, the bound
+    and the library call's; summed over the step."""
+    from keras_object_detection_torch.ops import bn
+
+    if not (len(calls["k2"]) == len(calls["k3"]) == YOLOV2_BN
+            and not calls["k4"] and not calls["k5"]):
+        raise SystemExit(f"the YOLOv2 step called K2 {len(calls['k2'])}, K3 "
+                         f"{len(calls['k3'])}, K4 {len(calls['k4'])}, K5 "
+                         f"{len(calls['k5'])} times, expected {YOLOV2_BN}, "
+                         f"{YOLOV2_BN}, 0, 0")
+    errors = kernel_errors(calls)
+    rows = {"k2": [], "k3": []}
+    for name, kernel, plain in (
+            ("k2", bn.cuda_bn_stats_sums, bn.bn_stats_sums_plain),
+            ("k3", bn.cuda_bn_grad_sums, bn.bn_grad_sums_plain)):
+        for args in calls[name]:
+            first, again = kernel(*args), kernel(*args)
+            if not torch.equal(first, again):
+                raise SystemExit(f"{name.upper()} differs from call to call at "
+                                 f"{tuple(args[0].shape)}")
+            x = args[0] if name == "k2" else args[1]
+            ones = torch.ones(x.shape[1], device=x.device)
+            lib = ((lambda: torch.var_mean(x, dim=(0, 2, 3), correction=0))
+                   if name == "k2" else
+                   (lambda: bn_grad_library(*args[:3], args[3], ones)))
+            rows[name].append({
+                "shape": list(x.shape),
+                "ms": graph_ms(lambda: kernel(*args), reps=20, replays=5),
+                "plain_ms": cuda_ms(lambda: plain(*args), 3, warmup=1),
+                "bound_ms": bn_bound_ms(tuple(x.shape), x.element_size(),
+                                        name == "k3")[0],
+                "library_ms": graph_ms(lib, reps=20, replays=5)})
+    totals = {k: {f: sum(r[f] for r in v) for f in
+                  ("ms", "plain_ms", "bound_ms", "library_ms")}
+              for k, v in rows.items()}
+    for k, v in rows.items():
+        log(f"[yolov2] {k.upper()} on {smi}, each of the step's {len(v)} "
+            f"BatchNorm inputs (bf16), device ms (CUDA graph) / bound ms / "
+            f"library ms: " + "; ".join(
+                f"{'x'.join(map(str, r['shape']))} {r['ms']:.5f} / "
+                f"{r['bound_ms']:.5f} / {r['library_ms']:.5f}" for r in v))
+        tot = totals[k]
+        log(f"[yolov2] {k.upper()} a step: {tot['ms']:.5f} ms device, "
+            f"{tot['bound_ms'] / tot['ms'] * 100:.1f} % of the bound "
+            f"{tot['bound_ms']:.5f} (bytes); plain {tot['plain_ms']:.4f}; "
+            f"library {tot['library_ms']:.5f}; against the plain version max "
+            f"abs {errors[k]['max_abs_err']:.3e}, max rel "
+            f"{errors[k]['max_rel_err']:.3e} (tolerance 1e-5), bit-equal "
+            f"from call to call")
+    return {"errors": errors, "rows": rows, "totals": totals}
+
+
+def yolov2_nms_times(rows: dict, smi: str) -> dict:
+    """K1 on the serving calls' cut rows (1x512 and 32x512): device time
+    (CUDA graph), the plain NMS's, the bound; bit-equal to the plain NMS."""
+    from keras_object_detection_torch.ops.cuda_nms import \
+        cuda_batched_non_max_suppression
+    from keras_object_detection_torch.ops.nms import batched_non_max_suppression
+
+    out = {}
+    for b, x in rows.items():
+        x = x.contiguous()
+        got = cuda_batched_non_max_suppression(x, 0.5, 0.4)
+        want = batched_non_max_suppression(x, 0.5, 0.4)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise SystemExit(f"K1 differs from the plain NMS at {tuple(x.shape)}")
+        bound, by = nms_bound_ms(x)
+        out[f"{b}x{x.shape[1]}"] = {
+            "ms": graph_ms(lambda: cuda_batched_non_max_suppression(
+                x, 0.5, 0.4)),
+            "plain_ms": cuda_ms(lambda: batched_non_max_suppression(
+                x, 0.5, 0.4), 3, warmup=1),
+            "bound_ms": bound, "bound_by": by}
+    log(f"[yolov2] K1 on the serving calls' cut rows on {smi}, device ms "
+        f"(CUDA graph) / plain ms / bound ms: " + "; ".join(
+            f"{k} {v['ms']:.5f} / {v['plain_ms']:.4f} / {v['bound_ms']:.3e} "
+            f"({v['bound_by']})" for k, v in out.items())
+        + "; bit-equal to the plain NMS")
+    return out
+
+
+def yolov2_fit(dev, smi: str) -> dict:
+    """A 2-epoch Trainer.fit of YOLOv2 from a decoded cache at 416²
+    (YOLOV2_FIT_TRAIN / _VAL images): K2/K3 21 and K4/K5 0 a step, K1 2 a
+    mAP update at N = 512; mAP in [0, 1]; the card's mAP = the CPU's on
+    the same grids (model, ground truth and noisy ground truth as
+    prediction, the latter two as logits); ground truth gives AP 1."""
+    from keras_object_detection_torch.data import YoloDataset
+    from keras_object_detection_torch.ops import cuda_nms
+    from keras_object_detection_torch.train import run_dataset_eval
+
+    cfg = fit_config("yolov2", base=yolov2_config())
+    size = cfg.model.image_size
+    train_dir, train_cache = fit_split("yolov2_train", YOLOV2_FIT_TRAIN, 21,
+                                       size)
+    val_dir, val_cache = fit_split("yolov2_val", YOLOV2_FIT_VAL, 22, size)
+    d = cfg.data
+    mk = lambda data, cache, train: YoloDataset(  # noqa: E731
+        data, size, d.batch_size, max_boxes=d.max_boxes_per_image,
+        shuffle=train, drop_remainder=train, seed=cfg.train.seed,
+        cache_dir=cache)
+    train_ds, val_ds = (mk(train_dir, train_cache, True),
+                        mk(val_dir, val_cache, False))
+    steps, map_updates = FIT_EPOCHS * len(train_ds), FIT_EPOCHS * len(val_ds)
+    trainer, state, logs, counts, seconds = fit_run(cfg, train_ds, val_ds)
+    check_fit_launches("yolov2", counts, steps, map_updates, bn=YOLOV2_BN,
+                       loss=0)
+    nms_n = {tuple(p.shape) for p in trainer.map_metric._pred}
+    if nms_n != {(d.batch_size, cfg.eval.max_candidates, 6)}:
+        raise SystemExit(f"the yolov2 mAP's NMS ran at {nms_n}, not N = "
+                         f"{cfg.eval.max_candidates}")
+    for r in logs:
+        if not (np.isfinite(r["val_loss"]) and np.isfinite(r["total"])
+                and 0.0 <= r["val_mAP"] <= 1.0):
+            raise SystemExit(f"yolov2 fit, epoch {r['step']}: {r}")
+    log(f"[yolov2] fit on {smi}: " + "; ".join(
+        f"epoch {r['step'] + 1}: total {r['total']:.4f}, val_loss "
+        f"{r['val_loss']:.4f}, val_mAP {r['val_mAP']:.6f}, "
+        f"{r['images_per_s']:.1f} images/s, val {r['val_s']:.3f} s, mAP "
+        f"{r['map_s'] * 1e3 / len(val_ds):.3f} ms an update" for r in logs)
+        + f"; {seconds:.3f} s")
+    stash = []
+    run_dataset_eval(cfg, trainer._eval_step, trainer.map_metric, state,
+                     val_ds, with_map=False, stash=stash)
+    cpu = [(t.cpu(), p.cpu(), None if w is None else w.cpu())
+           for t, p, w in stash]
+    nb = len(YOLOV2_ANCHORS)
+    noise = lambda t: 0.3 * torch.rand(  # noqa: E731
+        t.shape, generator=torch.Generator().manual_seed(3)).to(t.device)
+    cuda_nms.LAUNCHES = 0
+    checks = {}
+    for what, predict in (
+            ("model", None),
+            ("ground truth", lambda t, p: anchor_logits(t, nb)),
+            ("noisy ground truth", lambda t, p: anchor_logits(t, nb)
+             + noise(t))):
+        on_card, on_cpu = (map_on(cfg, dev, cpu, predict),
+                           map_on(cfg, "cpu", cpu, predict))
+        got, want = on_card.result(), on_cpu.result()
+        aps, cpu_aps = on_card.result_per_class(), on_cpu.result_per_class()
+        present = sorted(on_cpu.result_pr_curves())
+        checks[what] = (got, want)
+        log(f"[yolov2] mAP of the {what} as prediction on {len(cpu)} val "
+            f"batches ({len(present)} of {len(aps)} classes present): card "
+            f"{got!r}, CPU {want!r}, |diff| {abs(got - want):.3e}")
+        if abs(got - want) > 1e-6 or np.abs(aps - cpu_aps).max() > 1e-6:
+            raise SystemExit(f"the card's mAP differs from the CPU's ({what})")
+        if what == "ground truth" and not (aps[present] >= 1.0 - 1e-5).all():
+            raise SystemExit("ground truth as prediction does not give AP 1")
+    trainer.close()
+    del trainer, state, stash
+    torch.cuda.empty_cache()
+    return {"logs": logs, "counts": counts, "seconds": seconds,
+            "map_checks": checks, "steps": steps, "map_updates": map_updates}
+
+
+def phase_yolov2(dev, profile_dir: str = "") -> dict:
+    """YOLOv2 at full width (see the module docstring, phase 12);
+    ``profile_dir`` adds a trace of 3 of its train steps."""
+    from keras_object_detection_torch.ops import cuda_nms
+    from keras_object_detection_torch.train import (create_train_state,
+                                                    make_train_step,
+                                                    multiscale_grid)
+
+    smi = card()
+    t_phase = time.perf_counter()
+    cfg = yolov2_config()
+    b = cfg.data.batch_size
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = create_train_state(cfg, torch.Generator().manual_seed(0))
+    n_values = sum(v.numel() for v in state.model.state_dict().values())
+    if n_values != YOLOV2_VALUES:
+        raise SystemExit(f"YOLOv2 has {n_values} values, not {YOLOV2_VALUES}")
+    batch = synthetic_batch(b, cfg.model.image_size,
+                            cfg.data.max_boxes_per_image, dev)
+    step = make_train_step(cfg)
+    times, metrics, counts = time_steps(state, step, batch, seed=1,
+                                        warmup=YOLOV2_WARMUP,
+                                        steps=YOLOV2_STEPS)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    p50 = float(np.median(times))
+    loss = metrics["total"].item()
+    per_step = {k: v / YOLOV2_STEPS for k, v in counts.items()}
+    want = {"bn_stats": YOLOV2_BN, "bn_grad_stats": YOLOV2_BN,
+            "yolo_loss_forward": 0, "yolo_loss_backward": 0}
+    m, g, t = cfg.model, cfg.grid, cfg.train
+    log(f"[yolov2] train on {smi}: {m.backbone} ({m.activation}) + "
+        f"passthrough={m.passthrough} {m.head} head, {m.image_size}², "
+        f"S={g.grid}, {len(g.anchors)} priors, C={g.num_classes}, "
+        f"{m.compute_dtype}, {t.optimizer}, ignore {t.ignore_threshold}, "
+        f"obj_target {t.obj_target}, bn_mode {m.bn_mode}, {n_values} "
+        f"values, batch {b}: step p50 "
+        f"{p50:.3f} ms (min {min(times):.3f}, max {max(times):.3f}), "
+        f"{b / p50 * 1e3:.1f} images/s, peak device memory {peak:.3f} GiB, "
+        f"loss {loss:.4f}; launches over {YOLOV2_STEPS} steps {counts} "
+        f"(expected a step {want})")
+    if per_step != want or not np.isfinite(loss):
+        raise SystemExit(f"yolov2: launches {per_step} a step (expected "
+                         f"{want}), loss {loss}")
+    out = {"card": smi, "values": n_values, "p50_ms": p50,
+           "images_per_s": b / p50 * 1e3, "peak_gib": peak, "loss": loss,
+           "counts": counts, "steps": YOLOV2_STEPS}
+    if profile_dir:
+        profile_train(state, step, batch, profile_dir, "yolov2_train_b64")
+    out["loss_on_card"] = yolov2_loss_on_card(cfg, step, state, batch, dev,
+                                              smi)
+    calls = capture_kernel_calls(step, state, batch, 1)
+    out["bn_kernels"] = yolov2_bn_kernels(calls, smi)
+    del calls
+    sd = state.model.state_dict()
+    del state, step
+    torch.cuda.empty_cache()
+    out["compare"] = compare_paths(dev, yolov2_config, "yolov2")
+
+    serve = serve_variant(cfg, sd, dev, runs=(15, 10), stages=True)
+    rows = serve.pop("nms_rows")
+    log(f"[yolov2] serving on {smi}: {serve['candidates']} candidates an "
+        f"image cut to {serve['nms_n']}; batch 1 p50 {serve['p50_ms_1']:.3f} "
+        f"ms, batch 32 p50 {serve['p50_ms_32']:.3f} ms "
+        f"({32 / serve['p50_ms_32'] * 1e3:.1f} images/s); stages (device "
+        f"ms) at 1: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                  serve["stages_1"].items())
+        + "; at 32: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                  serve["stages_32"].items())
+        + f"; NMS kernel launches over 2 predict calls {serve['launches']}; "
+        f"predict == plain NMS of the cut predict_decoded: {serve['ok']}")
+    if not serve["ok"] or serve["nms_n"] != cfg.eval.max_candidates:
+        raise SystemExit("yolov2 serving failed its checks")
+    out["serve"] = serve
+    out["nms_times"] = yolov2_nms_times(rows, smi)
+    del rows, sd
+    torch.cuda.empty_cache()
+
+    out["fit"] = yolov2_fit(dev, smi)
+
+    # YOLOv2's multiscale ends: the passthrough fold at S = 10 and 19
+    state = create_train_state(cfg, torch.Generator().manual_seed(0))
+    big = synthetic_batch(b, max(YOLOV2_SIZES), cfg.data.max_boxes_per_image,
+                          dev)
+    out["multiscale"] = {}
+    for size, s in YOLOV2_SIZES.items():
+        grid = multiscale_grid(cfg, size)
+        if grid != s:
+            raise SystemExit(f"yolov2 multiscale grid {grid} at {size}, "
+                             f"expected {s}")
+        step = make_train_step(cfg, image_size=size, grid=grid)
+        times, metrics, counts = time_steps(state, step, big, seed=1,
+                                            warmup=1, steps=1)
+        loss = metrics["total"].item()
+        log(f"[yolov2] multiscale {size}² (S={grid}) on {smi}: one step "
+            f"{times[0]:.3f} ms after one warm-up, loss {loss:.4f}, launches "
+            f"{counts}")
+        if not np.isfinite(loss) or counts["bn_stats"] != YOLOV2_BN:
+            raise SystemExit(f"yolov2 multiscale step at {size} failed")
+        out["multiscale"][size] = {"ms": times[0], "loss": loss,
+                                   "counts": counts}
+        del step
+    del state, big, batch
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[yolov2] {out['seconds']:.1f} s")
+    bn = out["bn_kernels"]
+    print(json.dumps({"yolov2": {
+        "card": smi, "values": n_values, "p50_ms": p50,
+        "images_per_s": out["images_per_s"], "peak_gib": peak,
+        "loss": out["loss"], "counts": counts, "steps": YOLOV2_STEPS,
+        "loss_on_card": out["loss_on_card"], "compare": out["compare"],
+        "bn_errors": bn["errors"], "bn_totals": bn["totals"],
+        "bn_rows": bn["rows"], "serve": serve, "nms_times": out["nms_times"],
+        "fit": {k: v for k, v in out["fit"].items()},
+        "multiscale": out["multiscale"], "seconds": out["seconds"]}},
+        default=lambda x: list(x) if isinstance(x, tuple) else str(x)))
+    return out
+
+
+def yolov2_kernel_entry(yolov2: dict, name: str) -> dict:
+    """The yolov2 phase's keys of one kernel's entry in the kernels line."""
+    fit = yolov2["fit"]
+    entry = {"launches_yolov2": yolov2["counts"].get(name, 0),
+             "launches_yolov2_steps": YOLOV2_STEPS,
+             "launches_yolov2_fit": fit["counts"].get(name, 0)}
+    key = {"bn_stats": "k2", "bn_grad_stats": "k3"}.get(name)
+    if key:
+        tot = yolov2["bn_kernels"]["totals"][key]
+        err = yolov2["bn_kernels"]["errors"][key]
+        entry.update({f"{f}_yolov2": tot[f] for f in
+                      ("ms", "plain_ms", "bound_ms", "library_ms")},
+                     max_rel_err_yolov2=err["max_rel_err"],
+                     shapes_yolov2=len(yolov2["bn_kernels"]["rows"][key]))
+    return entry
+
+
+def profile_train(state, step, batch, profile_dir: str,
+                  name: str = "train_b64") -> None:
+    """A torch.profiler trace of 3 steps: ``name``.json.gz and its
+    key_averages table ``name``.txt in ``profile_dir``."""
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(profile_dir, exist_ok=True)
@@ -2566,13 +3009,13 @@ def profile_train(state, step, batch, profile_dir: str) -> None:
         for _ in range(3):
             state, _ = step(state, *batch, 1)
         torch.cuda.synchronize()
-    trace = os.path.join(profile_dir, "train_b64.json")
+    trace = os.path.join(profile_dir, f"{name}.json")
     prof.export_chrome_trace(trace)
     with open(trace, "rb") as src, gzip.open(trace + ".gz", "wb") as dst:
         shutil.copyfileobj(src, dst)
     os.remove(trace)
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=25)
-    with open(os.path.join(profile_dir, "train_b64.txt"), "w") as f:
+    with open(os.path.join(profile_dir, f"{name}.txt"), "w") as f:
         f.write(table)
     log(table)
 
@@ -2581,7 +3024,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", default="",
                         help="write torch.profiler traces of batch-32 serving "
-                        "and of 3 flagship train steps here")
+                        "and of 3 flagship and 3 YOLOv2 train steps here")
     parser.add_argument("--parent", default="",
                         help="a checkout of another commit (the parent's tree) "
                         "whose NMS, loss and BN kernels are timed in turns "
@@ -2610,6 +3053,7 @@ def main() -> int:
     fit = phase_fit(dev, train)
     variants = phase_variants(dev)
     recipe = phase_recipe(dev)
+    yolov2 = phase_yolov2(dev, args.profile)
     phase_launches(loss, nms, bn)
     counts = train["kernels"]["counts"]
     no_library = ("no single PyTorch call computes this function")
@@ -2652,6 +3096,12 @@ def main() -> int:
                                for name, v in variants.items()}
     k1["launches_recipe_fit"] = {f"steps_per_dispatch_{k}": v["counts"]["nms"]
                                  for k, v in recipe["fit"].items()}
+    k1.update(launches_yolov2=yolov2["serve"]["launches"],
+              launches_yolov2_fit=yolov2["fit"]["counts"]["nms"],
+              launches_yolov2_fit_map_updates=yolov2["fit"]["map_updates"])
+    for name, t in yolov2["nms_times"].items():
+        k1.update({f"{f}_yolov2_{name}": t[f]
+                   for f in ("ms", "plain_ms", "bound_ms", "bound_by")})
     kernels = [k1]
     for name, key, line in (("yolo_loss_forward", "forward", 107),
                             ("yolo_loss_backward", "backward", 149)):
@@ -2673,6 +3123,7 @@ def main() -> int:
                                       for v, out in variants.items()}
         entry.update(recipe_kernel_entry(recipe, name, "k4" if key == "forward"
                                          else "k5"))
+        entry.update(yolov2_kernel_entry(yolov2, name))
         if "parent" in lt:
             entry.update(parent_ms=lt["parent"]["ms"],
                          parent_call_ms=lt["parent"]["call_ms"],
@@ -2720,7 +3171,8 @@ def main() -> int:
             "shapes_mobilenetv2": len(bn["groups"]["mobilenetv2"]),
             "shape_gap_dense_2d": list(bn["groups"]["gap_dense_2d"][0]),
             **recipe_kernel_entry(recipe, name, "k2" if key == "stats"
-                                  else "k3")})
+                                  else "k3"),
+            **yolov2_kernel_entry(yolov2, name)})
     log(f"[train] kernels path p50 {train['kernels']['p50_ms']:.3f} ms, "
         f"{train['kernels']['images_per_s']:.1f} images/s; plain path p50 "
         f"{train['plain']['p50_ms']:.3f} ms, "

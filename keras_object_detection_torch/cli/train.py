@@ -13,6 +13,15 @@ Examples:
   python -m keras_object_detection_torch.cli.train --data-dir voc/ \\
       --backbone vgg16 --pretrained-backbone vgg16_notop.h5 --freeze-backbone
 
+  # a YOLOv2-style anchor head (anchors from cli.kmeans_anchors); the
+  # passthrough connection has no flag, as in the JAX package: set
+  # ModelConfig.passthrough in Python (cli.evaluate reads it back from the
+  # checkpoint's config.json)
+  python -m keras_object_detection_torch.cli.train --data-dir voc/ \\
+      --backbone darknet19 --head anchor --image-size 416 \\
+      --anchors "0.1017,0.1332;0.2456,0.3084;0.3889,0.6230" \\
+      --ignore-threshold 0.6 --obj-target iou
+
 Writes ``config.json`` beside the checkpoints (``cli.evaluate`` reads it),
 resumes from the latest checkpoint with ``--resume``, and evaluates the best
 checkpoint on ``--test-dir`` after the fit. A flag whose feature is not
@@ -26,7 +35,7 @@ import dataclasses
 import os
 
 # flag -> the ROADMAP item that ports its feature
-UNPORTED_FLAGS = {"anchors": "1.10", "profile_dir": "1.15"}
+UNPORTED_FLAGS = {"profile_dir": "1.15"}
 
 
 def parse_args(argv=None):
@@ -45,7 +54,10 @@ def parse_args(argv=None):
                             "mobilenetv2"])
     p.add_argument("--head", choices=["conv", "gap_dense", "flatten_dense",
                                       "anchor", "fpn"])
-    p.add_argument("--anchors", metavar="W,H;W,H;...")
+    p.add_argument("--anchors", metavar="W,H;W,H;...",
+                   help="anchor priors in image ratios for --head anchor "
+                        "(fit with python -m "
+                        "keras_object_detection_torch.cli.kmeans_anchors)")
     p.add_argument("--image-size", type=int)
     p.add_argument("--num-classes", type=int)
     p.add_argument("--batch-size", type=int)
@@ -103,8 +115,13 @@ def parse_args(argv=None):
     p.add_argument("--grad-accum", type=int, metavar="N",
                    help="split each batch into N microbatches (summed "
                         "gradients, one update)")
-    p.add_argument("--ignore-threshold", type=float, metavar="IOU")
-    p.add_argument("--obj-target", choices=["one", "iou"])
+    p.add_argument("--ignore-threshold", type=float, metavar="IOU",
+                   help="anchor head: exempt unassigned slots whose decoded "
+                        "prediction overlaps any GT above this IoU from the "
+                        "no-object loss (darknet v2 uses 0.6)")
+    p.add_argument("--obj-target", choices=["one", "iou"],
+                   help="anchor head: assigned-slot confidence target (iou = "
+                        "darknet's live-IoU objectness)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu to train on the CPU)")
     return p.parse_args(argv)
@@ -146,7 +163,10 @@ def build_config(args):
     sched = over(cfg.train.schedule, kind=args.schedule, base_lr=args.lr)
     return dataclasses.replace(
         cfg,
-        grid=over(cfg.grid, num_classes=args.num_classes),
+        grid=over(cfg.grid, num_classes=args.num_classes,
+                  anchors=(tuple(tuple(float(v) for v in a.split(","))
+                                 for a in args.anchors.split(";"))
+                           if args.anchors else None)),
         model=over(cfg.model, backbone=args.backbone, head=args.head,
                    image_size=args.image_size, compute_dtype=args.compute_dtype,
                    pretrained_backbone=args.pretrained_backbone,

@@ -40,7 +40,7 @@ class GridConfig:
             if not self.anchors:
                 raise ValueError(
                     "head='anchor' requires GridConfig.anchors (fit with "
-                    "tools/kmeans_anchors.py)")
+                    "python -m keras_object_detection_torch.cli.kmeans_anchors)")
             return len(self.anchors) * (5 + self.num_classes)
         if head == "fpn":
             raise ValueError(
@@ -52,9 +52,11 @@ class GridConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     # darknet24 | darknet19 | darknet_tiny | darknet_micro | vgg16 |
-    # mobilenetv2 (darknet53 is ROADMAP 1.11)
+    # mobilenetv2 (darknet53 is ROADMAP 1.11). darknet19 + head="anchor" +
+    # passthrough + leaky_relu at 416 is the YOLOv2 of arXiv:1612.08242.
     backbone: str = "darknet24"
-    # conv | gap_dense | flatten_dense (anchor and fpn are ROADMAP 1.10/1.11)
+    # conv | gap_dense | flatten_dense | anchor (GridConfig.anchors; fpn is
+    # ROADMAP 1.11)
     head: str = "conv"
     image_size: int = 448
     # Activations in this dtype; parameters and BN statistics stay float32.
@@ -77,6 +79,8 @@ class ModelConfig:
     # The backbone runs in eval mode without gradient; its parameters get a
     # zero gradient
     freeze_backbone: bool = False
+    # YOLOv2's passthrough (reorg) connection: head="anchor" and a darknet
+    # backbone only
     passthrough: bool = False
     fpn_scales: int = 3
 
@@ -158,6 +162,9 @@ class TrainConfig:
     use_pallas_loss: bool = False
     # mse | diou | ciou | alpha_iou (the last three on the plain loss only)
     box_loss_mode: str = "mse"
+    # head="anchor" only (losses/yolov2.py): exempt unassigned slots whose
+    # decoded box overlaps a ground truth above this IoU (darknet v2: 0.6),
+    # and the assigned slots' objectness target, "one" or the live IoU
     ignore_threshold: Optional[float] = None
     obj_target: str = "one"
     multiscale_sizes: tuple = ()
@@ -273,9 +280,23 @@ def check_ported(config: "Config", training: bool = False) -> None:
     if t.noobj_mode not in ("selected", "all"):
         raise ValueError(f"noobj_mode must be 'selected' or 'all', got "
                          f"{t.noobj_mode!r}")
-    if t.ignore_threshold is not None or t.obj_target != "one":
-        raise ValueError("ignore_threshold / obj_target are anchor/fpn-family "
-                         "knobs; the v1 loss has neither")
+    if m.head in ("anchor", "fpn"):
+        if t.use_pallas_loss:
+            raise ValueError("use_pallas_loss implements the v1 loss; the "
+                             "anchor/fpn heads use losses/yolov2.py / "
+                             "losses/yolov3.py")
+        if t.box_loss_mode != "mse":
+            raise ValueError("box_loss_mode applies to the v1 loss; the "
+                             "anchor/fpn heads' box terms are fixed "
+                             "(losses/yolov2.py)")
+    elif t.ignore_threshold is not None:
+        raise ValueError("ignore_threshold is an anchor/fpn-family knob "
+                         "(losses/yolov2.py); the v1 loss has no "
+                         "unassigned-slot confidence term to exempt")
+    elif t.obj_target != "one":
+        raise ValueError("obj_target is an anchor/fpn-family knob "
+                         "(losses/yolov2.py); the v1 loss already uses the "
+                         "reference's IoU-as-target convention")
 
 
 def tiny_cpu_config(data_dir: str = "") -> Config:

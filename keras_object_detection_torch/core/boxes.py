@@ -9,6 +9,10 @@ kept for bit-comparable loss, NMS and mAP (counterpart of
 
 The CUDA NMS kernel (``ops/csrc/nms.cu``) repeats this operation order, so
 its keep decisions are bit-equal to the plain version built on these.
+
+``iou_cxcywh_exact`` and ``pairwise_iou_cxcywh_exact`` are the geometric IoU
+(true corners ``c - s / 2``, no clip, ``max(union, 1e-6)``) that the anchor
+loss's ignore mask and IoU objectness target use.
 """
 
 from __future__ import annotations
@@ -44,3 +48,22 @@ def iou_cxcywh(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
 def pairwise_iou_cxcywh(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     """All-pairs IoU: ``(..., N, 4) x (..., M, 4) -> (..., N, M)``."""
     return iou_cxcywh(boxes1[..., :, None, :], boxes2[..., None, :, :])[..., 0]
+
+
+def iou_cxcywh_exact(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """Geometric elementwise (broadcasting) IoU: ``(..., 4) x (..., 4) ->
+    (...)``, with true corners ``c -/+ s / 2`` and no clip."""
+    x1 = torch.maximum(b1[..., 0] - b1[..., 2] / 2, b2[..., 0] - b2[..., 2] / 2)
+    y1 = torch.maximum(b1[..., 1] - b1[..., 3] / 2, b2[..., 1] - b2[..., 3] / 2)
+    x2 = torch.minimum(b1[..., 0] + b1[..., 2] / 2, b2[..., 0] + b2[..., 2] / 2)
+    y2 = torch.minimum(b1[..., 1] + b1[..., 3] / 2, b2[..., 1] + b2[..., 3] / 2)
+    inter = torch.clamp_min(x2 - x1, 0.0) * torch.clamp_min(y2 - y1, 0.0)
+    union = (torch.abs(b1[..., 2] * b1[..., 3])
+             + torch.abs(b2[..., 2] * b2[..., 3]) - inter)
+    return inter / torch.clamp_min(union, _EPS)
+
+
+def pairwise_iou_cxcywh_exact(boxes1: torch.Tensor,
+                              boxes2: torch.Tensor) -> torch.Tensor:
+    """Geometric all-pairs IoU: ``(..., N, 4) x (..., M, 4) -> (..., N, M)``."""
+    return iou_cxcywh_exact(boxes1[..., :, None, :], boxes2[..., None, :, :])

@@ -3,8 +3,10 @@
 ``load_serving_state`` and ``Evaluator``).
 
 ``InferenceModel``: uint8 NHWC images -> /255 -> ``YoloV1`` ->
-``decode_grid`` -> ``auto_batched_non_max_suppression``, which on the GPU is
-the hand-written NMS kernel. ``Evaluator``: dataset loss and mAP through the
+``decode_grid`` (the anchor head: ``decode_anchor_grid``) ->
+``auto_batched_non_max_suppression``, which cuts candidate sets above
+``EvalConfig.max_candidates`` to the top-K and on the GPU is the
+hand-written NMS kernel. ``Evaluator``: dataset loss and mAP through the
 eval step (``train/loop.py``). ``load_serving_state``: the checkpoint a
 caller serves.
 
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from keras_object_detection_torch.config import Config
+from keras_object_detection_torch.core.anchors import decode_anchor_grid
 from keras_object_detection_torch.core.grid import decode_grid
 from keras_object_detection_torch.data.augment import preprocess_eval_batch
 from keras_object_detection_torch.data.pipeline import YoloDataset
@@ -45,9 +48,10 @@ class InferenceModel:
     ``device=None`` means ``"cuda"`` and raises when no GPU is present; only
     an explicit ``device="cpu"`` serves on the CPU (with the plain NMS).
     Results are tensors on ``device``: ``predict_raw`` the ``(B, S, S,
-    C + 5B)`` grids, ``predict_decoded`` the ``(B, N, 6)`` candidates
-    (N = S*S, or 2*S*S with ``tta="hflip"``), ``predict`` the NMS rows and
-    survivor mask.
+    depth)`` grids, ``predict_decoded`` the ``(B, N, 6)`` candidates
+    (N = S*S, S*S*B_anchors for the anchor head, twice that with
+    ``tta="hflip"``), ``predict`` the NMS rows and survivor mask (N cut to
+    ``max_candidates`` first where it is larger).
     """
 
     def __init__(self, config: Config, state_dict: Mapping[str, torch.Tensor],
@@ -74,10 +78,13 @@ class InferenceModel:
     def _forward(self, images_u8: torch.Tensor) -> torch.Tensor:
         g = self.config.grid
         y = self.model(preprocess_eval_batch(images_u8))
-        return y.reshape(-1, g.grid, g.grid, g.cell_depth)  # flat heads too
+        return y.reshape(-1, g.grid, g.grid,  # flat heads too
+                         g.head_depth(self.config.model.head))
 
     def _decode(self, grid: torch.Tensor) -> torch.Tensor:
         g = self.config.grid
+        if self.config.model.head == "anchor":
+            return decode_anchor_grid(grid, g.num_classes, g.anchors, g.grid)
         return decode_grid(grid, g.num_classes, g.num_boxes, g.grid)
 
     @torch.inference_mode()

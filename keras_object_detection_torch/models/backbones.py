@@ -163,10 +163,11 @@ class MobileNetV2Backbone(nn.Module):
 
 def _darknet(name: str, default_activation: str = "relu"):
     def build(dtype: torch.dtype, activation: str = default_activation, *,
-              generator: torch.Generator,
-              bn_mode: str = "flax") -> DarknetBackbone:
+              generator: torch.Generator, bn_mode: str = "flax",
+              return_tap: bool = False) -> DarknetBackbone:
         return DarknetBackbone(ARCHITECTURES[name], activation, dtype,
-                               generator=generator, bn_mode=bn_mode)
+                               generator=generator, bn_mode=bn_mode,
+                               return_tap=return_tap)
 
     return build
 

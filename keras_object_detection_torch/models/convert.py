@@ -44,6 +44,8 @@ _LAYOUT = {
     "ConvHead_0": ("head", [(r"ConvBlock_0/Conv_0", "block.conv", "conv"),
                             (r"ConvBlock_0/BatchNorm_0", "block.bn", "bn"),
                             (r"Conv_0", "conv", "conv")]),
+    "PassthroughConvHead_0": ("head", _CONV_BLOCK + [
+        (r"Conv_0", "conv", "conv")]),
     "GAPDenseHead_0": ("head", [(r"Dense_([01])", r"denses.\1", "dense"),
                                 (r"BatchNorm_0", "bn", "bn")]),
     "MultiConvDenseHead_0": ("head", _CONV_BLOCK + [

@@ -343,3 +343,20 @@ class ConvBlock(nn.Module):
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     """2x2 stride-2 max pool (VALID, like ``flax.linen.max_pool``)."""
     return F.max_pool2d(x, 2, 2)
+
+
+def space_to_depth(x: torch.Tensor, block: int) -> torch.Tensor:
+    """YOLOv2's reorg layer on an NCHW tensor: ``(B, C, H, W) -> (B,
+    C * block**2, H / block, W / block)``, the channels ordered (block row,
+    block column, C) as JAX's NHWC ``space_to_depth`` orders them, so that
+    the conv after it takes converted kernels unchanged
+    (``nn.PixelUnshuffle`` orders them (C, block row, block column)). The
+    permutation runs on the NHWC view; the result is NCHW with
+    ``channels_last`` strides."""
+    b, c, h, w = x.shape
+    if h % block or w % block:
+        raise ValueError(f"spatial dims ({h},{w}) not divisible by {block}")
+    y = x.permute(0, 2, 3, 1).reshape(b, h // block, block, w // block, block, c)
+    y = y.permute(0, 1, 3, 2, 4, 5).reshape(b, h // block, w // block,
+                                            block * block * c)
+    return y.permute(0, 3, 1, 2)

@@ -1,11 +1,12 @@
-"""YOLOv1 heads and the assembled model (counterpart of
+"""Detection heads and the assembled model (counterpart of
 ``keras_object_detection_tpu/models/yolo.py`` ``ConvHead``,
-``GAPDenseHead``, ``MultiConvDenseHead``, ``YoloV1`` and ``build_model``
-for the v1 heads).
+``PassthroughConvHead``, ``GAPDenseHead``, ``MultiConvDenseHead``,
+``YoloV1`` and ``build_model`` for the v1 heads and the YOLOv2 anchor head).
 
 The model takes NHWC float images and returns the grid-shaped
-``(B, S, S, C + 5B)`` output, like the JAX package (or, with
-``flat_output``, ``(B, S*S*(C + 5B))``); inside it runs NCHW.
+``(B, S, S, depth)`` output, like the JAX package (or, with
+``flat_output``, ``(B, S*S*depth)``); inside it runs NCHW. ``depth`` is
+``C + 5B`` for the v1 heads and ``B_anchors * (5 + C)`` for the anchor head.
 """
 
 from __future__ import annotations
@@ -21,11 +22,12 @@ from keras_object_detection_torch.config import Config
 from keras_object_detection_torch.models.backbones import BACKBONES
 from keras_object_detection_torch.models.layers import (BatchNorm, Conv2d,
                                                         ConvBlock, Dense,
-                                                        Dropout, remat)
+                                                        Dropout, remat,
+                                                        space_to_depth)
 
 # head -> the ROADMAP item that ports it
-_HEADS_TO_PORT = {"anchor": "1.10", "fpn": "1.11"}
-HEADS = ("conv", "gap_dense", "flatten_dense")
+_HEADS_TO_PORT = {"fpn": "1.11"}
+HEADS = ("conv", "gap_dense", "flatten_dense", "anchor")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -52,6 +54,48 @@ class ConvHead(nn.Module):
 
     def forward(self, x: torch.Tensor, dropout: DropoutRng = None) -> torch.Tensor:
         x = self.block(x, max(x.shape[2] // self.grid, 1))
+        return self.conv(x.float()).permute(0, 2, 3, 1).contiguous()
+
+
+class PassthroughConvHead(nn.Module):
+    """The conv head with YOLOv2's passthrough connection: ``blocks[0]``
+    (3x3 1024 SAME, stride ``max(H // grid, 1)``) on the features,
+    ``blocks[1]`` (1x1 ``tap_filters``) on the 2x-resolution backbone tap,
+    the tap folded to the grid by ``space_to_depth(block)``, the two
+    concatenated as ``[x, tap]``, ``blocks[2]`` (3x3 1024 SAME) and a
+    float32 1x1 conv (flax's ``ConvBlock_0..2`` and ``Conv_0``). The blocks
+    use ReLU, as the JAX head's do, whatever the backbone's activation.
+
+    ``block`` is the fold at the size the model was built for
+    (``passthrough_block``); it fixes ``blocks[2]``'s input channels, and a
+    tap that does not fold onto the features by it raises."""
+
+    def __init__(self, in_channels: int, tap_channels: int, cell_depth: int,
+                 block: int, grid: int = 7, tap_filters: int = 64,
+                 dtype: torch.dtype = torch.float32, *,
+                 generator: torch.Generator, bn_mode: str = "flax"):
+        super().__init__()
+        self.grid, self.block = grid, block
+        kw = dict(dtype=dtype, generator=generator, bn_mode=bn_mode)
+        self.blocks = nn.ModuleList([
+            ConvBlock(in_channels, 1024, 3, padding="SAME", **kw),
+            ConvBlock(tap_channels, tap_filters, 1, padding="SAME", **kw),
+            ConvBlock(1024 + tap_filters * block * block, 1024, 3,
+                      padding="SAME", **kw)])
+        self.conv = Conv2d(1024, cell_depth, 1, generator)
+
+    def forward(self, x: torch.Tensor, tap: torch.Tensor) -> torch.Tensor:
+        x = self.blocks[0](x, max(x.shape[2] // self.grid, 1))
+        tap = self.blocks[1](tap)
+        block = tap.shape[2] // x.shape[2]
+        if block != self.block or tap.shape[2] != x.shape[2] * block \
+                or tap.shape[3] != x.shape[3] * block:
+            raise ValueError(f"passthrough tap {tuple(tap.shape)} does not "
+                             f"fold onto {tuple(x.shape)} by {self.block}")
+        if block > 1:
+            tap = space_to_depth(tap, block)
+        x = torch.cat([x, tap.to(x.dtype)], dim=1)
+        x = self.blocks[2](x.contiguous(memory_format=torch.channels_last))
         return self.conv(x.float()).permute(0, 2, 3, 1).contiguous()
 
 
@@ -135,6 +179,21 @@ def backbone_feature_size(backbone: str, image_size: int) -> int:
         return probe.eval()(torch.empty(1, 3, image_size, image_size)).shape[-1]
 
 
+@functools.lru_cache(maxsize=None)
+def passthrough_block(backbone: str, image_size: int, grid: int) -> int:
+    """The passthrough fold of a darknet ``backbone`` at ``image_size``: the
+    tap's side over the side of the head's first block's output (stride
+    ``max(feat // grid, 1)``, SAME), from a forward on the ``meta``
+    device."""
+    with torch.device("meta"):
+        probe = BACKBONES[backbone](torch.float32, generator=torch.Generator(),
+                                    return_tap=True)
+        x, tap = probe.eval()(torch.empty(1, 3, image_size, image_size))
+    feat = x.shape[-1]
+    side = -(-feat // max(feat // grid, 1))
+    return max(tap.shape[-1] // side, 1)
+
+
 class YoloV1(nn.Module):
     """Backbone + head. ``forward`` maps ``(B, H, W, 3)`` float images to
     ``(B, S, S, C + 5B)`` float32 grids (``flat_output``: ``(B,
@@ -150,7 +209,11 @@ class YoloV1(nn.Module):
     ``remat_policy`` (``"full"`` or ``"dots"``, None for off) recomputes the
     activations of a training forward in the backward (``layers.remat``),
     segment by segment: each piece of ``backbone.segments()`` and the head.
-    Values and running statistics are those of the forward without it."""
+    Values and running statistics are those of the forward without it.
+
+    ``head="anchor"`` emits ``len(anchors) * (5 + C)`` a cell through
+    ``ConvHead`` or, with ``passthrough`` (darknet backbones only),
+    ``PassthroughConvHead`` fed the backbone's tap."""
 
     def __init__(self, backbone: str = "darknet24", head: str = "conv",
                  grid: int = 7, num_classes: int = 20, num_boxes: int = 2,
@@ -159,7 +222,8 @@ class YoloV1(nn.Module):
                  bn_mode: str = "flax", image_size: int = 448,
                  head_dense_units: int = 4960, head_batchnorm: bool = True,
                  flat_output: bool = False, freeze_backbone: bool = False,
-                 remat_policy: Optional[str] = None):
+                 remat_policy: Optional[str] = None, anchors: tuple = (),
+                 passthrough: bool = False):
         super().__init__()
         self.remat_policy = remat_policy
         if head not in HEADS:
@@ -168,15 +232,32 @@ class YoloV1(nn.Module):
                     f"head {head!r} is not ported yet "
                     f"(ROADMAP {_HEADS_TO_PORT[head]})")
             raise ValueError(f"unknown head {head!r}; options: {HEADS}")
+        if passthrough:
+            if head != "anchor":
+                raise ValueError("passthrough requires head='anchor'")
+            if not backbone.startswith("darknet"):
+                raise ValueError(f"passthrough supports darknet backbones "
+                                 f"only, got {backbone!r}")
+        if head == "anchor" and not anchors:
+            raise ValueError("head='anchor' requires GridConfig.anchors (fit "
+                             "with python -m "
+                             "keras_object_detection_torch.cli.kmeans_anchors)")
         self.compute_dtype = compute_dtype
         self.flat_output = flat_output
         self.freeze_backbone = freeze_backbone
-        self.backbone = BACKBONES[backbone](compute_dtype, activation,
-                                            generator=generator,
-                                            bn_mode=bn_mode)
-        depth = num_classes + 5 * num_boxes
+        self.passthrough = passthrough
+        self.backbone = BACKBONES[backbone](
+            compute_dtype, activation, generator=generator, bn_mode=bn_mode,
+            **({"return_tap": True} if passthrough else {}))
+        depth = (len(anchors) * (5 + num_classes) if head == "anchor"
+                 else num_classes + 5 * num_boxes)
         channels = self.backbone.out_channels
-        if head == "conv":
+        if passthrough:
+            self.head = PassthroughConvHead(
+                channels, self.backbone.tap_channels, depth,
+                passthrough_block(backbone, image_size, grid), grid,
+                dtype=compute_dtype, generator=generator, bn_mode=bn_mode)
+        elif head in ("conv", "anchor"):
             self.head = ConvHead(channels, depth, grid, compute_dtype,
                                  generator=generator, bn_mode=bn_mode)
         elif head == "gap_dense":
@@ -217,14 +298,21 @@ class YoloV1(nn.Module):
                   and torch.is_grad_enabled() else None)
         if self.freeze_backbone:
             with torch.no_grad():
-                x = self.backbone(x)
+                feats = self.backbone(x)
         elif policy:
-            for fn in self.backbone.segments():
+            # the tap is the input of the backbone's tap segment: a remat
+            # boundary, kept once
+            tap = None
+            for i, fn in enumerate(self.backbone.segments()):
+                if i == getattr(self.backbone, "tap_segment", None):
+                    tap = x
                 x = remat(fn, self, policy, x)
+            feats = (x, tap) if self.passthrough else x
         else:
-            x = self.backbone(x)
-        y = (remat(self.head, self, policy, x, dropout) if policy
-             else self.head(x, dropout))
+            feats = self.backbone(x)
+        x, tap = feats if self.passthrough else (feats, None)
+        args = (x, tap) if self.passthrough else (x, dropout)
+        y = remat(self.head, self, policy, *args) if policy else self.head(*args)
         return y.reshape(y.shape[0], -1) if self.flat_output else y
 
 
@@ -235,8 +323,6 @@ def build_model(config: Config,
     drawn from ``generator`` (default: seeded with ``config.train.seed``).
     Move it with ``.to(device)``."""
     m, g = config.model, config.grid
-    if m.passthrough:
-        raise NotImplementedError("passthrough is not ported yet (ROADMAP 1.10)")
     if m.compute_dtype not in _DTYPES:
         raise ValueError(f"unknown compute_dtype {m.compute_dtype!r}")
     if generator is None:
@@ -248,5 +334,6 @@ def build_model(config: Config,
                    head_batchnorm=m.head_batchnorm,
                    freeze_backbone=m.freeze_backbone,
                    remat_policy=(("dots" if m.remat_policy == "dots" else "full")
-                                 if m.remat else None))
+                                 if m.remat else None),
+                   anchors=g.anchors, passthrough=m.passthrough)
     return model.eval()

@@ -27,6 +27,8 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from keras_object_detection_torch.core.anchors import (decode_anchor_grid,
+                                                       decode_anchor_targets)
 from keras_object_detection_torch.core.boxes import iou_cxcywh
 from keras_object_detection_torch.core.grid import decode_grid
 from keras_object_detection_torch.ops.cuda_nms import \
@@ -148,7 +150,9 @@ def average_precision_per_class(true_boxes, true_valid, pred_boxes,
 
 class MeanAveragePrecision:
     """Streaming mAP: ``update_state(y_true, y_pred)`` per batch of
-    ``(B, S, S, C + 5B)`` grids, then ``result()``.
+    ``(B, S, S, C + 5B)`` grids (with ``anchors``, ``(B, S, S, B_anchors *
+    (5 + C))`` anchor grids, decoded by ``decode_anchor_targets`` and
+    ``decode_anchor_grid``), then ``result()``.
 
     ``update_state`` decodes both grids and runs NMS on the predictions and,
     with ``nms_on_targets`` (the reference's behaviour), on the targets too:
@@ -158,7 +162,7 @@ class MeanAveragePrecision:
     first. ``image_valid`` drops padded images of a partial batch. The box
     sets stay on the device; the ``result*`` methods read back once.
 
-    Anchor and FPN layouts are not ported yet (ROADMAP 1.10, 1.11).
+    The FPN layout is not ported yet (ROADMAP 1.11).
     """
 
     def __init__(self, num_classes: int, num_boxes: int = 2, grid: int = 7,
@@ -169,10 +173,7 @@ class MeanAveragePrecision:
         if fpn_scales:
             raise NotImplementedError("the FPN layout of MeanAveragePrecision "
                                       "is not ported yet (ROADMAP 1.11)")
-        if anchors:
-            raise NotImplementedError("the anchor layout of "
-                                      "MeanAveragePrecision is not ported yet "
-                                      "(ROADMAP 1.10)")
+        self._anchors = tuple(tuple(a) for a in anchors or ())
         self._num_classes = num_classes
         self._num_boxes = num_boxes
         self._grid = grid
@@ -203,8 +204,12 @@ class MeanAveragePrecision:
         y_pred = torch.as_tensor(y_pred)
         y_true = torch.as_tensor(y_true).to(y_pred.device)
         c, b, s = self._num_classes, self._num_boxes, self._grid
-        tb = decode_grid(y_true, c, b, s)
-        pb = decode_grid(y_pred, c, b, s)
+        if self._anchors:
+            tb = decode_anchor_targets(y_true, c, self._anchors, s)
+            pb = decode_anchor_grid(y_pred, c, self._anchors, s)
+        else:
+            tb = decode_grid(y_true, c, b, s)
+            pb = decode_grid(y_pred, c, b, s)
         if self._nms_on_targets:
             tboxes, tvalid = self._nms(tb)
         else:

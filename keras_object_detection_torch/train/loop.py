@@ -1,14 +1,17 @@
 """Training (counterpart of ``keras_object_detection_tpu/train/loop.py`` for
-the v1 conv head): the train step, the eval step and the ``Trainer``.
+the v1 heads and the YOLOv2 anchor head): the train step, the eval step and
+the ``Trainer``.
 
     state = create_train_state(cfg, generator, device)
     step = make_train_step(cfg)
     state, metrics = step(state, images_u8, boxes, valid, seed)
 
 One step: the draws -> ``mosaic_batch`` and ``mixup_batch`` where the
-config switches them on -> ``augment_batch`` -> ``encode_grid`` ->
-forward with training-mode BatchNorm (and the flatten_dense head's dropout,
-its mask drawn from the step's own generator) -> the v1 loss -> backward ->
+config switches them on -> ``augment_batch`` -> ``encode_grid`` (the anchor
+head: ``encode_anchor_grid``) -> forward with training-mode BatchNorm (and
+the flatten_dense head's dropout, its mask drawn from the step's own
+generator) -> the v1 loss (the anchor head: ``yolo_v2_loss_terms`` with the
+augmented boxes for its ignore mask) -> backward ->
 the optimizer update, the BN running statistics (updated in the forward) and
 the parameter EMA. ``TrainConfig.use_pallas_loss`` selects the fused loss
 with its kernels, ``ModelConfig.bn_mode="fused"`` the BN-statistics kernels.
@@ -41,6 +44,7 @@ import numpy as np
 import torch
 
 from keras_object_detection_torch.config import Config, check_ported
+from keras_object_detection_torch.core.anchors import encode_anchor_grid
 from keras_object_detection_torch.core.grid import encode_grid
 from keras_object_detection_torch.data.augment import (
     AugmentDraws, MixupDraws, MosaicDraws, augment_batch, mixup_batch,
@@ -49,6 +53,7 @@ from keras_object_detection_torch.data.augment import (
 from keras_object_detection_torch.data.pipeline import (DeviceCachedDataset,
                                                         YoloDataset)
 from keras_object_detection_torch.losses.yolo import yolo_v1_loss_terms
+from keras_object_detection_torch.losses.yolov2 import yolo_v2_loss_terms
 from keras_object_detection_torch.models.yolo import (YoloV1,
                                                      backbone_feature_size,
                                                      build_model)
@@ -310,13 +315,25 @@ def make_train_step(config: Config, image_size: Optional[int] = None,
     accum = max(t.grad_accum_steps or 1, 1)
     out_size = config.model.image_size if image_size is None else image_size
     out_grid = g.grid if grid is None else grid
+    anchor_head = config.model.head == "anchor"
     if t.use_pallas_loss and t.box_loss_mode != "mse":
         raise ValueError(
             "use_pallas_loss implements only the reference MSE box terms; "
             f"box_loss_mode={t.box_loss_mode!r} requires the plain loss "
             "(use_pallas_loss=False)")
 
-    def loss_terms(y_true, y_pred) -> Dict[str, torch.Tensor]:
+    def encode(boxes, valid):
+        if anchor_head:
+            return encode_anchor_grid(boxes, valid, g.num_classes, g.anchors,
+                                      out_grid)
+        return encode_grid(boxes, valid, g.num_classes, g.num_boxes, out_grid)
+
+    def loss_terms(y_true, y_pred, boxes, valid) -> Dict[str, torch.Tensor]:
+        if anchor_head:
+            return yolo_v2_loss_terms(
+                y_true, y_pred, g.num_classes, g.anchors, t.lambda_coord,
+                t.lambda_noobj, ignore_threshold=t.ignore_threshold,
+                gt_boxes=boxes, gt_valid=valid, obj_target=t.obj_target)
         if t.use_pallas_loss:
             return {"total": fused_yolo_v1_loss(
                 y_true, y_pred, g.num_classes, g.num_boxes, t.lambda_coord,
@@ -337,10 +354,9 @@ def make_train_step(config: Config, image_size: Optional[int] = None,
             color_strengths=tuple(d.color_jitter),
             crop_ratio=tuple(d.crop_ratio), min_visibility=d.min_visibility,
             out_size=out_size)
-        y_true = encode_grid(aboxes, avalid, g.num_classes, g.num_boxes,
-                             out_grid)
+        y_true = encode(aboxes, avalid)
         y_pred = model(images, draws.keep).reshape(y_true.shape)  # flat heads too
-        terms = loss_terms(y_true, y_pred)
+        terms = loss_terms(y_true, y_pred, aboxes, avalid)
         terms["total"].backward()
         return {k: v.detach() for k, v in terms.items()}
 
@@ -404,7 +420,9 @@ def make_eval_step(config: Config, use_ema: Optional[bool] = None):
     """Build ``eval_step(state, images_u8, boxes, valid, image_weight=None)
     -> (loss, y_true, y_pred)``: u8 / 255 -> ``encode_grid`` -> the forward
     in eval mode -> the plain v1 loss (a sum, as in training), with
-    ``image_weight`` an optional ``(batch,)`` 0/1 weight of each image.
+    ``image_weight`` an optional ``(batch,)`` 0/1 weight of each image. The
+    anchor head encodes with ``encode_anchor_grid`` and takes
+    ``yolo_v2_loss_terms`` with the batch's boxes for its ignore mask.
 
     ``use_ema``: None follows the config (``ema_decay`` set and
     ``eval_with_ema``); True or False overrides it. The EMA weights are
@@ -414,6 +432,7 @@ def make_eval_step(config: Config, use_ema: Optional[bool] = None):
     g, t = config.grid, config.train
     ema_on = use_ema if use_ema is not None else (
         t.ema_decay is not None and t.eval_with_ema)
+    anchor_head = config.model.head == "anchor"
 
     @torch.no_grad()
     def eval_step(state: TrainState, images_u8, boxes, valid,
@@ -423,7 +442,12 @@ def make_eval_step(config: Config, use_ema: Optional[bool] = None):
         images = preprocess_eval_batch(torch.as_tensor(images_u8).to(dev))
         boxes = torch.as_tensor(boxes).to(dev, torch.float32)
         valid = torch.as_tensor(valid).to(dev, torch.bool)
-        y_true = encode_grid(boxes, valid, g.num_classes, g.num_boxes, g.grid)
+        if anchor_head:
+            y_true = encode_anchor_grid(boxes, valid, g.num_classes,
+                                        g.anchors, g.grid)
+        else:
+            y_true = encode_grid(boxes, valid, g.num_classes, g.num_boxes,
+                                 g.grid)
         model.eval()
         if ema_on and state.ema is not None:
             y_pred = torch.func.functional_call(
@@ -433,6 +457,13 @@ def make_eval_step(config: Config, use_ema: Optional[bool] = None):
         y_pred = y_pred.reshape(y_true.shape)  # flat heads too
         if image_weight is not None:
             image_weight = torch.as_tensor(image_weight).to(dev)
+        if anchor_head:
+            terms = yolo_v2_loss_terms(
+                y_true, y_pred, g.num_classes, g.anchors, t.lambda_coord,
+                t.lambda_noobj, sample_weight=image_weight,
+                ignore_threshold=t.ignore_threshold, gt_boxes=boxes,
+                gt_valid=valid, obj_target=t.obj_target)
+            return terms["total"], y_true, y_pred
         terms = yolo_v1_loss_terms(
             y_true, y_pred, g.num_classes, g.num_boxes, t.lambda_coord,
             t.lambda_noobj, t.noobj_mode, t.box_loss_mode,
@@ -503,6 +534,7 @@ def _map_metric(config: Config) -> MeanAveragePrecision:
         g.num_classes, g.num_boxes, g.grid, iou_threshold=e.iou_threshold,
         conf_threshold=e.conf_threshold,
         map_iou_threshold=e.map_iou_threshold,
+        anchors=g.anchors if config.model.head == "anchor" else (),
         max_candidates=e.max_candidates)
 
 

@@ -179,7 +179,7 @@ def test_the_jax_clis_config_loads_in_the_port(flags, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("cli,argv,match", [
     (cli_train, ["--preset", "yolov3"], "ROADMAP 1.11"),
-    (cli_train, ["--anchors", "0.1,0.1"], "ROADMAP 1.10"),
+    (cli_train, ["--head", "fpn", "--anchors", "0.1,0.1"], "ROADMAP 1.11"),
     (cli_train, ["--profile-dir", "p"], "ROADMAP 1.15"),
     (cli_train, ["--data-parallel", "4"], "ROADMAP 1.15"),
     (cli_train, ["--device-cache-layout", "sharded"], "ROADMAP 1.15"),

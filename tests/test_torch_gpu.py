@@ -3,7 +3,9 @@ the fused loss forward and backward, the BN statistics forward and backward,
 at the flagship's, the transfer family's and the multiscale shapes) have no
 CPU mode, and the paths that run them (serving, the train step, the
 frozen-backbone and GAP-head steps, the recipe step with remat, the mAP
-accumulator, ``Trainer.fit``, the pinned-memory prefetch). They skip
+accumulator, ``Trainer.fit``, the pinned-memory prefetch), and the YOLOv2
+anchor family's card-side cases (K2/K3 at its 21 BatchNorm shapes, K1
+behind the top-k cut, the v2 loss on the card, a passthrough step). They skip
 without a card. This file imports neither JAX nor the JAX package, so on a
 machine without JAX it runs alone:
 
@@ -857,3 +859,100 @@ def test_remat_step_is_bit_equal_on_the_card(cuda, no_tf32, policy):
     assert torch.equal(out[True][0], out[False][0])
     for k, v in out[True][1].items():
         assert torch.equal(v, out[False][1][k]), k
+
+
+def test_bn_kernels_match_plain_versions_at_yolov2_shapes(cuda):
+    """K2 and K3 at the 21 BatchNorm inputs of chip_smoke's YOLOv2 step
+    (Darknet-19 + the passthrough head at 416², batch 64, bf16; the
+    largest 64x32x416x416, the tap's 64x64x26x26): within 1e-5 of each
+    sum's largest channel, the same bits from call to call."""
+    from chip_smoke import bn_inputs, bn_rel_err, bn_shapes, yolov2_config
+
+    shapes = bn_shapes(cuda, yolov2_config())
+    assert len(shapes) == 21
+    assert (64, 32, 416, 416) in shapes and (64, 64, 26, 26) in shapes
+    assert shapes[-1] == (64, 1024, 13, 13)
+    gen = torch.Generator(device=cuda).manual_seed(416)
+    for shape in shapes:
+        x, dy, mean, rstd = bn_inputs(shape, torch.bfloat16, gen, cuda)
+        k2 = bn.cuda_bn_stats_sums(x)
+        k3 = bn.cuda_bn_grad_sums(dy, x, mean, rstd)
+        assert bn_rel_err(k2, bn.bn_stats_sums_plain(x)) <= 1e-5, shape
+        assert bn_rel_err(k3, bn.bn_grad_sums_plain(dy, x, mean,
+                                                    rstd)) <= 1e-5, shape
+        assert torch.equal(bn.cuda_bn_stats_sums(x), k2), shape
+        assert torch.equal(bn.cuda_bn_grad_sums(dy, x, mean, rstd), k3), shape
+
+
+@pytest.mark.parametrize("batch", [1, 32])
+def test_nms_kernel_behind_the_top_k_cut(cuda, batch):
+    """YOLOv2's 13·13·5 = 845 candidates an image: the router cuts them to
+    max_candidates = 512 and launches K1 once, bit-equal to the plain NMS of
+    the same cut rows; uncut, 845 rows fit under MAX_N as well."""
+    from chip_smoke import nms_rows
+    from keras_object_detection_torch.ops.nms import top_k_candidates
+
+    x = torch.from_numpy(nms_rows(batch, batch, 845)).to(cuda)
+    before = cuda_nms.LAUNCHES
+    rows, valid = cuda_nms.auto_batched_non_max_suppression(x, 0.5, 0.4, 512)
+    assert cuda_nms.LAUNCHES == before + 1 and rows.shape == (batch, 512, 6)
+    want_rows, want_valid = batched_non_max_suppression(
+        top_k_candidates(x, 512), 0.5, 0.4)
+    assert torch.equal(rows, want_rows) and torch.equal(valid, want_valid)
+
+
+@pytest.mark.parametrize("obj_target,ignore", [("iou", 0.6), ("one", None)])
+def test_v2_loss_on_the_card_matches_the_cpu(cuda, obj_target, ignore):
+    """yolo_v2_loss_terms at YOLOv2's grid (S = 13, 5 priors, C = 20,
+    batch 8) on the card against the CPU: every term and the gradient in
+    y_pred within 1e-5."""
+    from chip_smoke import YOLOV2_ANCHORS
+    from keras_object_detection_torch.core.anchors import encode_anchor_grid
+    from keras_object_detection_torch.losses import yolo_v2_loss_terms
+
+    rng = np.random.RandomState(0)
+    boxes = np.zeros((8, 12, 5), np.float32)
+    boxes[..., :2] = rng.uniform(0.05, 0.95, (8, 12, 2))
+    boxes[..., 2:4] = rng.uniform(0.03, 0.8, (8, 12, 2))
+    boxes[..., 4] = rng.randint(0, 20, (8, 12))
+    valid = rng.rand(8, 12) < 0.7
+    boxes, valid = torch.from_numpy(boxes), torch.from_numpy(valid)
+    y_true = encode_anchor_grid(boxes, valid, 20, YOLOV2_ANCHORS, 13)
+    y_pred = torch.from_numpy(rng.normal(0, 1.5, tuple(y_true.shape)).astype(
+        np.float32))
+    out = []
+    for where in (cuda, "cpu"):
+        p = y_pred.to(where).requires_grad_(True)
+        terms = yolo_v2_loss_terms(
+            y_true.to(where), p, 20, YOLOV2_ANCHORS, ignore_threshold=ignore,
+            gt_boxes=boxes.to(where), gt_valid=valid.to(where),
+            obj_target=obj_target)
+        terms["total"].backward()
+        out.append(({k: v.item() for k, v in terms.items()}, p.grad.cpu()))
+    (card, card_grad), (cpu, cpu_grad) = out
+    for k in cpu:
+        assert card[k] == pytest.approx(cpu[k], rel=1e-5), k
+    scale = cpu_grad.abs().max()
+    torch.testing.assert_close(card_grad, cpu_grad, rtol=1e-5,
+                               atol=1e-5 * scale.item())
+
+
+def test_anchor_passthrough_step_on_the_gpu_goes_through_the_kernels(cuda):
+    """A darknet_micro + passthrough anchor step (ignore 0.6, IoU target,
+    bn_mode fused) on the card: K2 and K3 once for each of its 7
+    BatchNorms, no K4/K5 (the v2 loss is plain torch), a finite loss."""
+    cfg = _micro_config()
+    cfg = dataclasses.replace(
+        cfg, grid=dataclasses.replace(cfg.grid, anchors=(
+            (0.1, 0.15), (0.4, 0.3), (0.8, 0.8))),
+        model=dataclasses.replace(cfg.model, head="anchor", passthrough=True,
+                                  bn_mode="fused"),
+        train=dataclasses.replace(cfg.train, use_pallas_loss=False,
+                                  ignore_threshold=0.6, obj_target="iou"))
+    state = create_train_state(cfg, torch.Generator().manual_seed(0))
+    images, boxes, valid = _micro_batch(3)
+    counts = _counts()
+    state, metrics = make_train_step(cfg)(state, images, boxes, valid, 1)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_counts(), counts)] == [7, 7, 0, 0]
+    assert torch.isfinite(metrics["total"])

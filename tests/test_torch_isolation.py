@@ -5,8 +5,9 @@ transfer backbone and head (frozen, and in the mxu and flax@N BN modes),
 runs a one-epoch ``Trainer.fit`` over a small decoded-cache dataset with
 ``Evaluator.evaluate`` on it and a two-epoch one with the v1 recipe
 (mosaic, mixup, multiscale, adamw, remat, ``steps_per_dispatch`` over the
-device cache), takes a step with each IoU box loss and sgdw, and both
-command lines answer ``--help``;
+device cache), takes a step with each IoU box loss and sgdw, takes a
+YOLOv2 anchor + passthrough step and serves it, and the three command
+lines answer ``--help``;
 h5py is never imported (only reading a Keras file needs it)."""
 
 import pathlib
@@ -123,7 +124,24 @@ for mode in ("diou", "ciou", "alpha_iou"):
         state, np.zeros((2, 56, 56, 3), np.uint8), boxes[:2],
         np.ones((2, 4), bool), 0)
     assert torch.isfinite(metrics["total"]), mode
-for cli in ("train", "evaluate"):
+# the YOLOv2 anchor family: a passthrough step with the v2 loss's ignore
+# mask and IoU target (fused BatchNorm), and serving
+ac = dataclasses.replace(
+    tc, grid=dataclasses.replace(tc.grid, anchors=((0.1, 0.15), (0.4, 0.3),
+                                                   (0.8, 0.8))),
+    model=dataclasses.replace(tc.model, head="anchor", passthrough=True,
+                              bn_mode="fused"),
+    train=dataclasses.replace(tc.train, ignore_threshold=0.6,
+                              obj_target="iou"))
+state = create_train_state(ac, device="cpu")
+state, metrics = make_train_step(ac)(
+    state, np.zeros((2, 56, 56, 3), np.uint8), boxes[:2],
+    np.ones((2, 4), bool), 0)
+assert torch.isfinite(metrics["total"])
+rows, valid = InferenceModel(ac, state.model.state_dict(), device="cpu"
+                             ).predict(images[:, :56, :56])
+assert rows.shape == (2, 147, 6) and torch.isfinite(rows).all()
+for cli in ("train", "evaluate", "kmeans_anchors"):
     proc = subprocess.run([sys.executable, "-c", "import sys; "
                            f"sys.modules.update(dict.fromkeys({BLOCKED!r})); "
                            f"from keras_object_detection_torch.cli.{{cli}} "

@@ -216,7 +216,5 @@ def test_empty_accumulator_and_unported_layouts():
     np.testing.assert_array_equal(metric.result_per_class(), np.zeros(3))
     with pytest.raises(NotImplementedError, match="ROADMAP 1.13"):
         metric.result_error_analysis()
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.10"):
-        tmap.MeanAveragePrecision(3, 2, anchors=((0.1, 0.1),))
     with pytest.raises(NotImplementedError, match="ROADMAP 1.11"):
         tmap.MeanAveragePrecision(3, 2, anchors=((0.1, 0.1),), fpn_scales=3)

@@ -192,8 +192,8 @@ def test_training_mode_forward_matches_jax(bn_mode, dtype, tol):
 
 
 @pytest.mark.parametrize("override,item", [
-    ({"head": "fpn"}, "1.11"), ({"head": "anchor"}, "1.10"),
-    ({"passthrough": True}, "1.10"),
+    ({"head": "fpn"}, "1.11"), ({"head": "fpn", "fpn_scales": 2}, "1.11"),
+    ({"backbone": "darknet53", "head": "flatten_dense"}, "1.11"),
     ({"backbone": "darknet53", "head": "gap_dense"}, "1.11"),
     ({"backbone": "darknet53"}, "1.11")])
 def test_unported_parts_raise(override, item):
@@ -206,7 +206,7 @@ def test_unported_parts_raise(override, item):
 
 @pytest.mark.parametrize("kwargs,match", [
     ({"architecture": (("R", 64, 1),)}, "ROADMAP 1.11"),
-    ({"return_tap": True}, "ROADMAP 1.10"),
+    ({"return_tap": True, "return_taps": 1}, "ROADMAP 1.11"),
     ({"return_taps": 2}, "1.11")])
 def test_unported_backbone_grammar_raises(kwargs, match):
     from keras_object_detection_torch.models.darknet import DarknetBackbone
