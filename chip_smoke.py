@@ -132,7 +132,22 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
              card's mAP = the CPU's); one step each at 320² and 608² (S = 10
              and 19, the passthrough fold at both ends); one JSON line
              "yolov2";
-13. launches - CUDA launches per call of K1, K4, K5, K2 and K3 (1 each)
+13. yolov3  - the YOLOv3 FPN family at full width (the port's
+             yolov3_config: Darknet-53 + the 3-scale FPN head, 416², S =
+             13 / 26 / 52, the paper's 9 priors, C=20, bf16, batch 32,
+             adam, ignore threshold 0.5, IoU objectness; bn_mode fused), as
+             phase 12 runs YOLOv2 (family_phase): 3 warm-up and 5 timed
+             steps (K2 72, K3 72, K4 0, K5 0 a step), the v3 loss on the
+             step's grids card against CPU (1e-5), K2/K3 at each of the 72
+             BatchNorm inputs (1e-5, bit-equal call to call, device /
+             bound / library ms), compare_paths, serving at batch 1 and 32
+             (10,647 candidates an image cut to 512, K1 once a call, the
+             stages decode / top_k / nms apart, K1 at 1x512 and 32x512), a
+             2-epoch fit from a decoded cache at 416² (128 train, 64 val
+             images; K1 2 a mAP update at N = 512), one step each at 320²
+             and 608² (S = 10 / 20 / 40 and 19 / 38 / 76); one JSON line
+             "yolov3";
+14. launches - CUDA launches per call of K1, K4, K5, K2 and K3 (1 each)
              and of the other checkout's, from a torch.profiler trace, after the
              train and fit phases so that no profiler hook slows them.
 
@@ -1738,7 +1753,8 @@ def map_on(cfg, device, grids, predict=None):
     for y_true, y_pred, weight in grids:
         if predict is not None:
             y_pred = predict(y_true, y_pred)
-        metric.update_state(y_true.to(device), y_pred.to(device),
+        metric.update_state(to_device(y_true, device),
+                            to_device(y_pred, device),
                             None if weight is None else weight.to(device))
     return metric
 
@@ -2658,64 +2674,86 @@ def anchor_logits(y_true: torch.Tensor, num_anchors: int) -> torch.Tensor:
     return out.reshape(y_true.shape)
 
 
-def yolov2_loss_on_card(cfg, step, state, batch, dev, smi: str) -> dict:
-    """The v2 loss with the ignore mask and the IoU target on the step's
-    own grids and augmented boxes, on the card and on the CPU: each term
-    and the gradient in y_pred within 1e-5."""
-    from keras_object_detection_torch.losses import yolov2
+def to_device(grids, device):
+    """A grid, or the FPN head's tuple of per-scale grids, on ``device``."""
+    if isinstance(grids, (tuple, list)):
+        return tuple(g.to(device) for g in grids)
+    return grids.to(device)
+
+
+def gt_logits(cfg, y_true):
+    """``anchor_logits`` of an anchor grid, or of each scale of an FPN
+    tuple (its priors split evenly over the scales)."""
+    g = cfg.grid
+    if cfg.model.head == "fpn":
+        per = len(g.anchors) // cfg.model.fpn_scales
+        return tuple(anchor_logits(t, per) for t in y_true)
+    return anchor_logits(y_true, len(g.anchors))
+
+
+def anchor_loss_on_card(cfg, step, state, batch, dev, smi: str,
+                        tag: str) -> dict:
+    """The anchor family's loss (the v2 loss, or the FPN head's v3 loss)
+    with its ignore mask and IoU target, on the step's own grids and
+    augmented boxes: the call the step makes, replayed on the card and on
+    the CPU; each term and the gradient in y_pred within 1e-5."""
     from keras_object_detection_torch.train import loop
 
+    name = ("yolo_v3_loss_terms" if cfg.model.head == "fpn"
+            else "yolo_v2_loss_terms")
+    real = getattr(loop, name)
     kept = []
-    real = loop.yolo_v2_loss_terms
 
     def keep(y_true, y_pred, *args, **kwargs):
-        kept.append((y_true.detach(), y_pred.detach(),
-                     kwargs["gt_boxes"].detach(), kwargs["gt_valid"]))
+        kept.append((y_true, y_pred, args, kwargs))
         return real(y_true, y_pred, *args, **kwargs)
 
-    with unittest.mock.patch.object(loop, "yolo_v2_loss_terms", keep):
+    with unittest.mock.patch.object(loop, name, keep):
         step(state, *batch, 2)
-    g, t = cfg.grid, cfg.train
+    y_true, y_pred, args, kwargs = kept[0]
     terms, grads = [], []
     for where in (dev, "cpu"):
-        y_true, y_pred, boxes, valid = (x.to(where) for x in kept[0])
-        p = y_pred.clone().requires_grad_(True)
-        out = yolov2.yolo_v2_loss_terms(
-            y_true, p, g.num_classes, g.anchors, t.lambda_coord,
-            t.lambda_noobj, ignore_threshold=t.ignore_threshold,
-            gt_boxes=boxes, gt_valid=valid, obj_target=t.obj_target)
+        preds = [p.detach().to(where).requires_grad_(True) for p in
+                 (y_pred if isinstance(y_pred, tuple) else (y_pred,))]
+        out = real(to_device(y_true, where),
+                   tuple(preds) if isinstance(y_pred, tuple) else preds[0],
+                   *args, **{k: v.to(where) if torch.is_tensor(v) else v
+                             for k, v in kwargs.items()})
         out["total"].backward()
         terms.append({k: v.item() for k, v in out.items()})
-        grads.append(p.grad.cpu())
+        grads.append([p.grad.cpu() for p in preds])
     rel = {k: abs(terms[0][k] - terms[1][k]) / max(abs(terms[1][k]), 1e-30)
            for k in terms[1]}
-    grad_err = ((grads[0] - grads[1]).abs().max()
-                / grads[1].abs().max().clamp_min(1e-30)).item()
-    log(f"[yolov2] the v2 loss on the step's grids ({tuple(kept[0][1].shape)}, "
-        f"{int(kept[0][3].sum())} boxes) on {smi}: card " + ", ".join(
+    grad_err = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                   for a, b in zip(*grads))
+    shapes = [tuple(p.shape) for p in grads[1]]
+    log(f"[{tag}] {name} on the step's grids ({shapes}, "
+        f"{int(kwargs['gt_valid'].sum())} boxes) on {smi}: card " + ", ".join(
             f"{k} {terms[0][k]:.6f}" for k in terms[0])
         + "; CPU " + ", ".join(f"{k} {terms[1][k]:.6f}" for k in terms[1])
         + f"; largest rel {max(rel.values()):.3e}, gradient max err "
         f"{grad_err:.3e} of its largest (tolerance 1e-5 each)")
     if max(rel.values()) > 1e-5 or grad_err > 1e-5:
-        raise SystemExit("the v2 loss on the card disagrees with the CPU's")
+        raise SystemExit(f"{name} on the card disagrees with the CPU's")
     return {"terms": terms[0], "max_rel": max(rel.values()),
             "grad_err": grad_err}
 
 
-def yolov2_bn_kernels(calls: dict, smi: str) -> dict:
-    """K2 and K3 at each of the step's 21 BatchNorm inputs: within 1e-5
+def step_bn_kernels(calls: dict, smi: str, tag: str, n_bn: int,
+                    reps: tuple = (20, 5)) -> dict:
+    """K2 and K3 at each of a step's ``n_bn`` BatchNorm inputs: within 1e-5
     of the plain versions (kernel_errors), bit-equal from call to call, and
-    per call the device time (CUDA graph), the plain version's, the bound
-    and the library call's; summed over the step."""
+    per call the device time (CUDA graph of ``reps`` calls, replayed), the
+    plain version's, the bound and the library call's; summed over the
+    step."""
     from keras_object_detection_torch.ops import bn
 
-    if not (len(calls["k2"]) == len(calls["k3"]) == YOLOV2_BN
+    if not (len(calls["k2"]) == len(calls["k3"]) == n_bn
             and not calls["k4"] and not calls["k5"]):
-        raise SystemExit(f"the YOLOv2 step called K2 {len(calls['k2'])}, K3 "
+        raise SystemExit(f"the {tag} step called K2 {len(calls['k2'])}, K3 "
                          f"{len(calls['k3'])}, K4 {len(calls['k4'])}, K5 "
-                         f"{len(calls['k5'])} times, expected {YOLOV2_BN}, "
-                         f"{YOLOV2_BN}, 0, 0")
+                         f"{len(calls['k5'])} times, expected {n_bn}, "
+                         f"{n_bn}, 0, 0")
     errors = kernel_errors(calls)
     rows = {"k2": [], "k3": []}
     for name, kernel, plain in (
@@ -2733,22 +2771,22 @@ def yolov2_bn_kernels(calls: dict, smi: str) -> dict:
                    (lambda: bn_grad_library(*args[:3], args[3], ones)))
             rows[name].append({
                 "shape": list(x.shape),
-                "ms": graph_ms(lambda: kernel(*args), reps=20, replays=5),
+                "ms": graph_ms(lambda: kernel(*args), *reps),
                 "plain_ms": cuda_ms(lambda: plain(*args), 3, warmup=1),
                 "bound_ms": bn_bound_ms(tuple(x.shape), x.element_size(),
                                         name == "k3")[0],
-                "library_ms": graph_ms(lib, reps=20, replays=5)})
+                "library_ms": graph_ms(lib, *reps)})
     totals = {k: {f: sum(r[f] for r in v) for f in
                   ("ms", "plain_ms", "bound_ms", "library_ms")}
               for k, v in rows.items()}
     for k, v in rows.items():
-        log(f"[yolov2] {k.upper()} on {smi}, each of the step's {len(v)} "
+        log(f"[{tag}] {k.upper()} on {smi}, each of the step's {len(v)} "
             f"BatchNorm inputs (bf16), device ms (CUDA graph) / bound ms / "
             f"library ms: " + "; ".join(
                 f"{'x'.join(map(str, r['shape']))} {r['ms']:.5f} / "
                 f"{r['bound_ms']:.5f} / {r['library_ms']:.5f}" for r in v))
         tot = totals[k]
-        log(f"[yolov2] {k.upper()} a step: {tot['ms']:.5f} ms device, "
+        log(f"[{tag}] {k.upper()} a step: {tot['ms']:.5f} ms device, "
             f"{tot['bound_ms'] / tot['ms'] * 100:.1f} % of the bound "
             f"{tot['bound_ms']:.5f} (bytes); plain {tot['plain_ms']:.4f}; "
             f"library {tot['library_ms']:.5f}; against the plain version max "
@@ -2758,7 +2796,7 @@ def yolov2_bn_kernels(calls: dict, smi: str) -> dict:
     return {"errors": errors, "rows": rows, "totals": totals}
 
 
-def yolov2_nms_times(rows: dict, smi: str) -> dict:
+def cut_nms_times(rows: dict, smi: str, tag: str) -> dict:
     """K1 on the serving calls' cut rows (1x512 and 32x512): device time
     (CUDA graph), the plain NMS's, the bound; bit-equal to the plain NMS."""
     from keras_object_detection_torch.ops.cuda_nms import \
@@ -2779,7 +2817,7 @@ def yolov2_nms_times(rows: dict, smi: str) -> dict:
             "plain_ms": cuda_ms(lambda: batched_non_max_suppression(
                 x, 0.5, 0.4), 3, warmup=1),
             "bound_ms": bound, "bound_by": by}
-    log(f"[yolov2] K1 on the serving calls' cut rows on {smi}, device ms "
+    log(f"[{tag}] K1 on the serving calls' cut rows on {smi}, device ms "
         f"(CUDA graph) / plain ms / bound ms: " + "; ".join(
             f"{k} {v['ms']:.5f} / {v['plain_ms']:.4f} / {v['bound_ms']:.3e} "
             f"({v['bound_by']})" for k, v in out.items())
@@ -2787,21 +2825,21 @@ def yolov2_nms_times(rows: dict, smi: str) -> dict:
     return out
 
 
-def yolov2_fit(dev, smi: str) -> dict:
-    """A 2-epoch Trainer.fit of YOLOv2 from a decoded cache at 416²
-    (YOLOV2_FIT_TRAIN / _VAL images): K2/K3 21 and K4/K5 0 a step, K1 2 a
-    mAP update at N = 512; mAP in [0, 1]; the card's mAP = the CPU's on
-    the same grids (model, ground truth and noisy ground truth as
-    prediction, the latter two as logits); ground truth gives AP 1."""
+def family_fit(dev, smi: str, tag: str, base, n_train: int, n_val: int,
+               n_bn: int) -> dict:
+    """A 2-epoch Trainer.fit of ``base`` from a decoded cache at its size
+    (``n_train`` / ``n_val`` images): K2/K3 ``n_bn`` and K4/K5 0 a step, K1
+    2 a mAP update at N = max_candidates; mAP in [0, 1]; the card's mAP =
+    the CPU's on the same grids (model, ground truth and noisy ground truth
+    as prediction, the latter two as logits); ground truth gives AP 1."""
     from keras_object_detection_torch.data import YoloDataset
     from keras_object_detection_torch.ops import cuda_nms
     from keras_object_detection_torch.train import run_dataset_eval
 
-    cfg = fit_config("yolov2", base=yolov2_config())
+    cfg = fit_config(tag, base=base)
     size = cfg.model.image_size
-    train_dir, train_cache = fit_split("yolov2_train", YOLOV2_FIT_TRAIN, 21,
-                                       size)
-    val_dir, val_cache = fit_split("yolov2_val", YOLOV2_FIT_VAL, 22, size)
+    train_dir, train_cache = fit_split(f"{tag}_train", n_train, 21, size)
+    val_dir, val_cache = fit_split(f"{tag}_val", n_val, 22, size)
     d = cfg.data
     mk = lambda data, cache, train: YoloDataset(  # noqa: E731
         data, size, d.batch_size, max_boxes=d.max_boxes_per_image,
@@ -2811,17 +2849,16 @@ def yolov2_fit(dev, smi: str) -> dict:
                         mk(val_dir, val_cache, False))
     steps, map_updates = FIT_EPOCHS * len(train_ds), FIT_EPOCHS * len(val_ds)
     trainer, state, logs, counts, seconds = fit_run(cfg, train_ds, val_ds)
-    check_fit_launches("yolov2", counts, steps, map_updates, bn=YOLOV2_BN,
-                       loss=0)
+    check_fit_launches(tag, counts, steps, map_updates, bn=n_bn, loss=0)
     nms_n = {tuple(p.shape) for p in trainer.map_metric._pred}
     if nms_n != {(d.batch_size, cfg.eval.max_candidates, 6)}:
-        raise SystemExit(f"the yolov2 mAP's NMS ran at {nms_n}, not N = "
+        raise SystemExit(f"the {tag} mAP's NMS ran at {nms_n}, not N = "
                          f"{cfg.eval.max_candidates}")
     for r in logs:
         if not (np.isfinite(r["val_loss"]) and np.isfinite(r["total"])
                 and 0.0 <= r["val_mAP"] <= 1.0):
-            raise SystemExit(f"yolov2 fit, epoch {r['step']}: {r}")
-    log(f"[yolov2] fit on {smi}: " + "; ".join(
+            raise SystemExit(f"{tag} fit, epoch {r['step']}: {r}")
+    log(f"[{tag}] fit on {smi}: " + "; ".join(
         f"epoch {r['step'] + 1}: total {r['total']:.4f}, val_loss "
         f"{r['val_loss']:.4f}, val_mAP {r['val_mAP']:.6f}, "
         f"{r['images_per_s']:.1f} images/s, val {r['val_s']:.3f} s, mAP "
@@ -2830,25 +2867,30 @@ def yolov2_fit(dev, smi: str) -> dict:
     stash = []
     run_dataset_eval(cfg, trainer._eval_step, trainer.map_metric, state,
                      val_ds, with_map=False, stash=stash)
-    cpu = [(t.cpu(), p.cpu(), None if w is None else w.cpu())
-           for t, p, w in stash]
-    nb = len(YOLOV2_ANCHORS)
-    noise = lambda t: 0.3 * torch.rand(  # noqa: E731
-        t.shape, generator=torch.Generator().manual_seed(3)).to(t.device)
+    cpu = [(to_device(t, "cpu"), to_device(p, "cpu"),
+            None if w is None else w.cpu()) for t, p, w in stash]
+
+    def noisy(t):
+        noise = lambda x: 0.3 * torch.rand(  # noqa: E731
+            x.shape, generator=torch.Generator().manual_seed(3)).to(x.device)
+        logits = gt_logits(cfg, t)
+        if isinstance(logits, tuple):
+            return tuple(x + noise(x) for x in logits)
+        return logits + noise(logits)
+
     cuda_nms.LAUNCHES = 0
     checks = {}
     for what, predict in (
             ("model", None),
-            ("ground truth", lambda t, p: anchor_logits(t, nb)),
-            ("noisy ground truth", lambda t, p: anchor_logits(t, nb)
-             + noise(t))):
+            ("ground truth", lambda t, p: gt_logits(cfg, t)),
+            ("noisy ground truth", lambda t, p: noisy(t))):
         on_card, on_cpu = (map_on(cfg, dev, cpu, predict),
                            map_on(cfg, "cpu", cpu, predict))
         got, want = on_card.result(), on_cpu.result()
         aps, cpu_aps = on_card.result_per_class(), on_cpu.result_per_class()
         present = sorted(on_cpu.result_pr_curves())
         checks[what] = (got, want)
-        log(f"[yolov2] mAP of the {what} as prediction on {len(cpu)} val "
+        log(f"[{tag}] mAP of the {what} as prediction on {len(cpu)} val "
             f"batches ({len(present)} of {len(aps)} classes present): card "
             f"{got!r}, CPU {want!r}, |diff| {abs(got - want):.3e}")
         if abs(got - want) > 1e-6 or np.abs(aps - cpu_aps).max() > 1e-6:
@@ -2862,9 +2904,17 @@ def yolov2_fit(dev, smi: str) -> dict:
             "map_checks": checks, "steps": steps, "map_updates": map_updates}
 
 
-def phase_yolov2(dev, profile_dir: str = "") -> dict:
-    """YOLOv2 at full width (see the module docstring, phase 12);
-    ``profile_dir`` adds a trace of 3 of its train steps."""
+def family_phase(dev, tag: str, config, n_values: int, n_bn: int,
+                 warmup_steps: tuple, ms_sizes: dict, fit_images: tuple,
+                 profile_dir: str = "", bn_reps: tuple = (20, 5)) -> dict:
+    """One detector family at full width (phases 12 and 13 of the module
+    docstring): ``config(kernels)`` gives its configuration, ``n_values``
+    its state_dict's size, ``n_bn`` its K2/K3 launches a step; timed steps,
+    the loss on the card, K2/K3 on every call of one step, the kernel path
+    against the plain one, serving at batch 1 and 32 behind the top-k cut,
+    a 2-epoch fit of ``fit_images`` (train, val), and a step at each
+    multiscale size of ``ms_sizes`` (size: S). Prints one JSON line
+    ``{tag: ...}``; ``profile_dir`` adds a trace of 3 train steps."""
     from keras_object_detection_torch.ops import cuda_nms
     from keras_object_detection_torch.train import (create_train_state,
                                                     make_train_step,
@@ -2872,57 +2922,57 @@ def phase_yolov2(dev, profile_dir: str = "") -> dict:
 
     smi = card()
     t_phase = time.perf_counter()
-    cfg = yolov2_config()
+    cfg = config()
     b = cfg.data.batch_size
+    warmup, timed = warmup_steps
     torch.cuda.reset_peak_memory_stats(dev)
     state = create_train_state(cfg, torch.Generator().manual_seed(0))
-    n_values = sum(v.numel() for v in state.model.state_dict().values())
-    if n_values != YOLOV2_VALUES:
-        raise SystemExit(f"YOLOv2 has {n_values} values, not {YOLOV2_VALUES}")
+    values = sum(v.numel() for v in state.model.state_dict().values())
+    if values != n_values:
+        raise SystemExit(f"{tag} has {values} values, not {n_values}")
     batch = synthetic_batch(b, cfg.model.image_size,
                             cfg.data.max_boxes_per_image, dev)
     step = make_train_step(cfg)
     times, metrics, counts = time_steps(state, step, batch, seed=1,
-                                        warmup=YOLOV2_WARMUP,
-                                        steps=YOLOV2_STEPS)
+                                        warmup=warmup, steps=timed)
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     p50 = float(np.median(times))
     loss = metrics["total"].item()
-    per_step = {k: v / YOLOV2_STEPS for k, v in counts.items()}
-    want = {"bn_stats": YOLOV2_BN, "bn_grad_stats": YOLOV2_BN,
+    per_step = {k: v / timed for k, v in counts.items()}
+    want = {"bn_stats": n_bn, "bn_grad_stats": n_bn,
             "yolo_loss_forward": 0, "yolo_loss_backward": 0}
     m, g, t = cfg.model, cfg.grid, cfg.train
-    log(f"[yolov2] train on {smi}: {m.backbone} ({m.activation}) + "
-        f"passthrough={m.passthrough} {m.head} head, {m.image_size}², "
-        f"S={g.grid}, {len(g.anchors)} priors, C={g.num_classes}, "
-        f"{m.compute_dtype}, {t.optimizer}, ignore {t.ignore_threshold}, "
-        f"obj_target {t.obj_target}, bn_mode {m.bn_mode}, {n_values} "
-        f"values, batch {b}: step p50 "
+    log(f"[{tag}] train on {smi}: {m.backbone} ({m.activation}) + {m.head} "
+        f"head (passthrough={m.passthrough}, fpn_scales={m.fpn_scales}), "
+        f"{m.image_size}², S={g.grid}, {len(g.anchors)} priors, "
+        f"C={g.num_classes}, {m.compute_dtype}, {t.optimizer}, ignore "
+        f"{t.ignore_threshold}, obj_target {t.obj_target}, bn_mode "
+        f"{m.bn_mode}, {values} values, batch {b}: step p50 "
         f"{p50:.3f} ms (min {min(times):.3f}, max {max(times):.3f}), "
         f"{b / p50 * 1e3:.1f} images/s, peak device memory {peak:.3f} GiB, "
-        f"loss {loss:.4f}; launches over {YOLOV2_STEPS} steps {counts} "
+        f"loss {loss:.4f}; launches over {timed} steps {counts} "
         f"(expected a step {want})")
     if per_step != want or not np.isfinite(loss):
-        raise SystemExit(f"yolov2: launches {per_step} a step (expected "
+        raise SystemExit(f"{tag}: launches {per_step} a step (expected "
                          f"{want}), loss {loss}")
-    out = {"card": smi, "values": n_values, "p50_ms": p50,
+    out = {"card": smi, "values": values, "p50_ms": p50,
            "images_per_s": b / p50 * 1e3, "peak_gib": peak, "loss": loss,
-           "counts": counts, "steps": YOLOV2_STEPS}
+           "counts": counts, "steps": timed}
     if profile_dir:
-        profile_train(state, step, batch, profile_dir, "yolov2_train_b64")
-    out["loss_on_card"] = yolov2_loss_on_card(cfg, step, state, batch, dev,
-                                              smi)
+        profile_train(state, step, batch, profile_dir, f"{tag}_train_b{b}")
+    out["loss_on_card"] = anchor_loss_on_card(cfg, step, state, batch, dev,
+                                              smi, tag)
     calls = capture_kernel_calls(step, state, batch, 1)
-    out["bn_kernels"] = yolov2_bn_kernels(calls, smi)
+    out["bn_kernels"] = step_bn_kernels(calls, smi, tag, n_bn, bn_reps)
     del calls
     sd = state.model.state_dict()
     del state, step
     torch.cuda.empty_cache()
-    out["compare"] = compare_paths(dev, yolov2_config, "yolov2")
+    out["compare"] = compare_paths(dev, config, tag)
 
     serve = serve_variant(cfg, sd, dev, runs=(15, 10), stages=True)
     rows = serve.pop("nms_rows")
-    log(f"[yolov2] serving on {smi}: {serve['candidates']} candidates an "
+    log(f"[{tag}] serving on {smi}: {serve['candidates']} candidates an "
         f"image cut to {serve['nms_n']}; batch 1 p50 {serve['p50_ms_1']:.3f} "
         f"ms, batch 32 p50 {serve['p50_ms_32']:.3f} ms "
         f"({32 / serve['p50_ms_32'] * 1e3:.1f} images/s); stages (device "
@@ -2933,45 +2983,43 @@ def phase_yolov2(dev, profile_dir: str = "") -> dict:
         + f"; NMS kernel launches over 2 predict calls {serve['launches']}; "
         f"predict == plain NMS of the cut predict_decoded: {serve['ok']}")
     if not serve["ok"] or serve["nms_n"] != cfg.eval.max_candidates:
-        raise SystemExit("yolov2 serving failed its checks")
+        raise SystemExit(f"{tag} serving failed its checks")
     out["serve"] = serve
-    out["nms_times"] = yolov2_nms_times(rows, smi)
+    out["nms_times"] = cut_nms_times(rows, smi, tag)
     del rows, sd
     torch.cuda.empty_cache()
 
-    out["fit"] = yolov2_fit(dev, smi)
+    out["fit"] = family_fit(dev, smi, tag, config(), *fit_images, n_bn)
 
-    # YOLOv2's multiscale ends: the passthrough fold at S = 10 and 19
     state = create_train_state(cfg, torch.Generator().manual_seed(0))
-    big = synthetic_batch(b, max(YOLOV2_SIZES), cfg.data.max_boxes_per_image,
-                          dev)
+    big = synthetic_batch(b, max(ms_sizes), cfg.data.max_boxes_per_image, dev)
     out["multiscale"] = {}
-    for size, s in YOLOV2_SIZES.items():
+    for size, s in ms_sizes.items():
         grid = multiscale_grid(cfg, size)
         if grid != s:
-            raise SystemExit(f"yolov2 multiscale grid {grid} at {size}, "
+            raise SystemExit(f"{tag} multiscale grid {grid} at {size}, "
                              f"expected {s}")
         step = make_train_step(cfg, image_size=size, grid=grid)
         times, metrics, counts = time_steps(state, step, big, seed=1,
                                             warmup=1, steps=1)
         loss = metrics["total"].item()
-        log(f"[yolov2] multiscale {size}² (S={grid}) on {smi}: one step "
+        log(f"[{tag}] multiscale {size}² (S={grid}) on {smi}: one step "
             f"{times[0]:.3f} ms after one warm-up, loss {loss:.4f}, launches "
             f"{counts}")
-        if not np.isfinite(loss) or counts["bn_stats"] != YOLOV2_BN:
-            raise SystemExit(f"yolov2 multiscale step at {size} failed")
+        if not np.isfinite(loss) or counts["bn_stats"] != n_bn:
+            raise SystemExit(f"{tag} multiscale step at {size} failed")
         out["multiscale"][size] = {"ms": times[0], "loss": loss,
                                    "counts": counts}
         del step
     del state, big, batch
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
-    log(f"[yolov2] {out['seconds']:.1f} s")
+    log(f"[{tag}] {out['seconds']:.1f} s")
     bn = out["bn_kernels"]
-    print(json.dumps({"yolov2": {
-        "card": smi, "values": n_values, "p50_ms": p50,
+    print(json.dumps({tag: {
+        "card": smi, "values": values, "p50_ms": p50,
         "images_per_s": out["images_per_s"], "peak_gib": peak,
-        "loss": out["loss"], "counts": counts, "steps": YOLOV2_STEPS,
+        "loss": out["loss"], "counts": counts, "steps": timed,
         "loss_on_card": out["loss_on_card"], "compare": out["compare"],
         "bn_errors": bn["errors"], "bn_totals": bn["totals"],
         "bn_rows": bn["rows"], "serve": serve, "nms_times": out["nms_times"],
@@ -2981,20 +3029,60 @@ def phase_yolov2(dev, profile_dir: str = "") -> dict:
     return out
 
 
-def yolov2_kernel_entry(yolov2: dict, name: str) -> dict:
-    """The yolov2 phase's keys of one kernel's entry in the kernels line."""
-    fit = yolov2["fit"]
-    entry = {"launches_yolov2": yolov2["counts"].get(name, 0),
-             "launches_yolov2_steps": YOLOV2_STEPS,
-             "launches_yolov2_fit": fit["counts"].get(name, 0)}
+def phase_yolov2(dev, profile_dir: str = "") -> dict:
+    """YOLOv2 at full width (see the module docstring, phase 12)."""
+    return family_phase(dev, "yolov2", yolov2_config, YOLOV2_VALUES,
+                        YOLOV2_BN, (YOLOV2_WARMUP, YOLOV2_STEPS),
+                        YOLOV2_SIZES, (YOLOV2_FIT_TRAIN, YOLOV2_FIT_VAL),
+                        profile_dir)
+
+
+# the yolov3 phase: the port's yolov3_config() (Darknet-53 + the 3-scale FPN
+# head at 416², the paper's 9 priors, C = 20, bf16, batch 32, adam, ignore
+# 0.5, IoU objectness) with the BN-statistics kernels on
+YOLOV3_BN = 72  # K2 and K3 a step: 52 in Darknet-53, 20 in the FPN head
+# state_dict values at full width (tests/test_torch_fpn_model.py holds its
+# names and shapes against the JAX model's)
+YOLOV3_VALUES = 61_704_961
+YOLOV3_WARMUP, YOLOV3_STEPS = 3, 5
+YOLOV3_SIZES = {320: 10, 608: 19}  # the coarsest S (then 2S and 4S)
+YOLOV3_FIT_TRAIN, YOLOV3_FIT_VAL = 128, 64
+
+
+def yolov3_config(kernels: bool = True):
+    """The port's yolov3_config() (YOLOv3 as published, see its
+    docstring); ``kernels`` picks bn_mode fused (K2/K3) or flax."""
+    from keras_object_detection_torch.config import yolov3_config as base
+
+    cfg = base()
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, bn_mode="fused" if kernels else "flax"))
+
+
+def phase_yolov3(dev, profile_dir: str = "") -> dict:
+    """YOLOv3 at full width (see the module docstring, phase 13): K2/K3 at
+    72 shapes are timed as graphs of 10 calls replayed 3 times, to keep
+    the phase short."""
+    return family_phase(dev, "yolov3", yolov3_config, YOLOV3_VALUES,
+                        YOLOV3_BN, (YOLOV3_WARMUP, YOLOV3_STEPS),
+                        YOLOV3_SIZES, (YOLOV3_FIT_TRAIN, YOLOV3_FIT_VAL),
+                        profile_dir, bn_reps=(10, 3))
+
+
+def family_kernel_entry(out: dict, name: str, tag: str) -> dict:
+    """A family phase's keys of one kernel's entry in the kernels line."""
+    fit = out["fit"]
+    entry = {f"launches_{tag}": out["counts"].get(name, 0),
+             f"launches_{tag}_steps": out["steps"],
+             f"launches_{tag}_fit": fit["counts"].get(name, 0)}
     key = {"bn_stats": "k2", "bn_grad_stats": "k3"}.get(name)
     if key:
-        tot = yolov2["bn_kernels"]["totals"][key]
-        err = yolov2["bn_kernels"]["errors"][key]
-        entry.update({f"{f}_yolov2": tot[f] for f in
-                      ("ms", "plain_ms", "bound_ms", "library_ms")},
-                     max_rel_err_yolov2=err["max_rel_err"],
-                     shapes_yolov2=len(yolov2["bn_kernels"]["rows"][key]))
+        tot = out["bn_kernels"]["totals"][key]
+        err = out["bn_kernels"]["errors"][key]
+        entry.update({f"{f}_{tag}": tot[f] for f in
+                      ("ms", "plain_ms", "bound_ms", "library_ms")})
+        entry.update({f"max_rel_err_{tag}": err["max_rel_err"],
+                      f"shapes_{tag}": len(out["bn_kernels"]["rows"][key])})
     return entry
 
 
@@ -3024,7 +3112,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", default="",
                         help="write torch.profiler traces of batch-32 serving "
-                        "and of 3 flagship and 3 YOLOv2 train steps here")
+                        "and of 3 flagship, 3 YOLOv2 and 3 YOLOv3 train steps "
+                        "here")
     parser.add_argument("--parent", default="",
                         help="a checkout of another commit (the parent's tree) "
                         "whose NMS, loss and BN kernels are timed in turns "
@@ -3054,6 +3143,7 @@ def main() -> int:
     variants = phase_variants(dev)
     recipe = phase_recipe(dev)
     yolov2 = phase_yolov2(dev, args.profile)
+    yolov3 = phase_yolov3(dev, args.profile)
     phase_launches(loss, nms, bn)
     counts = train["kernels"]["counts"]
     no_library = ("no single PyTorch call computes this function")
@@ -3096,12 +3186,14 @@ def main() -> int:
                                for name, v in variants.items()}
     k1["launches_recipe_fit"] = {f"steps_per_dispatch_{k}": v["counts"]["nms"]
                                  for k, v in recipe["fit"].items()}
-    k1.update(launches_yolov2=yolov2["serve"]["launches"],
-              launches_yolov2_fit=yolov2["fit"]["counts"]["nms"],
-              launches_yolov2_fit_map_updates=yolov2["fit"]["map_updates"])
-    for name, t in yolov2["nms_times"].items():
-        k1.update({f"{f}_yolov2_{name}": t[f]
-                   for f in ("ms", "plain_ms", "bound_ms", "bound_by")})
+    for tag, out in (("yolov2", yolov2), ("yolov3", yolov3)):
+        k1.update({f"launches_{tag}": out["serve"]["launches"],
+                   f"launches_{tag}_fit": out["fit"]["counts"]["nms"],
+                   f"launches_{tag}_fit_map_updates": out["fit"]["map_updates"],
+                   f"candidates_{tag}": out["serve"]["candidates"]})
+        for name, t in out["nms_times"].items():
+            k1.update({f"{f}_{tag}_{name}": t[f]
+                       for f in ("ms", "plain_ms", "bound_ms", "bound_by")})
     kernels = [k1]
     for name, key, line in (("yolo_loss_forward", "forward", 107),
                             ("yolo_loss_backward", "backward", 149)):
@@ -3123,7 +3215,8 @@ def main() -> int:
                                       for v, out in variants.items()}
         entry.update(recipe_kernel_entry(recipe, name, "k4" if key == "forward"
                                          else "k5"))
-        entry.update(yolov2_kernel_entry(yolov2, name))
+        entry.update(family_kernel_entry(yolov2, name, "yolov2"))
+        entry.update(family_kernel_entry(yolov3, name, "yolov3"))
         if "parent" in lt:
             entry.update(parent_ms=lt["parent"]["ms"],
                          parent_call_ms=lt["parent"]["call_ms"],
@@ -3172,7 +3265,8 @@ def main() -> int:
             "shape_gap_dense_2d": list(bn["groups"]["gap_dense_2d"][0]),
             **recipe_kernel_entry(recipe, name, "k2" if key == "stats"
                                   else "k3"),
-            **yolov2_kernel_entry(yolov2, name)})
+            **family_kernel_entry(yolov2, name, "yolov2"),
+            **family_kernel_entry(yolov3, name, "yolov3")})
     log(f"[train] kernels path p50 {train['kernels']['p50_ms']:.3f} ms, "
         f"{train['kernels']['images_per_s']:.1f} images/s; plain path p50 "
         f"{train['plain']['p50_ms']:.3f} ms, "

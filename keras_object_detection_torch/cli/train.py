@@ -22,6 +22,11 @@ Examples:
       --anchors "0.1017,0.1332;0.2456,0.3084;0.3889,0.6230" \\
       --ignore-threshold 0.6 --obj-target iou
 
+  # YOLOv3: Darknet-53 + the 3-scale FPN head at 416, the paper's 9 priors
+  # (--anchors with 9 priors, from cli.kmeans_anchors --k 9, refits them)
+  python -m keras_object_detection_torch.cli.train --data-dir voc/ \\
+      --preset yolov3
+
 Writes ``config.json`` beside the checkpoints (``cli.evaluate`` reads it),
 resumes from the latest checkpoint with ``--resume``, and evaluates the best
 checkpoint on ``--test-dir`` after the fit. A flag whose feature is not
@@ -47,7 +52,8 @@ def parse_args(argv=None):
     p.add_argument("--test-dir")
     p.add_argument("--preset", choices=["tiny", "voc", "yolov3"], default="voc",
                    help="tiny (CPU-runnable), voc (the 448 Darknet-24 "
-                        "flagship); yolov3 is not ported yet (ROADMAP 1.11)")
+                        "flagship), yolov3 (416 Darknet-53 + the 3-scale FPN "
+                        "head)")
     p.add_argument("--backbone",
                    choices=["darknet24", "darknet19", "darknet53",
                             "darknet_tiny", "darknet_micro", "vgg16",
@@ -56,8 +62,9 @@ def parse_args(argv=None):
                                       "anchor", "fpn"])
     p.add_argument("--anchors", metavar="W,H;W,H;...",
                    help="anchor priors in image ratios for --head anchor "
-                        "(fit with python -m "
-                        "keras_object_detection_torch.cli.kmeans_anchors)")
+                        "or fpn (fit with python -m "
+                        "keras_object_detection_torch.cli.kmeans_anchors; fpn "
+                        "needs a multiple of its scale count, split by area)")
     p.add_argument("--image-size", type=int)
     p.add_argument("--num-classes", type=int)
     p.add_argument("--batch-size", type=int)
@@ -116,12 +123,12 @@ def parse_args(argv=None):
                    help="split each batch into N microbatches (summed "
                         "gradients, one update)")
     p.add_argument("--ignore-threshold", type=float, metavar="IOU",
-                   help="anchor head: exempt unassigned slots whose decoded "
-                        "prediction overlaps any GT above this IoU from the "
-                        "no-object loss (darknet v2 uses 0.6)")
+                   help="anchor/fpn heads: exempt unassigned slots whose "
+                        "decoded prediction overlaps any GT above this IoU "
+                        "from the no-object loss (darknet v2 uses 0.6)")
     p.add_argument("--obj-target", choices=["one", "iou"],
-                   help="anchor head: assigned-slot confidence target (iou = "
-                        "darknet's live-IoU objectness)")
+                   help="anchor/fpn heads: assigned-slot confidence target "
+                        "(iou = darknet's live-IoU objectness)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu to train on the CPU)")
     return p.parse_args(argv)
@@ -129,9 +136,6 @@ def parse_args(argv=None):
 
 def check_flags(args) -> None:
     """Raise on a flag whose feature the port does not have yet."""
-    if args.preset == "yolov3":
-        raise NotImplementedError("--preset yolov3 is not ported yet "
-                                  "(ROADMAP 1.11)")
     for name, item in UNPORTED_FLAGS.items():
         if getattr(args, name) is not None:
             raise NotImplementedError(f"--{name.replace('_', '-')} is not "
@@ -148,8 +152,8 @@ def build_config(args):
     """The preset with the flags applied (the JAX CLI's ``build_config``)."""
     from keras_object_detection_torch import config as cfglib
 
-    cfg = {"tiny": cfglib.tiny_cpu_config, "voc": cfglib.voc_full_config}[
-        args.preset]()
+    cfg = {"tiny": cfglib.tiny_cpu_config, "voc": cfglib.voc_full_config,
+           "yolov3": cfglib.yolov3_config}[args.preset]()
 
     def over(obj, **kw):
         kw = {k: v for k, v in kw.items() if v is not None}

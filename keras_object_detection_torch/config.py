@@ -22,7 +22,8 @@ class GridConfig:
     grid: int = 7
     num_boxes: int = 2
     num_classes: int = 20
-    # Anchor priors (w, h) in image ratios for head="anchor" (YOLOv2 family).
+    # Anchor priors (w, h) in image ratios for head="anchor" (YOLOv2) and
+    # head="fpn" (YOLOv3).
     anchors: Tuple[Tuple[float, float], ...] = ()
 
     @property
@@ -51,12 +52,13 @@ class GridConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    # darknet24 | darknet19 | darknet_tiny | darknet_micro | vgg16 |
-    # mobilenetv2 (darknet53 is ROADMAP 1.11). darknet19 + head="anchor" +
-    # passthrough + leaky_relu at 416 is the YOLOv2 of arXiv:1612.08242.
+    # darknet24 | darknet19 | darknet53 | darknet_tiny | darknet_micro |
+    # vgg16 | mobilenetv2. darknet19 + head="anchor" + passthrough +
+    # leaky_relu at 416 is the YOLOv2 of arXiv:1612.08242; darknet53 +
+    # head="fpn" the YOLOv3 of arXiv:1804.02767 (yolov3_config)
     backbone: str = "darknet24"
-    # conv | gap_dense | flatten_dense | anchor (GridConfig.anchors; fpn is
-    # ROADMAP 1.11)
+    # conv | gap_dense | flatten_dense | anchor | fpn (the last two need
+    # GridConfig.anchors; fpn splits them over fpn_scales scales)
     head: str = "conv"
     image_size: int = 448
     # Activations in this dtype; parameters and BN statistics stay float32.
@@ -162,8 +164,8 @@ class TrainConfig:
     use_pallas_loss: bool = False
     # mse | diou | ciou | alpha_iou (the last three on the plain loss only)
     box_loss_mode: str = "mse"
-    # head="anchor" only (losses/yolov2.py): exempt unassigned slots whose
-    # decoded box overlaps a ground truth above this IoU (darknet v2: 0.6),
+    # head="anchor" / "fpn" only (losses/yolov2.py): exempt unassigned slots
+    # whose decoded box overlaps a ground truth above this IoU (v2: 0.6),
     # and the assigned slots' objectness target, "one" or the live IoU
     ignore_threshold: Optional[float] = None
     obj_target: str = "one"
@@ -233,7 +235,7 @@ class Config:
                 if dataclasses.is_dataclass(ftype) and isinstance(v, dict):
                     kwargs[k] = build(ftype, v)
                 elif isinstance(v, list):
-                    kwargs[k] = tuple(v)
+                    kwargs[k] = _tuples(v)
                 else:
                     kwargs[k] = v
             return tp(**kwargs)
@@ -246,6 +248,12 @@ class Config:
             mesh=build(MeshConfig, d.get("mesh", {})),
             eval=build(EvalConfig, d.get("eval", {})),
         )
+
+
+def _tuples(v):
+    """JSON lists as tuples, nested ones too (``GridConfig.anchors``), so
+    that a loaded config equals the one built in Python."""
+    return tuple(_tuples(x) for x in v) if isinstance(v, list) else v
 
 
 OPTIMIZERS = ("adam", "nadam", "sgd", "adamw", "sgdw")
@@ -320,6 +328,34 @@ def test_model_config() -> Config:
         model=ModelConfig(backbone="mobilenetv2", head="gap_dense",
                           image_size=448, head_dense_units=4096,
                           head_batchnorm=False),
+    )
+
+
+# The YOLOv3 416-model's 9 priors (arXiv:1804.02767 §2.3, pixels of the
+# 416 input) as image ratios; core.fpn.partition_anchors splits them by area
+# over the 3 scales.
+YOLOV3_ANCHORS_416 = tuple(
+    (w / 416.0, h / 416.0)
+    for (w, h) in ((10, 13), (16, 30), (33, 23), (30, 61), (62, 45),
+                   (59, 119), (116, 90), (156, 198), (373, 326)))
+
+
+def yolov3_config(train_dir: str = "", val_dir: str = "",
+                  test_dir: str = "", num_classes: int = 20) -> Config:
+    """YOLOv3 (arXiv:1804.02767): Darknet-53 + the 3-scale FPN head at 416²
+    (grids 13 / 26 / 52), the paper's 9 priors, LeakyReLU, batch 32, adam,
+    ignore threshold 0.5 and IoU objectness. Refit the priors to a dataset
+    with ``python -m keras_object_detection_torch.cli.kmeans_anchors --k
+    9``."""
+    return Config(
+        grid=GridConfig(grid=13, num_boxes=2, num_classes=num_classes,
+                        anchors=YOLOV3_ANCHORS_416),
+        model=ModelConfig(backbone="darknet53", head="fpn", fpn_scales=3,
+                          image_size=416, activation="leaky_relu"),
+        data=DataConfig(train_dir=train_dir, val_dir=val_dir,
+                        test_dir=test_dir, batch_size=32),
+        train=TrainConfig(optimizer="adam", ignore_threshold=0.5,
+                          obj_target="iou"),
     )
 
 

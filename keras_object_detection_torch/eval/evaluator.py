@@ -3,7 +3,8 @@
 ``load_serving_state`` and ``Evaluator``).
 
 ``InferenceModel``: uint8 NHWC images -> /255 -> ``YoloV1`` ->
-``decode_grid`` (the anchor head: ``decode_anchor_grid``) ->
+``decode_grid`` (the anchor head: ``decode_anchor_grid``; the FPN head:
+``decode_fpn_grids`` over its per-scale grids) ->
 ``auto_batched_non_max_suppression``, which cuts candidate sets above
 ``EvalConfig.max_candidates`` to the top-K and on the GPU is the
 hand-written NMS kernel. ``Evaluator``: dataset loss and mAP through the
@@ -25,6 +26,7 @@ import torch
 
 from keras_object_detection_torch.config import Config
 from keras_object_detection_torch.core.anchors import decode_anchor_grid
+from keras_object_detection_torch.core.fpn import decode_fpn_grids
 from keras_object_detection_torch.core.grid import decode_grid
 from keras_object_detection_torch.data.augment import preprocess_eval_batch
 from keras_object_detection_torch.data.pipeline import YoloDataset
@@ -48,10 +50,12 @@ class InferenceModel:
     ``device=None`` means ``"cuda"`` and raises when no GPU is present; only
     an explicit ``device="cpu"`` serves on the CPU (with the plain NMS).
     Results are tensors on ``device``: ``predict_raw`` the ``(B, S, S,
-    depth)`` grids, ``predict_decoded`` the ``(B, N, 6)`` candidates
-    (N = S*S, S*S*B_anchors for the anchor head, twice that with
-    ``tta="hflip"``), ``predict`` the NMS rows and survivor mask (N cut to
-    ``max_candidates`` first where it is larger).
+    depth)`` grids (the FPN head: a tuple of them, coarse -> fine),
+    ``predict_decoded`` the ``(B, N, 6)`` candidates (N = S*S, S*S*B_anchors
+    for the anchor head, the sum over the scales of S_s²*B_s for the FPN
+    head, twice that with ``tta="hflip"``), ``predict`` the NMS rows and
+    survivor mask (N cut to ``max_candidates`` first where it is
+    larger).
     """
 
     def __init__(self, config: Config, state_dict: Mapping[str, torch.Tensor],
@@ -75,20 +79,24 @@ class InferenceModel:
     def _images(self, images_u8: Images) -> torch.Tensor:
         return torch.as_tensor(images_u8).to(self.device)
 
-    def _forward(self, images_u8: torch.Tensor) -> torch.Tensor:
-        g = self.config.grid
+    def _forward(self, images_u8: torch.Tensor):
+        g, head = self.config.grid, self.config.model.head
         y = self.model(preprocess_eval_batch(images_u8))
-        return y.reshape(-1, g.grid, g.grid,  # flat heads too
-                         g.head_depth(self.config.model.head))
+        if head == "fpn":
+            return y
+        return y.reshape(-1, g.grid, g.grid, g.head_depth(head))  # flat heads
 
-    def _decode(self, grid: torch.Tensor) -> torch.Tensor:
+    def _decode(self, grid) -> torch.Tensor:
         g = self.config.grid
+        if self.config.model.head == "fpn":
+            return decode_fpn_grids(grid, g.num_classes, g.anchors, g.grid,
+                                    self.config.model.fpn_scales)
         if self.config.model.head == "anchor":
             return decode_anchor_grid(grid, g.num_classes, g.anchors, g.grid)
         return decode_grid(grid, g.num_classes, g.num_boxes, g.grid)
 
     @torch.inference_mode()
-    def predict_raw(self, images_u8: Images) -> torch.Tensor:
+    def predict_raw(self, images_u8: Images):
         return self._forward(self._images(images_u8))
 
     @torch.inference_mode()

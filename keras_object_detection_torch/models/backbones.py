@@ -1,7 +1,6 @@
 """Backbones and their registry (counterpart of
 ``keras_object_detection_tpu/models/backbones.py``): the darknet tables,
-``VGG16Backbone`` and ``MobileNetV2Backbone``. Darknet-53 (ROADMAP 1.11)
-raises until its slice lands.
+``VGG16Backbone`` and ``MobileNetV2Backbone``.
 
 Each backbone takes an NCHW tensor in the model's compute dtype and returns
 its features in that dtype; parameters are float32.
@@ -10,7 +9,7 @@ its features in that dtype; parameters are float32.
 from __future__ import annotations
 
 import functools
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -69,10 +68,18 @@ class VGG16Backbone(nn.Module):
             x = F.relu(conv_same(self.convs[k], x))
         return max_pool_2x2(x)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for fn in self.segments():
-            x = fn(x)
-        return x
+    def forward(self, x: torch.Tensor,
+                apply: Optional[Callable] = None) -> torch.Tensor:
+        return _run(self.segments(), x, apply)
+
+
+def _run(segments: List[Callable], x: torch.Tensor,
+         apply: Optional[Callable]) -> torch.Tensor:
+    """``segments`` in turn, each through ``apply(segment, x)`` (default:
+    called), as ``DarknetBackbone.forward`` runs them."""
+    for fn in segments:
+        x = fn(x) if apply is None else apply(fn, x)
+    return x
 
 
 class _InvertedResidual(nn.Module):
@@ -155,19 +162,19 @@ class MobileNetV2Backbone(nn.Module):
     def _last(self, x: torch.Tensor) -> torch.Tensor:
         return relu6(self.bns[1](self.convs[1](x)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for fn in self.segments():
-            x = fn(x)
-        return x
+    def forward(self, x: torch.Tensor,
+                apply: Optional[Callable] = None) -> torch.Tensor:
+        return _run(self.segments(), x, apply)
 
 
 def _darknet(name: str, default_activation: str = "relu"):
     def build(dtype: torch.dtype, activation: str = default_activation, *,
               generator: torch.Generator, bn_mode: str = "flax",
-              return_tap: bool = False) -> DarknetBackbone:
+              return_tap: bool = False,
+              return_taps: int = 0) -> DarknetBackbone:
         return DarknetBackbone(ARCHITECTURES[name], activation, dtype,
                                generator=generator, bn_mode=bn_mode,
-                               return_tap=return_tap)
+                               return_tap=return_tap, return_taps=return_taps)
 
     return build
 
@@ -183,23 +190,16 @@ def _mobilenetv2(dtype: torch.dtype, activation: str = "relu", *,
     return MobileNetV2Backbone(dtype, generator=generator, bn_mode=bn_mode)
 
 
-def _not_ported(name: str, item: str):
-    def build(*args, **kwargs):
-        raise NotImplementedError(
-            f"backbone {name!r} is not ported yet (ROADMAP {item})")
-
-    return build
-
-
 # ``activation`` applies to the darknet family; VGG16 and MobileNetV2 keep
-# their own (ReLU, relu6). darknet19's LeakyReLU default is what the registry
-# gives a caller that passes none; YoloV1 always passes the config's.
+# their own (ReLU, relu6). darknet19's and darknet53's LeakyReLU default is
+# what the registry gives a caller that passes none; YoloV1 always passes the
+# config's.
 BACKBONES = {
     "darknet24": _darknet("darknet24"),
     "darknet19": _darknet("darknet19", "leaky_relu"),
     "darknet_tiny": _darknet("darknet_tiny"),
     "darknet_micro": _darknet("darknet_micro"),
-    "darknet53": _not_ported("darknet53", "1.11"),
+    "darknet53": _darknet("darknet53", "leaky_relu"),
     "vgg16": _vgg16,
     "mobilenetv2": _mobilenetv2,
 }

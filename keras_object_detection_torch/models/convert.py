@@ -46,6 +46,8 @@ _LAYOUT = {
                             (r"Conv_0", "conv", "conv")]),
     "PassthroughConvHead_0": ("head", _CONV_BLOCK + [
         (r"Conv_0", "conv", "conv")]),
+    "FPNHead_0": ("head", _CONV_BLOCK + [
+        (r"Conv_(\d+)", r"convs.\1", "conv")]),
     "GAPDenseHead_0": ("head", [(r"Dense_([01])", r"denses.\1", "dense"),
                                 (r"BatchNorm_0", "bn", "bn")]),
     "MultiConvDenseHead_0": ("head", _CONV_BLOCK + [

@@ -1,12 +1,13 @@
 """Detection heads and the assembled model (counterpart of
 ``keras_object_detection_tpu/models/yolo.py`` ``ConvHead``,
-``PassthroughConvHead``, ``GAPDenseHead``, ``MultiConvDenseHead``,
-``YoloV1`` and ``build_model`` for the v1 heads and the YOLOv2 anchor head).
+``PassthroughConvHead``, ``FPNHead``, ``GAPDenseHead``,
+``MultiConvDenseHead``, ``YoloV1`` and ``build_model``).
 
 The model takes NHWC float images and returns the grid-shaped
 ``(B, S, S, depth)`` output, like the JAX package (or, with
 ``flat_output``, ``(B, S*S*depth)``); inside it runs NCHW. ``depth`` is
 ``C + 5B`` for the v1 heads and ``B_anchors * (5 + C)`` for the anchor head.
+The FPN head returns a tuple of such grids, one a scale, coarse -> fine.
 """
 
 from __future__ import annotations
@@ -19,15 +20,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from keras_object_detection_torch.config import Config
+from keras_object_detection_torch.core.fpn import partition_anchors
 from keras_object_detection_torch.models.backbones import BACKBONES
 from keras_object_detection_torch.models.layers import (BatchNorm, Conv2d,
                                                         ConvBlock, Dense,
                                                         Dropout, remat,
                                                         space_to_depth)
 
-# head -> the ROADMAP item that ports it
-_HEADS_TO_PORT = {"fpn": "1.11"}
-HEADS = ("conv", "gap_dense", "flatten_dense", "anchor")
+HEADS = ("conv", "gap_dense", "flatten_dense", "anchor", "fpn")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -97,6 +97,75 @@ class PassthroughConvHead(nn.Module):
         x = torch.cat([x, tap.to(x.dtype)], dim=1)
         x = self.blocks[2](x.contiguous(memory_format=torch.channels_last))
         return self.conv(x.float()).permute(0, 2, 3, 1).contiguous()
+
+
+class FPNHead(nn.Module):
+    """YOLOv3's multi-scale head (arXiv:1804.02767 §2.3), fed the backbone's
+    features and its ``num_scales - 1`` pyramid taps (coarse -> fine). Per
+    scale at ``f`` channels (``base_filters``, halved a scale): a 5-conv
+    1x1 / 3x3 trunk (``f``, ``2f``, ``f``, ``2f``, ``f``), a 3x3 ``2f``
+    block and a float32 1x1 conv to ``cell_depth``; between scales a 1x1
+    ``f / 2`` route block, a nearest 2x upsample and the concatenation
+    ``[upsampled, tap]`` on channels. All blocks SAME, stride 1, in the
+    model's ``activation``. ``blocks`` are flax's ``ConvBlock_0..`` in its
+    creation order (per scale 5 trunk, the prediction block, the route
+    block but after the last scale), ``convs[s]`` its ``Conv_s``.
+    ``forward`` returns the per-scale NHWC float32 grids, coarse -> fine."""
+
+    def __init__(self, in_channels: int, tap_channels: Sequence[int],
+                 cell_depth: int, num_scales: int = 3, base_filters: int = 512,
+                 activation: str = "leaky_relu",
+                 dtype: torch.dtype = torch.float32, *,
+                 generator: torch.Generator, bn_mode: str = "flax"):
+        super().__init__()
+        if len(tap_channels) != num_scales - 1:
+            raise ValueError(
+                f"FPNHead with {num_scales} scales needs {num_scales - 1} "
+                f"backbone taps, got {len(tap_channels)}")
+        self.num_scales = num_scales
+        kw = dict(padding="SAME", activation=activation, dtype=dtype,
+                  generator=generator, bn_mode=bn_mode)
+        self.blocks = nn.ModuleList()
+        self.convs = nn.ModuleList()
+        channels, f = in_channels, base_filters
+        for s in range(num_scales):
+            for k in (1, 3, 1, 3, 1):
+                width = f if k == 1 else 2 * f
+                self.blocks.append(ConvBlock(channels, width, k, **kw))
+                channels = width
+            self.blocks.append(ConvBlock(f, 2 * f, 3, **kw))
+            self.convs.append(Conv2d(2 * f, cell_depth, 1, generator))
+            if s + 1 < num_scales:
+                f //= 2
+                self.blocks.append(ConvBlock(channels, f, 1, **kw))
+                channels = f + tap_channels[s]
+
+    def forward(self, x: torch.Tensor, taps: Sequence[torch.Tensor]):
+        if len(taps) != self.num_scales - 1:
+            raise ValueError(
+                f"FPNHead with {self.num_scales} scales needs "
+                f"{self.num_scales - 1} backbone taps, got {len(taps)}")
+        blocks = iter(self.blocks)
+        outs = []
+        for s in range(self.num_scales):
+            for _ in range(5):
+                x = next(blocks)(x)
+            y = next(blocks)(x)
+            outs.append(self.convs[s](y.float()).permute(0, 2, 3, 1)
+                        .contiguous())
+            if s + 1 < self.num_scales:
+                # nearest 2x, as JAX's jnp.repeat twice: exact
+                x = F.interpolate(next(blocks)(x), scale_factor=2,
+                                  mode="nearest")
+                tap = taps[s]
+                if tap.shape[2:] != x.shape[2:]:
+                    raise ValueError(
+                        f"FPN tap {s} has spatial size {tap.shape[2]}, "
+                        f"expected {x.shape[2]} (backbone taps must be "
+                        "consecutive 2x-resolution steps)")
+                x = torch.cat([x, tap.to(x.dtype)], dim=1).contiguous(
+                    memory_format=torch.channels_last)
+        return tuple(outs)
 
 
 class GAPDenseHead(nn.Module):
@@ -213,7 +282,11 @@ class YoloV1(nn.Module):
 
     ``head="anchor"`` emits ``len(anchors) * (5 + C)`` a cell through
     ``ConvHead`` or, with ``passthrough`` (darknet backbones only),
-    ``PassthroughConvHead`` fed the backbone's tap."""
+    ``PassthroughConvHead`` fed the backbone's tap. ``head="fpn"`` (darknet
+    backbones only) splits the anchors over ``fpn_scales`` scales
+    (``core.fpn.partition_anchors``) and returns ``FPNHead``'s tuple of
+    ``(B, S_s, S_s, B_s * (5 + C))`` grids, the backbone giving it its
+    ``fpn_scales - 1`` pyramid taps."""
 
     def __init__(self, backbone: str = "darknet24", head: str = "conv",
                  grid: int = 7, num_classes: int = 20, num_boxes: int = 2,
@@ -223,15 +296,24 @@ class YoloV1(nn.Module):
                  head_dense_units: int = 4960, head_batchnorm: bool = True,
                  flat_output: bool = False, freeze_backbone: bool = False,
                  remat_policy: Optional[str] = None, anchors: tuple = (),
-                 passthrough: bool = False):
+                 passthrough: bool = False, fpn_scales: int = 3):
         super().__init__()
         self.remat_policy = remat_policy
         if head not in HEADS:
-            if head in _HEADS_TO_PORT:
-                raise NotImplementedError(
-                    f"head {head!r} is not ported yet "
-                    f"(ROADMAP {_HEADS_TO_PORT[head]})")
             raise ValueError(f"unknown head {head!r}; options: {HEADS}")
+        if head == "fpn":
+            if not anchors:
+                raise ValueError(
+                    "head='fpn' requires GridConfig.anchors (fit "
+                    "3*num_scales with python -m "
+                    "keras_object_detection_torch.cli.kmeans_anchors)")
+            per = len(partition_anchors(anchors, fpn_scales)[0])
+            if passthrough:
+                raise ValueError("passthrough is a YOLOv2 anchor-head knob; "
+                                 "the fpn head has its own lateral taps")
+            if not backbone.startswith("darknet"):
+                raise ValueError(f"head='fpn' supports darknet backbones "
+                                 f"only (pyramid taps), got {backbone!r}")
         if passthrough:
             if head != "anchor":
                 raise ValueError("passthrough requires head='anchor'")
@@ -246,13 +328,22 @@ class YoloV1(nn.Module):
         self.flat_output = flat_output
         self.freeze_backbone = freeze_backbone
         self.passthrough = passthrough
+        self.fpn = head == "fpn"
+        taps = ({"return_tap": True} if passthrough else
+                {"return_taps": fpn_scales - 1} if self.fpn else {})
         self.backbone = BACKBONES[backbone](
             compute_dtype, activation, generator=generator, bn_mode=bn_mode,
-            **({"return_tap": True} if passthrough else {}))
+            **taps)
         depth = (len(anchors) * (5 + num_classes) if head == "anchor"
+                 else per * (5 + num_classes) if self.fpn
                  else num_classes + 5 * num_boxes)
         channels = self.backbone.out_channels
-        if passthrough:
+        if self.fpn:
+            self.head = FPNHead(channels, self.backbone.tap_channels, depth,
+                                fpn_scales, activation=activation,
+                                dtype=compute_dtype, generator=generator,
+                                bn_mode=bn_mode)
+        elif passthrough:
             self.head = PassthroughConvHead(
                 channels, self.backbone.tap_channels, depth,
                 passthrough_block(backbone, image_size, grid), grid,
@@ -289,8 +380,7 @@ class YoloV1(nn.Module):
             self.backbone.eval()
         return self
 
-    def forward(self, images: torch.Tensor,
-                dropout: DropoutRng = None) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, dropout: DropoutRng = None):
         # NHWC -> NCHW view: its strides are channels_last, which the convs keep
         x = images.to(self.compute_dtype).permute(0, 3, 1, 2)
         x = x.contiguous(memory_format=torch.channels_last)
@@ -300,20 +390,17 @@ class YoloV1(nn.Module):
             with torch.no_grad():
                 feats = self.backbone(x)
         elif policy:
-            # the tap is the input of the backbone's tap segment: a remat
-            # boundary, kept once
-            tap = None
-            for i, fn in enumerate(self.backbone.segments()):
-                if i == getattr(self.backbone, "tap_segment", None):
-                    tap = x
-                x = remat(fn, self, policy, x)
-            feats = (x, tap) if self.passthrough else x
+            # each segment recomputed in the backward; a tap is the input of
+            # its segment: a remat boundary, kept once
+            feats = self.backbone(x, lambda fn, x: remat(fn, self, policy, x))
         else:
             feats = self.backbone(x)
-        x, tap = feats if self.passthrough else (feats, None)
-        args = (x, tap) if self.passthrough else (x, dropout)
+        # (x, tap) with passthrough, (x, taps) with the FPN head
+        args = feats if self.passthrough or self.fpn else (feats, dropout)
         y = remat(self.head, self, policy, *args) if policy else self.head(*args)
-        return y.reshape(y.shape[0], -1) if self.flat_output else y
+        if self.flat_output and not self.fpn:
+            return y.reshape(y.shape[0], -1)
+        return y
 
 
 def build_model(config: Config,
@@ -335,5 +422,6 @@ def build_model(config: Config,
                    freeze_backbone=m.freeze_backbone,
                    remat_policy=(("dots" if m.remat_policy == "dots" else "full")
                                  if m.remat else None),
-                   anchors=g.anchors, passthrough=m.passthrough)
+                   anchors=g.anchors, passthrough=m.passthrough,
+                   fpn_scales=m.fpn_scales)
     return model.eval()

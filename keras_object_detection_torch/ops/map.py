@@ -30,6 +30,8 @@ import torch
 from keras_object_detection_torch.core.anchors import (decode_anchor_grid,
                                                        decode_anchor_targets)
 from keras_object_detection_torch.core.boxes import iou_cxcywh
+from keras_object_detection_torch.core.fpn import (decode_fpn_grids,
+                                                   decode_fpn_targets)
 from keras_object_detection_torch.core.grid import decode_grid
 from keras_object_detection_torch.ops.cuda_nms import \
     auto_batched_non_max_suppression
@@ -152,7 +154,10 @@ class MeanAveragePrecision:
     """Streaming mAP: ``update_state(y_true, y_pred)`` per batch of
     ``(B, S, S, C + 5B)`` grids (with ``anchors``, ``(B, S, S, B_anchors *
     (5 + C))`` anchor grids, decoded by ``decode_anchor_targets`` and
-    ``decode_anchor_grid``), then ``result()``.
+    ``decode_anchor_grid``; with ``fpn_scales`` too, tuples of per-scale
+    anchor grids, coarse -> fine with ``grid`` the coarsest, decoded by
+    ``decode_fpn_targets`` and ``decode_fpn_grids`` into one candidate set),
+    then ``result()``.
 
     ``update_state`` decodes both grids and runs NMS on the predictions and,
     with ``nms_on_targets`` (the reference's behaviour), on the targets too:
@@ -160,9 +165,9 @@ class MeanAveragePrecision:
     Without it the targets are only filtered by ``conf > conf_threshold``.
     ``max_candidates`` cuts larger candidate sets to the top-K by confidence
     first. ``image_valid`` drops padded images of a partial batch. The box
-    sets stay on the device; the ``result*`` methods read back once.
-
-    The FPN layout is not ported yet (ROADMAP 1.11).
+    sets stay on the device; the ``result*`` methods read back once. As in
+    JAX, a prior count that ``fpn_scales`` does not divide raises at the
+    first update (``partition_anchors``).
     """
 
     def __init__(self, num_classes: int, num_boxes: int = 2, grid: int = 7,
@@ -170,9 +175,7 @@ class MeanAveragePrecision:
                  map_iou_threshold: float = 0.5, nms_on_targets: bool = True,
                  anchors: tuple = (), fpn_scales: int = 0,
                  max_candidates: int = 512):
-        if fpn_scales:
-            raise NotImplementedError("the FPN layout of MeanAveragePrecision "
-                                      "is not ported yet (ROADMAP 1.11)")
+        self._fpn_scales = fpn_scales
         self._anchors = tuple(tuple(a) for a in anchors or ())
         self._num_classes = num_classes
         self._num_boxes = num_boxes
@@ -199,17 +202,26 @@ class MeanAveragePrecision:
     def update_state(self, y_true, y_pred,
                      image_valid: Optional[torch.Tensor] = None) -> None:
         """Accumulate one batch. ``y_true`` and ``y_pred`` (tensors or
-        arrays) stay on their device; ``image_valid`` is an optional
-        ``(batch,)`` mask of the real images."""
-        y_pred = torch.as_tensor(y_pred)
-        y_true = torch.as_tensor(y_true).to(y_pred.device)
+        arrays; with ``fpn_scales``, sequences of them) stay on their
+        device; ``image_valid`` is an optional ``(batch,)`` mask of the real
+        images."""
         c, b, s = self._num_classes, self._num_boxes, self._grid
-        if self._anchors:
-            tb = decode_anchor_targets(y_true, c, self._anchors, s)
-            pb = decode_anchor_grid(y_pred, c, self._anchors, s)
+        if self._fpn_scales:
+            y_pred = [torch.as_tensor(p) for p in y_pred]
+            y_true = [torch.as_tensor(t).to(y_pred[0].device) for t in y_true]
+            tb = decode_fpn_targets(y_true, c, self._anchors, s,
+                                    self._fpn_scales)
+            pb = decode_fpn_grids(y_pred, c, self._anchors, s,
+                                  self._fpn_scales)
         else:
-            tb = decode_grid(y_true, c, b, s)
-            pb = decode_grid(y_pred, c, b, s)
+            y_pred = torch.as_tensor(y_pred)
+            y_true = torch.as_tensor(y_true).to(y_pred.device)
+            if self._anchors:
+                tb = decode_anchor_targets(y_true, c, self._anchors, s)
+                pb = decode_anchor_grid(y_pred, c, self._anchors, s)
+            else:
+                tb = decode_grid(y_true, c, b, s)
+                pb = decode_grid(y_pred, c, b, s)
         if self._nms_on_targets:
             tboxes, tvalid = self._nms(tb)
         else:

@@ -1,6 +1,6 @@
 """Training (counterpart of ``keras_object_detection_tpu/train/loop.py`` for
-the v1 heads and the YOLOv2 anchor head): the train step, the eval step and
-the ``Trainer``.
+the v1 heads, the YOLOv2 anchor head and the YOLOv3 FPN head): the train
+step, the eval step and the ``Trainer``.
 
     state = create_train_state(cfg, generator, device)
     step = make_train_step(cfg)
@@ -8,10 +8,11 @@ the ``Trainer``.
 
 One step: the draws -> ``mosaic_batch`` and ``mixup_batch`` where the
 config switches them on -> ``augment_batch`` -> ``encode_grid`` (the anchor
-head: ``encode_anchor_grid``) -> forward with training-mode BatchNorm (and
-the flatten_dense head's dropout, its mask drawn from the step's own
-generator) -> the v1 loss (the anchor head: ``yolo_v2_loss_terms`` with the
-augmented boxes for its ignore mask) -> backward ->
+head: ``encode_anchor_grid``; the FPN head: ``encode_fpn_grids``, a grid a
+scale) -> forward with training-mode BatchNorm (and the flatten_dense head's
+dropout, its mask drawn from the step's own generator) -> the v1 loss (the
+anchor head: ``yolo_v2_loss_terms``, the FPN head: ``yolo_v3_loss_terms``,
+with the augmented boxes for their ignore mask) -> backward ->
 the optimizer update, the BN running statistics (updated in the forward) and
 the parameter EMA. ``TrainConfig.use_pallas_loss`` selects the fused loss
 with its kernels, ``ModelConfig.bn_mode="fused"`` the BN-statistics kernels.
@@ -45,6 +46,7 @@ import torch
 
 from keras_object_detection_torch.config import Config, check_ported
 from keras_object_detection_torch.core.anchors import encode_anchor_grid
+from keras_object_detection_torch.core.fpn import encode_fpn_grids
 from keras_object_detection_torch.core.grid import encode_grid
 from keras_object_detection_torch.data.augment import (
     AugmentDraws, MixupDraws, MosaicDraws, augment_batch, mixup_batch,
@@ -54,6 +56,7 @@ from keras_object_detection_torch.data.pipeline import (DeviceCachedDataset,
                                                         YoloDataset)
 from keras_object_detection_torch.losses.yolo import yolo_v1_loss_terms
 from keras_object_detection_torch.losses.yolov2 import yolo_v2_loss_terms
+from keras_object_detection_torch.losses.yolov3 import yolo_v3_loss_terms
 from keras_object_detection_torch.models.yolo import (YoloV1,
                                                      backbone_feature_size,
                                                      build_model)
@@ -251,8 +254,11 @@ def multiscale_grid(config: Config, size: int) -> int:
     conv head's true output grid there (its stride ``max(feat // grid,
     1)``, SAME), with the backbone's feature side measured from the module
     (``backbone_feature_size``); a GAP dense head always emits the
-    configured grid. Raises ``ValueError`` where ``size`` is not a multiple
-    of the backbone's pixel stride or leaves no features."""
+    configured grid; the FPN head's coarsest grid is the backbone's feature
+    side, ``size`` over the pixel stride. Raises ``ValueError`` where
+    ``size`` is not a multiple of the backbone's pixel stride or leaves no
+    features, and for the FPN head where ``image_size`` is not a multiple of
+    it either (each tap must be exactly twice the scale before it)."""
     if config.model.head == "gap_dense":
         return config.grid.grid
     backbone, canon = config.model.backbone, config.model.image_size
@@ -260,6 +266,18 @@ def multiscale_grid(config: Config, size: int) -> int:
     if feat0 <= 0:
         raise ValueError(
             f"backbone emits no spatial features at image_size {canon}")
+    if config.model.head == "fpn":
+        if canon % feat0:
+            raise ValueError(
+                f"image_size {canon} is not an exact multiple of the "
+                f"{backbone} stride (feat {feat0}) — fpn multiscale needs "
+                "exact-stride geometry")
+        stride_px = canon // feat0
+        if size % stride_px:
+            raise ValueError(
+                f"multiscale size {size} must be a multiple of the backbone "
+                f"pixel stride {stride_px}")
+        return size // stride_px
     if canon % feat0 == 0:
         stride_px = canon // feat0
         if size % stride_px:
@@ -316,6 +334,7 @@ def make_train_step(config: Config, image_size: Optional[int] = None,
     out_size = config.model.image_size if image_size is None else image_size
     out_grid = g.grid if grid is None else grid
     anchor_head = config.model.head == "anchor"
+    fpn_head = config.model.head == "fpn"
     if t.use_pallas_loss and t.box_loss_mode != "mse":
         raise ValueError(
             "use_pallas_loss implements only the reference MSE box terms; "
@@ -323,12 +342,21 @@ def make_train_step(config: Config, image_size: Optional[int] = None,
             "(use_pallas_loss=False)")
 
     def encode(boxes, valid):
+        if fpn_head:
+            return encode_fpn_grids(boxes, valid, g.num_classes, g.anchors,
+                                    out_grid, config.model.fpn_scales)
         if anchor_head:
             return encode_anchor_grid(boxes, valid, g.num_classes, g.anchors,
                                       out_grid)
         return encode_grid(boxes, valid, g.num_classes, g.num_boxes, out_grid)
 
     def loss_terms(y_true, y_pred, boxes, valid) -> Dict[str, torch.Tensor]:
+        if fpn_head:
+            return yolo_v3_loss_terms(
+                y_true, y_pred, g.num_classes, g.anchors,
+                config.model.fpn_scales, t.lambda_coord, t.lambda_noobj,
+                ignore_threshold=t.ignore_threshold, gt_boxes=boxes,
+                gt_valid=valid, obj_target=t.obj_target)
         if anchor_head:
             return yolo_v2_loss_terms(
                 y_true, y_pred, g.num_classes, g.anchors, t.lambda_coord,
@@ -355,7 +383,9 @@ def make_train_step(config: Config, image_size: Optional[int] = None,
             crop_ratio=tuple(d.crop_ratio), min_visibility=d.min_visibility,
             out_size=out_size)
         y_true = encode(aboxes, avalid)
-        y_pred = model(images, draws.keep).reshape(y_true.shape)  # flat heads too
+        y_pred = model(images, draws.keep)
+        if not fpn_head:
+            y_pred = y_pred.reshape(y_true.shape)  # flat heads too
         terms = loss_terms(y_true, y_pred, aboxes, avalid)
         terms["total"].backward()
         return {k: v.detach() for k, v in terms.items()}
@@ -422,7 +452,9 @@ def make_eval_step(config: Config, use_ema: Optional[bool] = None):
     in eval mode -> the plain v1 loss (a sum, as in training), with
     ``image_weight`` an optional ``(batch,)`` 0/1 weight of each image. The
     anchor head encodes with ``encode_anchor_grid`` and takes
-    ``yolo_v2_loss_terms`` with the batch's boxes for its ignore mask.
+    ``yolo_v2_loss_terms`` with the batch's boxes for its ignore mask; the
+    FPN head ``encode_fpn_grids`` and ``yolo_v3_loss_terms``, and its
+    ``y_true`` and ``y_pred`` are tuples of a grid a scale.
 
     ``use_ema``: None follows the config (``ema_decay`` set and
     ``eval_with_ema``); True or False overrides it. The EMA weights are
@@ -433,6 +465,7 @@ def make_eval_step(config: Config, use_ema: Optional[bool] = None):
     ema_on = use_ema if use_ema is not None else (
         t.ema_decay is not None and t.eval_with_ema)
     anchor_head = config.model.head == "anchor"
+    fpn_head = config.model.head == "fpn"
 
     @torch.no_grad()
     def eval_step(state: TrainState, images_u8, boxes, valid,
@@ -442,7 +475,10 @@ def make_eval_step(config: Config, use_ema: Optional[bool] = None):
         images = preprocess_eval_batch(torch.as_tensor(images_u8).to(dev))
         boxes = torch.as_tensor(boxes).to(dev, torch.float32)
         valid = torch.as_tensor(valid).to(dev, torch.bool)
-        if anchor_head:
+        if fpn_head:
+            y_true = encode_fpn_grids(boxes, valid, g.num_classes, g.anchors,
+                                      g.grid, config.model.fpn_scales)
+        elif anchor_head:
             y_true = encode_anchor_grid(boxes, valid, g.num_classes,
                                         g.anchors, g.grid)
         else:
@@ -454,9 +490,17 @@ def make_eval_step(config: Config, use_ema: Optional[bool] = None):
                 model, (state.ema, dict(model.named_buffers())), (images,))
         else:
             y_pred = model(images)
-        y_pred = y_pred.reshape(y_true.shape)  # flat heads too
         if image_weight is not None:
             image_weight = torch.as_tensor(image_weight).to(dev)
+        if fpn_head:
+            terms = yolo_v3_loss_terms(
+                y_true, y_pred, g.num_classes, g.anchors,
+                config.model.fpn_scales, t.lambda_coord, t.lambda_noobj,
+                sample_weight=image_weight,
+                ignore_threshold=t.ignore_threshold, gt_boxes=boxes,
+                gt_valid=valid, obj_target=t.obj_target)
+            return terms["total"], y_true, y_pred
+        y_pred = y_pred.reshape(y_true.shape)  # flat heads too
         if anchor_head:
             terms = yolo_v2_loss_terms(
                 y_true, y_pred, g.num_classes, g.anchors, t.lambda_coord,
@@ -529,12 +573,13 @@ def _accumulate_eval(mask: bool, batch_size: int, num_examples: int,
 
 
 def _map_metric(config: Config) -> MeanAveragePrecision:
-    g, e = config.grid, config.eval
+    g, e, head = config.grid, config.eval, config.model.head
     return MeanAveragePrecision(
         g.num_classes, g.num_boxes, g.grid, iou_threshold=e.iou_threshold,
         conf_threshold=e.conf_threshold,
         map_iou_threshold=e.map_iou_threshold,
-        anchors=g.anchors if config.model.head == "anchor" else (),
+        anchors=g.anchors if head in ("anchor", "fpn") else (),
+        fpn_scales=config.model.fpn_scales if head == "fpn" else 0,
         max_candidates=e.max_candidates)
 
 

@@ -70,8 +70,6 @@ def test_downsample_indices_and_tap_match_jax():
     for name, table in tdarknet.ARCHITECTURES.items():
         assert tdarknet._downsample_indices(table) == \
             jdarknet._downsample_indices(jdarknet.ARCHITECTURES[name])
-        assert tdarknet._last_downsample_index(table) == \
-            jdarknet._last_downsample_index(jdarknet.ARCHITECTURES[name])
     x = _images(1)
     jb = jdarknet.DarknetBackbone(
         architecture=jdarknet.ARCHITECTURES["darknet_micro"], return_tap=True)
@@ -92,12 +90,15 @@ def test_downsample_indices_and_tap_match_jax():
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(),
                                np.asarray(want), rtol=1e-5, atol=1e-5)
     # the tap starts a segment of its own; darknet24's is a strided conv
-    assert tb._groups[tb.tap_segment] == ["M", 0]
+    assert tb._groups[tb.tap_segments[0]] == ["M", 0]
     d24 = tdarknet.DarknetBackbone(generator=torch.Generator(),
                                    return_tap=True)
-    assert d24.tap_channels == 1024 and d24._groups[d24.tap_segment][0] == 21
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.11"):
-        tdarknet.DarknetBackbone(generator=torch.Generator(), return_taps=2)
+    assert d24.tap_channels == 1024 and d24._groups[d24.tap_segments[0]][0] == 21
+    # the FPN's taps: the same first tap, then the one before the downsample
+    # before it
+    d24 = tdarknet.DarknetBackbone(generator=torch.Generator(), return_taps=2)
+    assert d24.tap_channels == (1024, 1024)
+    assert [d24._groups[i][0] for i in d24.tap_segments] == [21, "M"]
     with pytest.raises(ValueError, match="1 taps need 1 downsamples"):
         tdarknet.DarknetBackbone(((3, 8, 1, 1),), generator=torch.Generator(),
                                  return_tap=True)

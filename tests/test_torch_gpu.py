@@ -956,3 +956,135 @@ def test_anchor_passthrough_step_on_the_gpu_goes_through_the_kernels(cuda):
     torch.cuda.synchronize()
     assert [a - b for a, b in zip(_counts(), counts)] == [7, 7, 0, 0]
     assert torch.isfinite(metrics["total"])
+
+
+def _fpn_micro_config():
+    """darknet_micro @56 + the FPN head over 2 scales (S = 7, 14; JAX's FPN
+    tests' 6 priors), bn_mode fused, the v3 loss with YOLOv3's ignore
+    threshold 0.5 and IoU objectness, SGD, float32."""
+    cfg = _micro_config()
+    return dataclasses.replace(
+        cfg, grid=dataclasses.replace(cfg.grid, anchors=(
+            (0.8, 0.7), (0.5, 0.6), (0.35, 0.3), (0.2, 0.25), (0.12, 0.1),
+            (0.05, 0.06))),
+        model=dataclasses.replace(cfg.model, head="fpn", fpn_scales=2,
+                                  activation="leaky_relu"),
+        train=dataclasses.replace(cfg.train, use_pallas_loss=False,
+                                  ignore_threshold=0.5, obj_target="iou"))
+
+
+def test_fpn_step_on_the_gpu_matches_the_cpu(cuda, no_tf32):
+    """One FPN step on the card: K2 and K3 once for each of its 17
+    BatchNorms (4 in the backbone, 7 + 6 in the head), no K4/K5 (the v3
+    loss is plain torch); loss and running statistics against the same
+    step on the CPU to 1e-4. The parameters are not compared: the
+    1024-wide prediction blocks' BatchNorm backward cancels three to four
+    digits of their gradients (tests/test_torch_fpn_train.py)."""
+    cfg = _fpn_micro_config()
+    images, boxes, valid = _micro_batch(5)
+    step = make_train_step(cfg)
+    counts = _counts()
+    gpu, m_gpu = step(create_train_state(cfg, torch.Generator().manual_seed(1)),
+                      images, boxes, valid, 2)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_counts(), counts)] == [17, 17, 0, 0]
+    cpu, m_cpu = step(create_train_state(cfg, torch.Generator().manual_seed(1),
+                                         "cpu"), images, boxes, valid, 2)
+    for k in m_cpu:
+        torch.testing.assert_close(m_gpu[k].cpu(), m_cpu[k], rtol=1e-4,
+                                   atol=0, msg=k)
+    want = cpu.model.state_dict()
+    for k, v in gpu.model.state_dict().items():
+        if "running" in k:
+            torch.testing.assert_close(v.cpu(), want[k], rtol=1e-4, atol=1e-4,
+                                       msg=k)
+
+
+@pytest.mark.parametrize("shape", [(32, 768, 26, 26), (32, 384, 52, 52)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bn_kernels_match_plain_versions_at_fpn_concat_shapes(cuda, shape,
+                                                              dtype):
+    """K2 and K3 at the FPN head's concatenations [upsampled, tap] at
+    batch 32 (768 channels at 26², 384 at 52²), channel counts no other
+    model has: within 1e-5 of each sum's largest channel, the same bits
+    from call to call."""
+    from chip_smoke import bn_inputs, bn_rel_err
+
+    gen = torch.Generator(device=cuda).manual_seed(768)
+    x, dy, mean, rstd = bn_inputs(shape, dtype, gen, cuda)
+    k2 = bn.cuda_bn_stats_sums(x)
+    k3 = bn.cuda_bn_grad_sums(dy, x, mean, rstd)
+    assert bn_rel_err(k2, bn.bn_stats_sums_plain(x)) <= 1e-5
+    assert bn_rel_err(k3, bn.bn_grad_sums_plain(dy, x, mean, rstd)) <= 1e-5
+    assert torch.equal(bn.cuda_bn_stats_sums(x), k2)
+    assert torch.equal(bn.cuda_bn_grad_sums(dy, x, mean, rstd), k3)
+
+
+def test_bn_shapes_of_yolov3(cuda):
+    """chip_smoke's YOLOv3 step has 72 BatchNorm inputs (52 in Darknet-53,
+    20 in the FPN head), among them the two concatenations."""
+    from chip_smoke import YOLOV3_BN, bn_shapes, yolov3_config
+
+    shapes = bn_shapes(cuda, yolov3_config(), batch=32)
+    assert len(shapes) == YOLOV3_BN == 72
+    assert shapes[0] == (32, 32, 416, 416)
+    assert shapes.count((32, 256, 26, 26)) >= 1
+    assert (32, 768, 26, 26) not in shapes  # a BN sees the conv's output
+    assert shapes[-1] == (32, 256, 52, 52)
+
+
+@pytest.mark.parametrize("batch", [1, 32])
+def test_nms_kernel_behind_the_fpn_top_k_cut(cuda, batch):
+    """YOLOv3's 3·(13² + 26² + 52²) = 10,647 candidates an image: the router
+    cuts them to max_candidates = 512 and launches K1 once, bit-equal to
+    the plain NMS of the same cut rows; uncut, 10,647 rows are above
+    MAX_N and the kernel raises (no fallback)."""
+    from chip_smoke import nms_rows
+    from keras_object_detection_torch.ops.nms import top_k_candidates
+
+    x = torch.from_numpy(nms_rows(batch, batch, 10647)).to(cuda)
+    before = cuda_nms.LAUNCHES
+    rows, valid = cuda_nms.auto_batched_non_max_suppression(x, 0.5, 0.4, 512)
+    assert cuda_nms.LAUNCHES == before + 1 and rows.shape == (batch, 512, 6)
+    want_rows, want_valid = batched_non_max_suppression(
+        top_k_candidates(x, 512), 0.5, 0.4)
+    assert torch.equal(rows, want_rows) and torch.equal(valid, want_valid)
+    with pytest.raises(ValueError):
+        cuda_nms.auto_batched_non_max_suppression(x, 0.5, 0.4, 0)
+
+
+def test_v3_loss_on_the_card_matches_the_cpu(cuda):
+    """yolo_v3_loss_terms at YOLOv3's grids (S = 13 / 26 / 52, its 9
+    priors, C = 20, batch 4, ignore 0.5, IoU objectness) on the card
+    against the CPU: every term and the gradient in each scale's y_pred
+    within 1e-5."""
+    from keras_object_detection_torch.config import YOLOV3_ANCHORS_416
+    from keras_object_detection_torch.core.fpn import encode_fpn_grids
+    from keras_object_detection_torch.losses import yolo_v3_loss_terms
+
+    rng = np.random.RandomState(0)
+    boxes = np.zeros((4, 12, 5), np.float32)
+    boxes[..., :2] = rng.uniform(0.05, 0.95, (4, 12, 2))
+    boxes[..., 2:4] = rng.uniform(0.02, 0.8, (4, 12, 2))
+    boxes[..., 4] = rng.randint(0, 20, (4, 12))
+    valid = rng.rand(4, 12) < 0.7
+    boxes, valid = torch.from_numpy(boxes), torch.from_numpy(valid)
+    y_true = encode_fpn_grids(boxes, valid, 20, YOLOV3_ANCHORS_416, 13)
+    y_pred = [torch.from_numpy(rng.normal(0, 1.5, tuple(t.shape)).astype(
+        np.float32)) for t in y_true]
+    out = []
+    for where in (cuda, "cpu"):
+        preds = [p.to(where).requires_grad_(True) for p in y_pred]
+        terms = yolo_v3_loss_terms(
+            [t.to(where) for t in y_true], preds, 20, YOLOV3_ANCHORS_416,
+            ignore_threshold=0.5, gt_boxes=boxes.to(where),
+            gt_valid=valid.to(where), obj_target="iou")
+        terms["total"].backward()
+        out.append(({k: v.item() for k, v in terms.items()},
+                    [p.grad.cpu() for p in preds]))
+    (card, card_grads), (cpu, cpu_grads) = out
+    for k in cpu:
+        assert card[k] == pytest.approx(cpu[k], rel=1e-5), k
+    for a, b in zip(card_grads, cpu_grads):
+        torch.testing.assert_close(a, b, rtol=1e-5,
+                                   atol=1e-5 * b.abs().max().item())

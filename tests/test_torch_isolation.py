@@ -6,8 +6,8 @@ runs a one-epoch ``Trainer.fit`` over a small decoded-cache dataset with
 ``Evaluator.evaluate`` on it and a two-epoch one with the v1 recipe
 (mosaic, mixup, multiscale, adamw, remat, ``steps_per_dispatch`` over the
 device cache), takes a step with each IoU box loss and sgdw, takes a
-YOLOv2 anchor + passthrough step and serves it, and the three command
-lines answer ``--help``;
+YOLOv2 anchor + passthrough step and a YOLOv3 FPN step and serves each, and
+the three command lines answer ``--help``;
 h5py is never imported (only reading a Keras file needs it)."""
 
 import pathlib
@@ -141,6 +141,22 @@ assert torch.isfinite(metrics["total"])
 rows, valid = InferenceModel(ac, state.model.state_dict(), device="cpu"
                              ).predict(images[:, :56, :56])
 assert rows.shape == (2, 147, 6) and torch.isfinite(rows).all()
+# the YOLOv3 FPN family: a 2-scale step (fused BatchNorm, the v3 loss's
+# ignore mask and IoU target), and serving its 735 candidates cut to 512
+fc = dataclasses.replace(
+    ac, grid=dataclasses.replace(ac.grid, anchors=ac.grid.anchors + (
+        (0.05, 0.06), (0.2, 0.25), (0.12, 0.1))),
+    model=dataclasses.replace(ac.model, head="fpn", passthrough=False,
+                              fpn_scales=2, activation="leaky_relu"),
+    train=dataclasses.replace(ac.train, ignore_threshold=0.5))
+state = create_train_state(fc, device="cpu")
+state, metrics = make_train_step(fc)(
+    state, np.zeros((2, 56, 56, 3), np.uint8), boxes[:2],
+    np.ones((2, 4), bool), 0)
+assert torch.isfinite(metrics["total"])
+rows, valid = InferenceModel(fc, state.model.state_dict(), device="cpu"
+                             ).predict(images[:, :56, :56])
+assert rows.shape == (2, 512, 6) and torch.isfinite(rows).all()
 for cli in ("train", "evaluate", "kmeans_anchors"):
     proc = subprocess.run([sys.executable, "-c", "import sys; "
                            f"sys.modules.update(dict.fromkeys({BLOCKED!r})); "

@@ -216,5 +216,11 @@ def test_empty_accumulator_and_unported_layouts():
     np.testing.assert_array_equal(metric.result_per_class(), np.zeros(3))
     with pytest.raises(NotImplementedError, match="ROADMAP 1.13"):
         metric.result_error_analysis()
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.11"):
-        tmap.MeanAveragePrecision(3, 2, anchors=((0.1, 0.1),), fpn_scales=3)
+    # one prior over 3 scales: as in JAX, the constructor takes it and
+    # partition_anchors raises at the first update
+    grids = [np.zeros((1, s, s, 8), np.float32) for s in (7, 14, 28)]
+    for metric, arr in ((jmap.MeanAveragePrecision, jnp.asarray),
+                        (tmap.MeanAveragePrecision, torch.from_numpy)):
+        odd = metric(3, 2, anchors=((0.1, 0.1),), fpn_scales=3)
+        with pytest.raises(ValueError, match="divisible by num_scales=3"):
+            odd.update_state([arr(g) for g in grids], [arr(g) for g in grids])

@@ -192,26 +192,62 @@ def test_training_mode_forward_matches_jax(bn_mode, dtype, tol):
 
 
 @pytest.mark.parametrize("override,item", [
-    ({"head": "fpn"}, "1.11"), ({"head": "fpn", "fpn_scales": 2}, "1.11"),
-    ({"backbone": "darknet53", "head": "flatten_dense"}, "1.11"),
-    ({"backbone": "darknet53", "head": "gap_dense"}, "1.11"),
-    ({"backbone": "darknet53"}, "1.11")])
+    ({"head": "fpn"}, "requires GridConfig.anchors"),
+    ({"head": "fpn", "fpn_scales": 2}, "requires GridConfig.anchors"),
+    ({"backbone": "darknet53", "head": "flatten_dense"}, (1, 7, 7, 13)),
+    ({"backbone": "darknet53", "head": "gap_dense"}, (1, 7, 7, 13)),
+    ({"backbone": "darknet53"}, (1, 7, 7, 13))])
 def test_unported_parts_raise(override, item):
+    """What were the FPN family's refusals: the FPN head without priors
+    raises ValueError, as JAX's build_model does; Darknet-53 pairs with the
+    v1 heads and gives JAX's output shape (by shapes: JAX's eval_shape,
+    the port on the meta device)."""
     cfg = tconfig.tiny_cpu_config()
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
                                                              **override))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        build_model(cfg)
+    jcfg = jconfig.Config.from_json(cfg.to_json())
+    x = jnp.zeros((1, 224, 224, 3))
+    if isinstance(item, str):
+        with pytest.raises(ValueError, match=item):
+            jbuild(jcfg).init(jax.random.PRNGKey(0), x)
+        with pytest.raises(ValueError, match=item):
+            build_model(cfg)
+        return
+    model = jbuild(jcfg)
+    want = jax.eval_shape(lambda: model.apply(
+        model.init(jax.random.PRNGKey(0), x), x)).shape
+    with torch.device("meta"):
+        got = build_model(cfg, torch.Generator())(torch.empty(1, 224, 224, 3))
+    assert tuple(got.shape) == tuple(want) == item
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    ({"architecture": (("R", 64, 1),)}, "ROADMAP 1.11"),
-    ({"return_tap": True, "return_taps": 1}, "ROADMAP 1.11"),
-    ({"return_taps": 2}, "1.11")])
-def test_unported_backbone_grammar_raises(kwargs, match):
+@pytest.mark.parametrize("kwargs,want", [
+    ({"architecture": (("R", 64, 1),)}, "residual"),
+    ({"return_tap": True, "return_taps": 1}, "exclusive"),
+    ({"return_taps": 2}, "two taps")])
+def test_unported_backbone_grammar_raises(kwargs, want):
+    """What were the grammar's refusals: a residual entry builds (1x1 32 ->
+    3x3 64, added back), return_tap with return_taps raises ValueError as
+    in JAX, and return_taps=2 returns the two feature maps before the last
+    two downsamples, coarse -> fine."""
     from keras_object_detection_torch.models.darknet import DarknetBackbone
-    with pytest.raises(NotImplementedError, match=match):
-        DarknetBackbone(generator=torch.Generator(), **kwargs)
+    if want == "exclusive":
+        with pytest.raises(ValueError, match=want):
+            DarknetBackbone(generator=torch.Generator(), **kwargs)
+        return
+    model = DarknetBackbone(generator=torch.Generator(), in_channels=64,
+                            **kwargs).eval()
+    x = torch.rand(1, 64, 64, 64, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        out = model(x)
+    if want == "residual":
+        assert [tuple(b.conv.weight.shape) for b in model.blocks] == [
+            (32, 64, 1, 1), (64, 32, 3, 3)]
+        assert torch.equal(out, x + model.blocks[1](model.blocks[0](x)))
+    else:  # darknet24 at 64²: 1x1 features, taps at 2x2 and 4x4
+        feats, taps = out
+        assert [tuple(t.shape[2:]) for t in taps] == [(2, 2), (4, 4)]
+        assert tuple(feats.shape[2:]) == (1, 1)
 
 
 def _full_width_shapes():
