@@ -147,12 +147,47 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
              images; K1 2 a mAP update at N = 512), one step each at 320²
              and 608² (S = 10 / 20 / 40 and 19 / 38 / 76); one JSON line
              "yolov3";
-14. launches - CUDA launches per call of K1, K4, K5, K2 and K3 (1 each)
+14. serving_extras - soft (gaussian, linear) and fast NMS and the staged
+             latency: YOLOv3 (phase 13's model, seeded weights and BatchNorm
+             statistics) served at batch 1 and 32 in each nms_mode with the
+             filter at the median confidence of the 10,647 -> 512 cut rows
+             (no seeded confidence passes 0.4): K1 2 launches in the hard
+             mode's 2 predict calls and 0 in the others', each predict equal
+             to its mode's plain NMS of the cut rows on the CPU, p50; each
+             mode on the card against the plain version on the CPU on those
+             rows and on NMS_CASES' ties, identical boxes, signed zeros and
+             IoU pairs at the threshold and one ulp off: keep sets, order,
+             classes and boxes equal, decayed confidences within
+             SOFT_NMS_RTOL (1e-5) relative (the card's exp and the CPU's part
+             by an ulp); device ms and per-call p50 of each mode beside K1's
+             at 1x512 and 32x512; the flagship's benchmark_latency staged
+             against fused at batch 1 (same keys, same rows); one JSON line
+             "serving_extras";
+15. int8   - Int8InferenceModel at full width: the flagship and YOLOv3 at
+             batch 1 and 32, YOLOv2 (passthrough, leaky) at batch 1, seeded
+             weights and BatchNorm statistics, the filter at the median
+             confidence as in phase 14: K1 once and the int8 GEMM once an
+             int8 conv per predict call; predict == the plain NMS of the cut
+             predict_decoded; at every conv shape of the three plans the
+             route's s32 accumulators (im2col + torch._int_mm) torch.equal to
+             the plain float64 GEMM; predict_raw on the route bit-equal to
+             the same model on the plain GEMM (deterministic cuDNN for the
+             float32 final convs); p50 and stage device ms beside the float
+             InferenceModel on the same weights, the grids' distance to
+             float, memory_footprint; the flagship's heaviest int8 conv at
+             batch 32 timed as the route, _int_mm alone, the plain GEMM and
+             the bf16 cuDNN conv, beside its bound; on the flagship static
+             calibration and bias correction on 8 images, QAT 2 steps at
+             batch 4, select_serving_model("auto")'s choice (it must follow
+             its own probe) and the weight-only QuantizedInferenceModel's
+             p50; one JSON line "int8";
+16. launches - CUDA launches per call of K1, K4, K5, K2 and K3 (1 each)
              and of the other checkout's, from a torch.profiler trace, after the
              train and fit phases so that no profiler hook slows them.
 
-Then one JSON line describing each kernel, one line with the card's name and
-power limit from nvidia-smi, and as the last line
+Then one JSON line describing each kernel (K1's launches add the hard-mode
+serving of phase 14 and the int8 serving of phase 15 to phase 4's), one line
+with the card's name and power limit from nvidia-smi, and as the last line
 {"ok": true, "device": {...}}. Float32 results are compared with TF32 off
 (torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32).
 """
@@ -3069,6 +3104,455 @@ def phase_yolov3(dev, profile_dir: str = "") -> dict:
                         profile_dir, bn_reps=(10, 3))
 
 
+# the serving_extras and int8 phases: the flagship, YOLOv3 (both at batch 1
+# and 32) and YOLOv2 (batch 1) at full width, seeded weights and BatchNorm
+# statistics drawn from their own generator
+INT8_OPS_PER_S = 1979e12  # dense int8 on the tensor cores (TOP/s)
+SOFT_NMS_RTOL = 1e-5  # decayed confidences, card against CPU: see below
+EXTRAS_NMS_CASES = ("tied 4x49", "one class 4x196", "identical boxes 4x49",
+                    "identical boxes, tied 2x1024", "signed zeros",
+                    "iou tie 0.3", "iou tie 0.5", "iou tie 0.7")
+
+
+def serving_weights(tag: str):
+    """``(config, state_dict)`` of ``tag`` (flagship, yolov2, yolov3) on the
+    CPU: build_model's seeded weights, and BatchNorm statistics and affine
+    terms drawn from a seeded generator (means N(0, 0.1), variances U(0.5,
+    2), scales U(0.8, 1.2), biases N(0, 0.05)), so that a fold is no
+    identity."""
+    from keras_object_detection_torch.config import voc_full_config
+    from keras_object_detection_torch.models import build_model
+
+    cfg = {"flagship": voc_full_config, "yolov2": yolov2_config,
+           "yolov3": yolov3_config}[tag]()
+    sd = build_model(cfg, torch.Generator().manual_seed(0)).state_dict()
+    g = torch.Generator().manual_seed(1)
+    for k, v in sd.items():
+        if k.endswith("bn.running_mean"):
+            v.copy_(torch.randn(v.shape, generator=g) * 0.1)
+        elif k.endswith("bn.running_var"):
+            v.copy_(torch.rand(v.shape, generator=g) * 1.5 + 0.5)
+        elif k.endswith("bn.weight"):
+            v.copy_(torch.rand(v.shape, generator=g) * 0.4 + 0.8)
+        elif k.endswith("bn.bias"):
+            v.copy_(torch.randn(v.shape, generator=g) * 0.05)
+    return cfg, sd
+
+
+def serving_images(cfg, batch: int, dev, seed: int = 7) -> torch.Tensor:
+    size = cfg.model.image_size
+    return torch.from_numpy(np.random.RandomState(seed).randint(
+        0, 256, (batch, size, size, 3), np.uint8)).to(dev)
+
+
+def call_p50(fn, runs: int) -> float:
+    """Median host milliseconds of ``fn`` with a synchronise after each
+    call, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def nms_mode_fn(mode: str):
+    """``rows -> (rows, valid)`` of an NMS mode at IoU 0.5 (or the case's),
+    confidence 0.4, sigma 0.5."""
+    from keras_object_detection_torch.ops.nms import (
+        batched_fast_non_max_suppression, batched_soft_non_max_suppression)
+
+    if mode == "fast":
+        return batched_fast_non_max_suppression
+    return lambda rows, iou=0.5, conf=0.4: batched_soft_non_max_suppression(
+        rows, iou, conf, 0.5, mode)
+
+
+def same_nms_result(card, cpu, rtol: float) -> tuple:
+    """(equal keep sets, order, classes and boxes; largest relative
+    difference of column 1), card against CPU."""
+    rows, valid = (t.cpu() for t in card)
+    want_rows, want_valid = cpu
+    fixed = [0, 2, 3, 4, 5]
+    same = (torch.equal(valid, want_valid)
+            and torch.equal(rows[..., fixed], want_rows[..., fixed]))
+    denom = want_rows[..., 1].abs().clamp_min(1e-30)
+    rel = float(((rows[..., 1] - want_rows[..., 1]).abs() / denom).max())
+    return same and rel <= rtol, rel
+
+
+def phase_serving_extras(dev) -> dict:
+    """Soft and fast NMS and the staged latency on the card (see the module
+    docstring, phase 14)."""
+    from keras_object_detection_torch.eval import InferenceModel
+    from keras_object_detection_torch.ops import cuda_nms
+    from keras_object_detection_torch.ops.cuda_nms import \
+        cuda_batched_non_max_suppression
+    from keras_object_detection_torch.ops.nms import (
+        batched_non_max_suppression, top_k_candidates)
+
+    smi = card()
+    t_phase = time.perf_counter()
+    out = {"card": smi, "modes": {}, "nms": {}, "checks": {}}
+    cfg, sd = serving_weights("yolov3")
+    images = {b: serving_images(cfg, b, dev) for b in (1, 32)}
+    model = InferenceModel(cfg, sd)
+    cut = {b: top_k_candidates(model.predict_decoded(images[b]),
+                               cfg.eval.max_candidates).contiguous()
+           for b in (1, 32)}
+    del model
+    # seeded weights put no confidence above 0.4: serve at the median of the
+    # cut candidates', so that half of them take part
+    thr = float(cut[32][..., 1].median())
+    out["conf_threshold"] = thr
+    for mode in ("hard", "soft_gaussian", "soft_linear", "fast"):
+        mcfg = dataclasses.replace(cfg, eval=dataclasses.replace(
+            cfg.eval, nms_mode=mode, conf_threshold=thr))
+        model = InferenceModel(mcfg, sd)
+        # the main path of each mode: counts at 0 just before, read after
+        cuda_nms.LAUNCHES = 0
+        served = {b: model.predict(images[b]) for b in (1, 32)}
+        torch.cuda.synchronize()
+        launches = cuda_nms.LAUNCHES
+        if launches != (2 if mode == "hard" else 0):
+            raise SystemExit(f"[serving_extras] {mode}: K1 launched "
+                             f"{launches} times in 2 predict calls")
+        fn = (nms_mode_fn(mode.removeprefix("soft_")) if mode != "hard"
+              else batched_non_max_suppression)
+        for b, (rows, valid) in served.items():
+            ok, _ = same_nms_result((rows, valid),
+                                    fn(cut[b].cpu(), 0.5, thr), SOFT_NMS_RTOL)
+            if not ok or not bool(torch.isfinite(rows).all()):
+                raise SystemExit(f"[serving_extras] {mode} predict at batch "
+                                 f"{b} differs from its NMS on the CPU")
+        out["modes"][mode] = {
+            "k1_launches": launches, "kept_32": int(served[32][1].sum()),
+            **{f"p50_ms_{b}": model.benchmark_latency(
+                images[b], runs=5)["p50_ms"] for b in (1, 32)}}
+        del model, served
+    torch.cuda.empty_cache()
+    log(f"[serving_extras] YOLOv3 serving p50 by nms_mode on {smi}, conf "
+        f"threshold {thr:.4f} (batch 1 / 32, ms): " + "; ".join(
+            f"{m} {v['p50_ms_1']:.3f} / {v['p50_ms_32']:.3f} (K1 "
+            f"{v['k1_launches']} in 2 calls, kept {v['kept_32']} at 32)"
+            for m, v in out["modes"].items())
+        + "; each predict == its NMS of the cut rows on the CPU")
+
+    # each mode on the card against the plain torch version on the CPU
+    cases = {f"yolov3 {b}x512": (cut[b], 0.5, thr) for b in (1, 32)}
+    for name in EXTRAS_NMS_CASES:
+        rows, iou, conf = NMS_CASES[name]()
+        cases[name] = (torch.from_numpy(rows).to(dev), iou, conf)
+    worst = 0.0
+    for name, (rows, iou, conf) in cases.items():
+        for mode in ("gaussian", "linear", "fast"):
+            fn = nms_mode_fn(mode)
+            ok, rel = same_nms_result(fn(rows, iou, conf),
+                                      fn(rows.cpu(), iou, conf),
+                                      SOFT_NMS_RTOL)
+            out["checks"][f"{mode} {name}"] = rel
+            worst = max(worst, rel)
+            if not ok:
+                raise SystemExit(f"[serving_extras] {mode} NMS on the card "
+                                 f"differs from the CPU's on {name} (decayed "
+                                 f"confidences within {rel:.3e})")
+    log(f"[serving_extras] soft gaussian, soft linear and fast NMS on the "
+        f"card = the plain version on the CPU on {len(cases)} cases: keep "
+        f"sets, order, classes and boxes equal, decayed confidences within "
+        f"{worst:.3e} relative (limit {SOFT_NMS_RTOL})")
+
+    for b in (1, 32):
+        rows = cut[b]
+        t = {"k1": {"ms": graph_ms(lambda: cuda_batched_non_max_suppression(
+                 rows, 0.5, thr)),
+                 "call_p50_ms": call_p50(lambda: cuda_batched_non_max_suppression(
+                     rows, 0.5, thr), 20)}}
+        for mode in ("gaussian", "linear", "fast"):
+            fn = nms_mode_fn(mode)
+            t[mode] = {"ms": cuda_ms(lambda: fn(rows, 0.5, thr), 3, warmup=1),
+                       "call_p50_ms": call_p50(lambda: fn(rows, 0.5, thr), 5)}
+        out["nms"][f"{b}x512"] = t
+        log(f"[serving_extras] NMS at {b}x512 (YOLOv3's cut rows) on {smi}, "
+            f"device ms / per-call p50 ms: " + "; ".join(
+                f"{k} {v['ms']:.4f} / {v['call_p50_ms']:.4f}"
+                for k, v in t.items()))
+
+    fcfg, fsd = serving_weights("flagship")
+    model = InferenceModel(fcfg, fsd)
+    x = serving_images(fcfg, 1, dev)
+    staged_rows = model._staged(x)
+    rows = model.predict(x)
+    if not (torch.equal(staged_rows[0], rows[0])
+            and torch.equal(staged_rows[1], rows[1])):
+        raise SystemExit("[serving_extras] staged predict differs")
+    fused = model.benchmark_latency(x, runs=20, pipeline_k=20)
+    staged = model.benchmark_latency(x, runs=20, staged=True, pipeline_k=20)
+    if set(fused) != set(staged):
+        raise SystemExit("[serving_extras] staged latency keys differ")
+    out["staged"] = {"fused": fused, "staged": staged}
+    log(f"[serving_extras] flagship batch 1 on {smi}: fused p50 "
+        f"{fused['p50_ms']:.3f} ms (pipelined "
+        f"{fused['pipelined_per_call_ms']:.3f}), staged p50 "
+        f"{staged['p50_ms']:.3f} ms (pipelined "
+        f"{staged['pipelined_per_call_ms']:.3f}); same rows")
+    del model
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[serving_extras] {out['seconds']:.1f} s")
+    print(json.dumps({"serving_extras": out}))
+    return out
+
+
+def as_grids(y) -> tuple:
+    return tuple(y) if isinstance(y, (tuple, list)) else (y,)
+
+
+def int8_conv_layers(model, x) -> list:
+    """``(xq shape, w_q shape, stride, pad)`` of every int8 conv of one
+    forward of the int8 ``model`` on ``x``."""
+    from keras_object_detection_torch.export import int8_serving
+
+    seen = []
+    route = int8_serving.int8_conv2d
+
+    def record(xq, w_q, stride, pad):
+        seen.append((tuple(xq.shape), tuple(w_q.shape), stride, pad))
+        return route(xq, w_q, stride, pad)
+
+    with unittest.mock.patch.object(int8_serving, "int8_conv2d", record):
+        model.predict_raw(x)
+    return seen
+
+
+def int8_layer_times(layer, dev) -> dict:
+    """One int8 conv at its serving shape: the route (im2col + _int_mm),
+    _int_mm alone, the plain float64 GEMM, the bf16 cuDNN conv of the same
+    layer and the bound (each input read once, the int32 output written
+    once, against 2*M*N*K operations at the int8 tensor-core rate)."""
+    import torch.nn.functional as F
+
+    from keras_object_detection_torch.ops import int8_conv
+
+    xs, ws, stride, pad = layer
+    g = torch.Generator(device="cpu").manual_seed(3)
+    xq = torch.randint(-127, 128, xs, generator=g, dtype=torch.int8).to(dev)
+    wq = torch.randint(-127, 128, ws, generator=g, dtype=torch.int8).to(dev)
+    a, (b, ho, wo) = int8_conv.im2col(xq, ws[1], stride, pad)
+    w = int8_conv._kernel_matrix(wq, a.shape[1])
+    m, k, n = a.shape[0], ws[1] * ws[2] * ws[3], ws[0]
+    route = cuda_ms(lambda: int8_conv.int8_conv2d(xq, wq, stride, pad), 20)
+    mm = cuda_ms(lambda: torch._int_mm(a, w.t()), 20)
+    plain = cuda_ms(lambda: int8_conv.plain_int8_matmul(a, w), 3, warmup=1)
+    wb = wq.to(torch.bfloat16).permute(0, 3, 1, 2)  # channels-last OIHW
+    if isinstance(pad, int):  # the padding inside the conv, as the route's
+        xb, conv_pad = xq.to(torch.bfloat16).permute(0, 3, 1, 2), pad
+    else:
+        xb, conv_pad = int8_conv.pad_nhwc(xq, ws[1], stride, pad).to(
+            torch.bfloat16).permute(0, 3, 1, 2), 0
+    bf16 = cuda_ms(lambda: F.conv2d(xb, wb, None, stride, conv_pad), 20)
+    nbytes = xq.numel() + wq.numel() + m * n * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * m * n * k / INT8_OPS_PER_S * 1e3
+    return {"x": list(xs), "w_ohwi": list(ws), "stride": stride,
+            "pad": pad, "m": m, "k": k, "n": n, "route_ms": route,
+            "int_mm_ms": mm, "plain_ms": plain, "bf16_cudnn_ms": bf16,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+INT8_PHASE = {"flagship": (1, 32), "yolov3": (1, 32), "yolov2": (1,)}
+
+
+def phase_int8(dev) -> dict:
+    """Int8 serving at full width (see the module docstring, phase 15)."""
+    from keras_object_detection_torch.eval import InferenceModel
+    from keras_object_detection_torch.export import (Int8InferenceModel,
+                                                     QuantizedInferenceModel,
+                                                     select_serving_model)
+    from keras_object_detection_torch.ops import cuda_nms, int8_conv
+    from keras_object_detection_torch.ops.nms import (
+        batched_non_max_suppression, top_k_candidates)
+
+    smi = card()
+    t_phase = time.perf_counter()
+    out = {"card": smi, "tf32": torch.backends.cudnn.allow_tf32}
+    acc_shapes = {}
+    route_matmul = int8_conv.int8_matmul
+
+    def checked(a, w):  # the route, held against the plain GEMM
+        got = route_matmul(a, w)
+        key = "x".join(map(str, (a.shape[0], a.shape[1], w.shape[0])))
+        acc_shapes[key] = acc_shapes.get(key, True) and torch.equal(
+            got, int8_conv.plain_int8_matmul(a, w))
+        return got
+
+    for tag, batches in INT8_PHASE.items():
+        cfg, sd = serving_weights(tag)
+        e = cfg.eval
+        images = {b: serving_images(cfg, b, dev) for b in batches}
+        model = Int8InferenceModel(cfg, sd)  # the default device: the GPU
+        # as in phase 14: the median candidate confidence as the filter
+        decoded = model.predict_decoded(images[batches[-1]])
+        if e.max_candidates:
+            decoded = top_k_candidates(decoded, e.max_candidates)
+        e = dataclasses.replace(e, conf_threshold=float(
+            decoded[..., 1].median()))
+        cfg = dataclasses.replace(cfg, eval=e)
+        model.config = cfg
+        del decoded
+        n_int8 = sum("w_q" in layer for layer in model.layers)
+        res = {"int8_convs": n_int8, "layers": len(model.layers),
+               "conf_threshold": e.conf_threshold}
+        # the main path: counts at 0 just before, read just after
+        cuda_nms.LAUNCHES = int8_conv.LAUNCHES = 0
+        served = {b: model.predict(images[b]) for b in batches}
+        torch.cuda.synchronize()
+        res["k1_launches"], res["int8_launches"] = (cuda_nms.LAUNCHES,
+                                                    int8_conv.LAUNCHES)
+        if (res["k1_launches"] != len(batches)
+                or res["int8_launches"] != n_int8 * len(batches)):
+            raise SystemExit(f"[int8] {tag}: K1 {res['k1_launches']}, int8 "
+                             f"GEMMs {res['int8_launches']} in "
+                             f"{len(batches)} predict calls (expected 1 and "
+                             f"{n_int8} a call)")
+        for b, (rows, valid) in served.items():
+            decoded = model.predict_decoded(images[b])
+            res[f"candidates_{b}"] = decoded.shape[1]
+            if e.max_candidates and decoded.shape[1] > e.max_candidates:
+                decoded = top_k_candidates(decoded, e.max_candidates)
+            plain = batched_non_max_suppression(decoded, e.iou_threshold,
+                                                e.conf_threshold)
+            if not (torch.equal(plain[0], rows) and torch.equal(plain[1], valid)
+                    and bool(torch.isfinite(rows).all())):
+                raise SystemExit(f"[int8] {tag} batch {b}: predict() differs "
+                                 "from the plain NMS of predict_decoded()")
+            res[f"kept_{b}"] = int(valid.sum())
+        with unittest.mock.patch.object(int8_conv, "int8_matmul", checked):
+            for b in batches:
+                model.predict_raw(images[b])
+        torch.backends.cudnn.deterministic = True
+        try:
+            for b in batches:
+                route = as_grids(model.predict_raw(images[b]))
+                with unittest.mock.patch.object(
+                        int8_conv, "int8_matmul", int8_conv.plain_int8_matmul):
+                    plain = as_grids(model.predict_raw(images[b]))
+                if not all(torch.equal(r, p) for r, p in zip(route, plain)):
+                    raise SystemExit(f"[int8] {tag} batch {b}: predict_raw on "
+                                     "the route differs from the plain GEMM")
+        finally:
+            torch.backends.cudnn.deterministic = False
+        fmodel = InferenceModel(cfg, sd)
+        for b in batches:
+            x = images[b]
+            yq, yf = as_grids(model.predict_raw(x)), as_grids(
+                fmodel.predict_raw(x))
+            res[f"rel_err_{b}"] = max(rel_norm(q, f.float())
+                                      for q, f in zip(yq, yf))
+            runs = 20 if b == 1 else 10
+            res[f"p50_ms_{b}"] = model.benchmark_latency(x, runs=runs)["p50_ms"]
+            res[f"float_p50_ms_{b}"] = fmodel.benchmark_latency(
+                x, runs=runs)["p50_ms"]
+            res[f"stages_{b}"] = stage_ms(model, x)
+            res[f"float_stages_{b}"] = stage_ms(fmodel, x)
+        res["memory"] = model.memory_footprint()
+        if tag == "flagship":
+            res["layer_shapes"] = int8_conv_layers(model, images[32])
+        out[tag] = res
+        log(f"[int8] {tag} on {smi}: {n_int8} int8 convs of {len(model.layers)} "
+            f"layers; K1 {res['k1_launches']} and int8 GEMMs "
+            f"{res['int8_launches']} in {len(batches)} predict calls; "
+            f"predict == plain NMS; predict_raw route == plain GEMM; "
+            f"p50 int8 / float (ms): " + ", ".join(
+                f"batch {b} {res[f'p50_ms_{b}']:.3f} / "
+                f"{res[f'float_p50_ms_{b}']:.3f}" for b in batches)
+            + "; int8 stages (device ms): " + "; ".join(
+                f"{b}: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                     res[f"stages_{b}"].items())
+                for b in batches)
+            + f"; grids' relative distance to float "
+            + ", ".join(f"{res[f'rel_err_{b}']:.4f}" for b in batches)
+            + f"; weights {res['memory']['quantized_bytes']} bytes int8, "
+            f"{res['memory']['float_bytes']} float")
+        del model, fmodel, images, served
+        torch.cuda.empty_cache()
+        if tag == "flagship":
+            flagship = (cfg, sd)
+    if not all(acc_shapes.values()):
+        raise SystemExit(f"[int8] route accumulators differ from the plain "
+                         f"GEMM at {[k for k, v in acc_shapes.items() if not v]}")
+    out["acc_shapes"] = sorted(acc_shapes)
+    log(f"[int8] s32 accumulators of the route torch.equal to the plain "
+        f"float64 GEMM at all {len(acc_shapes)} (M x K8 x N8) shapes of the "
+        f"three plans")
+
+    cfg, sd = flagship
+    layers = out["flagship"].pop("layer_shapes")
+    heavy = max(layers, key=lambda s: s[0][0] * s[0][1] * s[0][2]
+                * s[1][0] * s[1][1] * s[1][2] * s[1][3] // s[2] ** 2)
+    out["gemm"] = int8_layer_times(heavy, dev)
+    g = out["gemm"]
+    log(f"[int8] the flagship's heaviest int8 conv at batch 32 ({g['x']} * "
+        f"{g['w_ohwi']}, stride {g['stride']}; M {g['m']} K {g['k']} N "
+        f"{g['n']}) on {smi}: route {g['route_ms']:.4f} ms, _int_mm "
+        f"{g['int_mm_ms']:.4f}, plain float64 GEMM {g['plain_ms']:.4f}, "
+        f"bf16 cuDNN conv {g['bf16_cudnn_ms']:.4f}, bound {g['bound_ms']:.4f} "
+        f"({g['bound_by']})")
+
+    rng = np.random.RandomState(11)
+    calib = rng.randint(0, 256, (8, 448, 448, 3), np.uint8)
+    x1 = serving_images(cfg, 1, dev)
+    f1 = InferenceModel(cfg, sd).predict_raw(x1).float()
+    variants = {}
+    for name, kw in (("dynamic", {}),
+                     ("static", dict(calib_images=calib)),
+                     ("bias_corrected", dict(calib_images=calib,
+                                             bias_correct=True)),
+                     ("qat", dict(calib_images=calib, qat_steps=2,
+                                  qat_batch=4))):
+        t0 = time.perf_counter()
+        m = Int8InferenceModel(cfg, sd, **kw)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        y = m.predict_raw(x1)
+        if not bool(torch.isfinite(y).all()):
+            raise SystemExit(f"[int8] the {name} flagship is not finite")
+        variants[name] = {"build_s": build_s, "rel_err": rel_norm(y, f1),
+                          "p50_ms_1": m.benchmark_latency(x1, runs=10)[
+                              "p50_ms"]}
+        if name == "qat":
+            variants[name]["qat_info"] = m.qat_info
+        del m
+    out["variants"] = variants
+    model, info = select_serving_model(cfg, sd, "auto")
+    out["auto"] = info
+    if info["chosen"] != ("int8" if info["int8_p50_ms"] <= info["float_p50_ms"]
+                          else "float"):
+        raise SystemExit(f"[int8] select_serving_model chose against its "
+                         f"probe: {info}")
+    del model
+    qmodel = QuantizedInferenceModel(cfg, sd)
+    out["weight_only"] = {"p50_ms_1": qmodel.benchmark_latency(
+        x1, runs=10)["p50_ms"], **qmodel.memory_footprint()}
+    del qmodel
+    torch.cuda.empty_cache()
+    log(f"[int8] flagship variants on {smi} (build s, grid distance to float "
+        f"at batch 1, p50 ms at 1): " + "; ".join(
+            f"{k} {v['build_s']:.2f} / {v['rel_err']:.4f} / "
+            f"{v['p50_ms_1']:.3f}" for k, v in variants.items())
+        + f"; QAT {variants['qat']['qat_info']}; select_serving_model(auto) "
+        f"{info}; weight-only int8 p50 {out['weight_only']['p50_ms_1']:.3f} ms"
+        f", {out['weight_only']['quantized_bytes']} of "
+        f"{out['weight_only']['float_bytes']} bytes")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[int8] {out['seconds']:.1f} s")
+    print(json.dumps({"int8": out}, default=str))
+    return out
+
+
 def family_kernel_entry(out: dict, name: str, tag: str) -> dict:
     """A family phase's keys of one kernel's entry in the kernels line."""
     fit = out["fit"]
@@ -3144,6 +3628,8 @@ def main() -> int:
     recipe = phase_recipe(dev)
     yolov2 = phase_yolov2(dev, args.profile)
     yolov3 = phase_yolov3(dev, args.profile)
+    extras = phase_serving_extras(dev)
+    int8 = phase_int8(dev)
     phase_launches(loss, nms, bn)
     counts = train["kernels"]["counts"]
     no_library = ("no single PyTorch call computes this function")
@@ -3153,7 +3639,12 @@ def main() -> int:
         "source": "keras_object_detection_torch/ops/csrc/nms.cu",
         "replaces": "keras_object_detection_tpu/ops/pallas_nms.py:81",
         "tpu": "ops/pallas_nms.py:_nms_kernel", "checked": True,
-        "launches": serve["launches"], "launches_fit": fit["counts"]["nms"],
+        "launches": (serve["launches"] + extras["modes"]["hard"]["k1_launches"]
+                     + sum(int8[t]["k1_launches"] for t in INT8_PHASE)),
+        "launches_serve": serve["launches"],
+        "launches_serving_extras": extras["modes"]["hard"]["k1_launches"],
+        **{f"launches_int8_{t}": int8[t]["k1_launches"] for t in INT8_PHASE},
+        "launches_fit": fit["counts"]["nms"],
         "launches_fit_device_cache": fit["device_cache_counts"]["nms"],
         "max_abs_err": nms["max_abs_err"],
         "shape": [32, 49, 6], "ms": nt["32x49"]["new"]["ms"],

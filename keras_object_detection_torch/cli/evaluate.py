@@ -6,15 +6,16 @@ Examples:
   python -m keras_object_detection_torch.cli.evaluate \\
       --checkpoint-dir checkpoints --data-dir voc/test --coco-map
 
-  # detections of one image, with serving latency
+  # detections of one image, with serving latency, int8 serving
+  # calibrated on 64 images of the test set
   python -m keras_object_detection_torch.cli.evaluate \\
-      --checkpoint-dir checkpoints --image data/test.jpg
+      --checkpoint-dir checkpoints --image data/test.jpg \\
+      --serving int8 --calib-images 64 --data-dir voc/test
 
 Reads ``config.json`` from the checkpoint directory (written by
 ``cli.train``). Runs on ``--device`` (default cuda). Tagged images
-(``utils/viz``, ROADMAP 1.15), soft and fast NMS (1.13), the error
-analysis (1.13), int8 serving (1.14) and several devices (1.15) are not
-ported yet and raise.
+(``utils/viz``) and several devices are not ported yet (ROADMAP 1.15) and
+raise.
 """
 
 from __future__ import annotations
@@ -48,22 +49,34 @@ def parse_args(argv=None):
     p.add_argument("--data-parallel", type=int, default=1)
     p.add_argument("--pr-json", metavar="PATH",
                    help="with --data-dir: per-class precision/recall curves")
-    p.add_argument("--error-analysis", action="store_true")
+    p.add_argument("--error-analysis", action="store_true",
+                   help="with --data-dir: TIDE-style breakdown of every "
+                        "detection (tp/duplicate/classification/localization/"
+                        "both/background + missed GTs, per class)")
     p.add_argument("--per-class-ap", action="store_true",
                    help="also print each class's AP")
     p.add_argument("--use-ema", action="store_true",
                    help="serve the EMA weights (the checkpoint must have them)")
     p.add_argument("--nms-mode", choices=("hard", "soft_gaussian",
-                                          "soft_linear", "fast"))
-    p.add_argument("--soft-nms-sigma", type=float)
+                                          "soft_linear", "fast"),
+                   help="EvalConfig.nms_mode for serving: hard (greedy), "
+                        "soft_* (confidence decay), fast (matrix NMS)")
+    p.add_argument("--soft-nms-sigma", type=float,
+                   help="gaussian soft NMS's decay (EvalConfig.soft_nms_sigma)")
     p.add_argument("--avg-ckpts", type=int, metavar="K", default=0,
                    help="serve the average of the newest K checkpoints")
     p.add_argument("--tta", choices=("none", "hflip"),
                    help="hflip: forward the mirror too, NMS over the union")
     p.add_argument("--serving", choices=("float", "int8", "auto"),
-                   default="float")
-    p.add_argument("--calib-images", type=int, default=0, metavar="N")
-    p.add_argument("--qat-steps", type=int, default=0, metavar="STEPS")
+                   default="float",
+                   help="float, int8 (BN folded, s8 x s8 -> s32 convs) or "
+                        "auto (time both at batch 1, serve the faster)")
+    p.add_argument("--calib-images", type=int, default=0, metavar="N",
+                   help="for --serving int8/auto with --data-dir: static "
+                        "activation scales calibrated on N dataset images")
+    p.add_argument("--qat-steps", type=int, default=0, metavar="STEPS",
+                   help="with --calib-images: QAT steps before freezing to "
+                        "int8")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu to run on the CPU)")
     return p.parse_args(argv)
@@ -74,19 +87,54 @@ def check_flags(args) -> None:
     if args.tag_dir or args.grid_overlay or (args.image and args.names):
         raise NotImplementedError("tagged images (utils/viz) are not ported "
                                   "yet (ROADMAP 1.15)")
-    if args.error_analysis:
-        raise NotImplementedError("--error-analysis is not ported yet "
-                                  "(ROADMAP 1.13)")
-    if (args.nms_mode not in (None, "hard")
-            or args.soft_nms_sigma is not None):
-        raise NotImplementedError("soft and fast NMS are not ported yet "
-                                  "(ROADMAP 1.13)")
-    if args.serving != "float" or args.calib_images or args.qat_steps:
-        raise NotImplementedError("int8 serving is not ported yet "
-                                  "(ROADMAP 1.14)")
     if args.data_parallel != 1:
         raise NotImplementedError("evaluation over several devices is not "
                                   "ported yet (ROADMAP 1.15)")
+
+
+def calibration_images(ds, n: int):
+    """The first ``n`` images of ``ds`` as one u8 array, without the zero
+    frames that pad its last batch (black frames would skew the
+    calibration)."""
+    import numpy as np
+
+    stack = []
+    for bi, (images, _, _) in enumerate(ds.epoch()):
+        real = min(len(images), ds.num_examples - bi * ds.batch_size)
+        stack.extend(images[:real])
+        if len(stack) >= n:
+            break
+    return np.stack(stack[:n])
+
+
+def serving_model(args, cfg, state_dict):
+    """``(model, info)`` of ``--serving``, with ``--calib-images`` and
+    ``--qat-steps`` (JAX's CLI's rules and errors)."""
+    from keras_object_detection_torch.eval import InferenceModel
+
+    if args.serving == "float":
+        if args.calib_images or args.qat_steps:
+            raise SystemExit("error: --calib-images/--qat-steps configure "
+                             "int8 serving; add --serving int8 (or auto)")
+        return InferenceModel(cfg, state_dict, device=args.device), None
+    from keras_object_detection_torch.data import YoloDataset
+    from keras_object_detection_torch.export import select_serving_model
+
+    calib = None
+    if args.calib_images:
+        if not args.data_dir:
+            raise SystemExit("error: --calib-images needs --data-dir")
+        calib = calibration_images(YoloDataset(
+            args.data_dir, cfg.model.image_size,
+            batch_size=min(args.calib_images, 32),
+            max_boxes=cfg.data.max_boxes_per_image,
+            letterbox=cfg.data.letterbox), args.calib_images)
+        print(f"int8 calibration set: {len(calib)} images")
+    elif args.qat_steps:
+        raise SystemExit("error: --qat-steps needs --calib-images")
+    return select_serving_model(cfg, state_dict, mode=args.serving,
+                                calib_images=calib, device=args.device,
+                                qat_steps=args.qat_steps)
 
 
 def _labels(path):
@@ -120,17 +168,19 @@ def main(argv=None) -> None:
     from keras_object_detection_torch.config import Config
     from keras_object_detection_torch.data import YoloDataset
     from keras_object_detection_torch.data.reader import load_example
-    from keras_object_detection_torch.eval import (Evaluator, InferenceModel,
-                                                   load_serving_state)
+    from keras_object_detection_torch.eval import Evaluator, load_serving_state
 
     cfg_path = os.path.join(args.checkpoint_dir, "config.json")
     if not os.path.exists(cfg_path):
         raise SystemExit(f"error: {cfg_path} not found (written by cli.train)")
     with open(cfg_path) as f:
         cfg = Config.from_json(f.read())
-    if args.tta:
+    overrides = {k: v for k, v in (("nms_mode", args.nms_mode),
+                                   ("soft_nms_sigma", args.soft_nms_sigma),
+                                   ("tta", args.tta)) if v is not None}
+    if overrides:
         cfg = dataclasses.replace(cfg, eval=dataclasses.replace(
-            cfg.eval, tta=args.tta))
+            cfg.eval, **overrides))
     try:
         state, state_dict, info = load_serving_state(
             cfg, args.checkpoint_dir, avg_ckpts=args.avg_ckpts,
@@ -140,8 +190,9 @@ def main(argv=None) -> None:
     print(f"restored checkpoint: {info}")
     size, max_boxes = cfg.model.image_size, cfg.data.max_boxes_per_image
 
-    if args.image or args.image_dir:
-        model = InferenceModel(cfg, state_dict, device=args.device)
+    model, serving = serving_model(args, cfg, state_dict)
+    if serving is not None:
+        print(f"serving path: {serving}")
     if args.image:
         img = load_example(args.image, size, max_boxes,
                            letterbox=cfg.data.letterbox)[0]
@@ -149,6 +200,10 @@ def main(argv=None) -> None:
         print(f"forward+decode+NMS: p50 {lat['p50_ms']:.2f} ms (min "
               f"{lat['min_ms']:.2f}, mean {lat['mean_ms']:.2f}, batch 1, "
               f"{args.device})")
+        staged = model.benchmark_latency(img[None], runs=args.latency_runs,
+                                         staged=True)
+        print(f"staged model->decode->NMS: p50 {staged['p50_ms']:.2f} ms "
+              f"(each stage synchronised)")
         dets = _report(model.predict_single(img), args.image, cfg)
         print(json.dumps({"image": os.path.basename(args.image),
                           "latency_ms": lat, "detections": dets}))
@@ -188,6 +243,12 @@ def main(argv=None) -> None:
             for c, ap in enumerate(evaluator.map_metric.result_per_class()):
                 label = names[c] if names and c < len(names) else str(c)
                 print(f"  {label:>16s}  {ap:.4f}")
+        if args.error_analysis:
+            from keras_object_detection_torch.ops.error_analysis import \
+                format_error_table
+
+            print(format_error_table(
+                evaluator.map_metric.result_error_analysis(), names))
         if args.pr_json:
             curves = evaluator.map_metric.result_pr_curves()
             if names:

@@ -194,7 +194,8 @@ class EvalConfig:
     # Candidate sets larger than this are cut to the top-K by confidence
     # before NMS (ops/nms.py top_k_candidates); 0 disables.
     max_candidates: int = 512
-    # The port serves "hard" (greedy) NMS only so far.
+    # Serving's NMS: "hard" (greedy, the reference's), "soft_gaussian" /
+    # "soft_linear" (confidence decay) or "fast" (matrix NMS)
     nms_mode: str = "hard"
     soft_nms_sigma: float = 0.5
     mask_padded_images: bool = False

@@ -4,27 +4,30 @@
 
 ``InferenceModel``: uint8 NHWC images -> /255 -> ``YoloV1`` ->
 ``decode_grid`` (the anchor head: ``decode_anchor_grid``; the FPN head:
-``decode_fpn_grids`` over its per-scale grids) ->
-``auto_batched_non_max_suppression``, which cuts candidate sets above
-``EvalConfig.max_candidates`` to the top-K and on the GPU is the
-hand-written NMS kernel. ``Evaluator``: dataset loss and mAP through the
-eval step (``train/loop.py``). ``load_serving_state``: the checkpoint a
-caller serves.
+``decode_fpn_grids`` over its per-scale grids) -> ``serving_nms``: with
+``EvalConfig.nms_mode="hard"`` ``auto_batched_non_max_suppression``, which
+cuts candidate sets above ``EvalConfig.max_candidates`` to the top-K and on
+the GPU is the hand-written NMS kernel; with ``"fast"``, ``"soft_gaussian"``
+or ``"soft_linear"`` the top-K cut, then fast or soft NMS in plain torch.
+``Evaluator``: dataset loss and mAP through the eval step
+(``train/loop.py``). ``load_serving_state``: the checkpoint a caller serves.
 
-Soft/fast NMS, the staged latency variant (ROADMAP 1.13) and mesh serving
-(ROADMAP 1.15) are not ported yet and raise.
+``ServingModel`` is what the float, weight-only int8 and true int8 serving
+models (``export/``) share: the decode, TTA, NMS, ``predict*`` and
+``benchmark_latency``. Mesh serving (ROADMAP 1.15) is not ported yet and
+raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Mapping, Optional, Tuple, Union
+from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from keras_object_detection_torch.config import Config
+from keras_object_detection_torch.config import Config, EvalConfig
 from keras_object_detection_torch.core.anchors import decode_anchor_grid
 from keras_object_detection_torch.core.fpn import decode_fpn_grids
 from keras_object_detection_torch.core.grid import decode_grid
@@ -33,6 +36,9 @@ from keras_object_detection_torch.data.pipeline import YoloDataset
 from keras_object_detection_torch.models.yolo import build_model
 from keras_object_detection_torch.ops.cuda_nms import \
     auto_batched_non_max_suppression
+from keras_object_detection_torch.ops.nms import (
+    batched_fast_non_max_suppression, batched_soft_non_max_suppression,
+    top_k_candidates)
 from keras_object_detection_torch.train.checkpoint import (CheckpointManager,
                                                            average_checkpoints)
 from keras_object_detection_torch.train.loop import (TrainState, _device,
@@ -44,47 +50,52 @@ from keras_object_detection_torch.train.loop import (TrainState, _device,
 Images = Union[np.ndarray, torch.Tensor]
 
 
-class InferenceModel:
-    """Forward + decode (+ NMS) serving.
+def serving_nms(boxes: torch.Tensor, e: EvalConfig
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The NMS of ``e.nms_mode``: ``"hard"`` through
+    ``auto_batched_non_max_suppression`` (the kernel on a CUDA tensor);
+    otherwise the top-K cut to ``max_candidates``, then fast NMS, or soft
+    NMS with ``soft_nms_sigma`` and the method after ``"soft_"``."""
+    if e.nms_mode == "hard":
+        return auto_batched_non_max_suppression(
+            boxes, e.iou_threshold, e.conf_threshold, e.max_candidates)
+    if e.max_candidates and boxes.shape[1] > e.max_candidates:
+        boxes = top_k_candidates(boxes, e.max_candidates)
+    if e.nms_mode == "fast":
+        return batched_fast_non_max_suppression(boxes, e.iou_threshold,
+                                                e.conf_threshold)
+    return batched_soft_non_max_suppression(
+        boxes, e.iou_threshold, e.conf_threshold, e.soft_nms_sigma,
+        e.nms_mode.removeprefix("soft_"))
 
-    ``device=None`` means ``"cuda"`` and raises when no GPU is present; only
-    an explicit ``device="cpu"`` serves on the CPU (with the plain NMS).
-    Results are tensors on ``device``: ``predict_raw`` the ``(B, S, S,
-    depth)`` grids (the FPN head: a tuple of them, coarse -> fine),
+
+def _unflip(boxes: torch.Tensor) -> torch.Tensor:
+    """The mirror's detections in the image's frame: ``cx -> 1 - cx``."""
+    boxes[..., 2] = 1.0 - boxes[..., 2]
+    return boxes
+
+
+class ServingModel:
+    """Decode (+ TTA) + NMS over a subclass's ``_forward(images_u8)``, which
+    maps device-resident uint8 NHWC images to the ``(B, S, S, depth)`` grid
+    (the FPN head: a tuple of them, coarse -> fine). Subclasses set
+    ``config`` and ``device``.
+
+    Results are tensors on ``device``: ``predict_raw`` the grids,
     ``predict_decoded`` the ``(B, N, 6)`` candidates (N = S*S, S*S*B_anchors
     for the anchor head, the sum over the scales of S_s²*B_s for the FPN
     head, twice that with ``tta="hflip"``), ``predict`` the NMS rows and
-    survivor mask (N cut to ``max_candidates`` first where it is
-    larger).
-    """
+    survivor mask (``serving_nms``: N cut to ``max_candidates`` first where
+    it is larger)."""
 
-    def __init__(self, config: Config, state_dict: Mapping[str, torch.Tensor],
-                 device: Optional[Union[str, torch.device]] = None, mesh=None):
-        e = config.eval
-        if mesh is not None:
-            raise NotImplementedError("mesh serving is not ported yet "
-                                      "(ROADMAP 1.15)")
-        if e.nms_mode != "hard":
-            raise NotImplementedError(f"nms_mode {e.nms_mode!r} is not ported "
-                                      "yet (ROADMAP 1.13)")
-        if e.tta not in ("none", "hflip"):
-            raise ValueError(f"unknown EvalConfig.tta {e.tta!r} "
-                             "(expected 'none' or 'hflip')")
-        self.device = _device(device, "serving")
-        self.config = config
-        model = build_model(config)
-        model.load_state_dict(state_dict, strict=True)
-        self.model = model.to(self.device, memory_format=torch.channels_last)
+    config: Config
+    device: torch.device
+
+    def _forward(self, images_u8: torch.Tensor):
+        raise NotImplementedError
 
     def _images(self, images_u8: Images) -> torch.Tensor:
         return torch.as_tensor(images_u8).to(self.device)
-
-    def _forward(self, images_u8: torch.Tensor):
-        g, head = self.config.grid, self.config.model.head
-        y = self.model(preprocess_eval_batch(images_u8))
-        if head == "fpn":
-            return y
-        return y.reshape(-1, g.grid, g.grid, g.head_depth(head))  # flat heads
 
     def _decode(self, grid) -> torch.Tensor:
         g = self.config.grid
@@ -95,6 +106,13 @@ class InferenceModel:
             return decode_anchor_grid(grid, g.num_classes, g.anchors, g.grid)
         return decode_grid(grid, g.num_classes, g.num_boxes, g.grid)
 
+    def _nms(self, boxes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return serving_nms(boxes, self.config.eval)
+
+    @property
+    def _tta(self) -> str:
+        return self.config.eval.tta
+
     @torch.inference_mode()
     def predict_raw(self, images_u8: Images):
         return self._forward(self._images(images_u8))
@@ -103,20 +121,16 @@ class InferenceModel:
     def predict_decoded(self, images_u8: Images) -> torch.Tensor:
         x = self._images(images_u8)
         boxes = self._decode(self._forward(x))
-        if self.config.eval.tta == "hflip":
-            # the mirror's detections, un-flipped (cx -> 1 - cx), join the
-            # candidates: NMS merges 2*S*S rows
-            fb = self._decode(self._forward(x.flip(2)))
-            fb[..., 2] = 1.0 - fb[..., 2]
+        if self._tta == "hflip":
+            # the mirror's detections, un-flipped, join the candidates: NMS
+            # merges 2*S*S rows
+            fb = _unflip(self._decode(self._forward(x.flip(2))))
             boxes = torch.cat([boxes, fb], dim=1)
         return boxes
 
     @torch.inference_mode()
     def predict(self, images_u8: Images) -> Tuple[torch.Tensor, torch.Tensor]:
-        e = self.config.eval
-        return auto_batched_non_max_suppression(
-            self.predict_decoded(images_u8), e.iou_threshold,
-            e.conf_threshold, e.max_candidates)
+        return self._nms(self.predict_decoded(images_u8))
 
     def predict_single(self, image_u8: Images) -> torch.Tensor:
         """One image -> ``(num_kept, 6)`` rows, the reference's NMS output."""
@@ -127,23 +141,44 @@ class InferenceModel:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    @torch.inference_mode()
+    def _staged(self, x: torch.Tensor):
+        """``predict`` as stages, each one's result complete on the device
+        before the next is issued: forward, decode, (with ``tta="hflip"``
+        the mirror's forward, its decode, the un-flip and the
+        concatenation,) NMS."""
+        stages = [lambda _: self._forward(x), self._decode]
+        if self._tta == "hflip":
+            stages += [lambda d: (d, self._forward(x.flip(2))),
+                       lambda t: (t[0], self._decode(t[1])),
+                       lambda t: (t[0], _unflip(t[1])),
+                       lambda t: torch.cat(t, dim=1)]
+        out = None
+        for stage in stages + [self._nms]:
+            out = stage(out)
+            self._sync()
+        return out
+
     def benchmark_latency(self, images_u8: Images, runs: int = 5,
                           staged: bool = False,
                           pipeline_k: int = 0) -> Dict[str, float]:
-        """Timed ``predict`` calls on device-resident images: p50 / min /
-        mean milliseconds, each call ended by a device synchronise.
-        ``pipeline_k > 0`` adds ``pipelined_per_call_ms``: K calls issued
-        back to back, one synchronise."""
-        if staged:
-            raise NotImplementedError("staged latency is not ported yet "
-                                      "(ROADMAP 1.13)")
+        """Timed serving calls on device-resident images: p50 / min / mean
+        milliseconds, each call ended by a device synchronise.
+        ``staged=False`` times ``predict``; ``staged=True`` times the same
+        work as separate stages with a synchronise after each (``_staged``:
+        the reference's model, then separate post-processing). In eager
+        PyTorch every stage is its own launches either way, so the
+        difference is the stages' barriers. ``pipeline_k > 0`` adds
+        ``pipelined_per_call_ms``: K calls issued back to back, one
+        synchronise."""
         x = self._images(images_u8)
-        self.predict(x)  # warm-up: kernel build, cuDNN plans
+        run: Callable = self._staged if staged else self.predict
+        run(x)  # warm-up: kernel build, cuDNN plans
         self._sync()
         times = []
         for _ in range(runs):
             t0 = time.perf_counter()
-            self.predict(x)
+            run(x)
             self._sync()
             times.append((time.perf_counter() - t0) * 1000)
         times.sort()
@@ -152,11 +187,45 @@ class InferenceModel:
         if pipeline_k:
             t0 = time.perf_counter()
             for _ in range(pipeline_k):
-                self.predict(x)
+                run(x)
             self._sync()
             out["pipelined_per_call_ms"] = (
                 (time.perf_counter() - t0) * 1000 / pipeline_k)
         return out
+
+
+def check_serving_config(e: EvalConfig, mesh) -> None:
+    """Raise on what no serving model takes: a mesh (not ported yet) or an
+    unknown TTA."""
+    if mesh is not None:
+        raise NotImplementedError("mesh serving is not ported yet "
+                                  "(ROADMAP 1.15)")
+    if e.tta not in ("none", "hflip"):
+        raise ValueError(f"unknown EvalConfig.tta {e.tta!r} "
+                         "(expected 'none' or 'hflip')")
+
+
+class InferenceModel(ServingModel):
+    """Forward + decode (+ NMS) serving of a float ``state_dict``.
+
+    ``device=None`` means ``"cuda"`` and raises when no GPU is present; only
+    an explicit ``device="cpu"`` serves on the CPU (with the plain NMS)."""
+
+    def __init__(self, config: Config, state_dict: Mapping[str, torch.Tensor],
+                 device: Optional[Union[str, torch.device]] = None, mesh=None):
+        check_serving_config(config.eval, mesh)
+        self.device = _device(device, "serving")
+        self.config = config
+        model = build_model(config)
+        model.load_state_dict(state_dict, strict=True)
+        self.model = model.to(self.device, memory_format=torch.channels_last)
+
+    def _forward(self, images_u8: torch.Tensor):
+        g, head = self.config.grid, self.config.model.head
+        y = self.model(preprocess_eval_batch(images_u8))
+        if head == "fpn":
+            return y
+        return y.reshape(-1, g.grid, g.grid, g.head_depth(head))  # flat heads
 
 
 def load_serving_state(config: Config, checkpoint_dir: str,

@@ -35,6 +35,7 @@ from keras_object_detection_torch.core.fpn import (decode_fpn_grids,
 from keras_object_detection_torch.core.grid import decode_grid
 from keras_object_detection_torch.ops.cuda_nms import \
     auto_batched_non_max_suppression
+from keras_object_detection_torch.ops.error_analysis import error_analysis
 from keras_object_detection_torch.ops.nms import top_k_candidates
 
 #: COCO's IoU sweep 0.50:0.05:0.95
@@ -297,6 +298,19 @@ class MeanAveragePrecision:
                       "num_gt": int(total_true[c])}
         return out
 
-    def result_error_analysis(self, *args, **kwargs) -> dict:
-        raise NotImplementedError("the error analysis is not ported yet "
-                                  "(ROADMAP 1.13)")
+    def result_error_analysis(self, iou_threshold: Optional[float] = None,
+                              bg_threshold: float = 0.1) -> dict:
+        """TIDE-style breakdown of the accumulated box sets
+        (``ops/error_analysis.py``, on the host): every detection a tp /
+        duplicate / classification / localization / both / background,
+        and the missed ground truths, in all and per class, at
+        ``iou_threshold`` (default: the mAP threshold). Its TPs are
+        ``result()``'s matcher's."""
+        if not self._true:
+            return error_analysis(
+                np.zeros((0, 1, 6)), np.zeros((0, 1), bool),
+                np.zeros((0, 1, 6)), np.zeros((0, 1), bool),
+                self._num_classes)
+        thr = self._map_iou_threshold if iou_threshold is None else iou_threshold
+        return error_analysis(*(x.cpu().numpy() for x in self._sets()),
+                              self._num_classes, thr, bg_threshold)

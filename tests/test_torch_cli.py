@@ -187,9 +187,6 @@ def test_the_jax_clis_config_loads_in_the_port(flags, tmp_path, monkeypatch):
     (cli_train, ["--device-cache-layout", "sharded"], "ROADMAP 1.15"),
     (cli_evaluate, ["--tag-dir", "t"], "ROADMAP 1.15"),
     (cli_evaluate, ["--image", "a.jpg", "--names", "n"], "ROADMAP 1.15"),
-    (cli_evaluate, ["--error-analysis"], "ROADMAP 1.13"),
-    (cli_evaluate, ["--nms-mode", "fast"], "ROADMAP 1.13"),
-    (cli_evaluate, ["--serving", "int8"], "ROADMAP 1.14"),
     (cli_evaluate, ["--data-parallel", "2"], "ROADMAP 1.15"),
 ])
 def test_unported_flags_raise(cli, argv, match, tmp_path):
@@ -207,3 +204,119 @@ def test_the_default_device_is_the_gpu(trained):
         cli_train.main(["--data-dir", data, "--preset", "tiny",
                         "--checkpoint-dir", ckpt + "_gpu"])
     assert not os.path.exists(ckpt + "_gpu")
+
+
+# the serving flags, which the port refused before its serving extras and
+# int8 serving were ported: what JAX's evaluate.py prints for them
+@pytest.mark.parametrize("argv,data,expect", [
+    (["--error-analysis"], True,
+     ["detection error analysis (", "    missed_gt"]),
+    (["--nms-mode", "fast", "--image-dir", "DATA", "--detections-json",
+      "TMP/det.json"], False,
+     ["wrote ", " detections over 5 images"]),
+    (["--nms-mode", "soft_linear", "--soft-nms-sigma", "0.3", "--image",
+      "DATA/img000.jpg", "--latency-runs", "1"], False,
+     ["forward+decode+NMS: p50", "staged model->decode->NMS: p50"]),
+    (["--serving", "int8"], False, ["serving path: {'mode': 'int8'}"]),
+    (["--serving", "auto", "--calib-images", "3", "--image",
+      "DATA/img001.jpg", "--latency-runs", "1"], True,
+     ["int8 calibration set: 3 images", "serving path: {'mode': 'auto'",
+      "staged model->decode->NMS: p50"]),
+])
+def test_serving_flags_run_as_in_jax(trained, argv, data, expect, capsys,
+                                     tmp_path):
+    data_dir, ckpt, train_argv = trained
+    if not os.path.exists(os.path.join(ckpt, "config.json")):
+        cli_train.main(train_argv)
+    capsys.readouterr()
+    argv = [a.replace("DATA", data_dir).replace("TMP", str(tmp_path))
+            for a in argv]
+    cli_evaluate.main(["--checkpoint-dir", ckpt, "--device", "cpu", *argv,
+                       *(["--data-dir", data_dir] if data else [])])
+    out = capsys.readouterr().out
+    for line in expect:
+        assert line in out, (line, out)
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--calib-images", "2"], "add --serving int8"),
+    (["--serving", "int8", "--calib-images", "2"], "needs --data-dir"),
+    (["--serving", "int8", "--qat-steps", "2"], "needs --calib-images"),
+])
+def test_serving_flag_errors_are_jax_s(trained, argv, message):
+    _, ckpt, train_argv = trained
+    if not os.path.exists(os.path.join(ckpt, "config.json")):
+        cli_train.main(train_argv)
+    with pytest.raises(SystemExit, match=message):
+        cli_evaluate.main(["--checkpoint-dir", ckpt, "--device", "cpu", *argv])
+
+
+def _jax_serving_map_keys(b):
+    """The JSON keys of tools/serving_map.py, read from its source: the
+    ``out = {...}`` literal and every ``out[...] =``, f-strings at batch
+    ``b``."""
+    import ast
+
+    tree = ast.parse((ROOT / "tools" / "serving_map.py").read_text())
+    keys = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict) \
+                and getattr(node.targets[0], "id", "") == "out":
+            keys |= {k.value for k in node.value.keys}
+        if isinstance(node, ast.Assign) and isinstance(
+                node.targets[0], ast.Subscript) \
+                and getattr(node.targets[0].value, "id", "") == "out":
+            key = node.targets[0].slice
+            keys.add(key.value if isinstance(key, ast.Constant) else "".join(
+                v.value if isinstance(v, ast.Constant) else str(b)
+                for v in key.values))
+    return keys
+
+
+def test_serving_map_keys_and_map_match(trained, capsys):
+    """cli.serving_map prints tools/serving_map.py's keys (int8 and
+    --latency ones included), and its mAP is mean_average_precision over
+    the port's own predict on the same images (at conf 0 and IoU 0.01,
+    where the one-epoch model's boxes score)."""
+    import numpy as np
+
+    from keras_object_detection_torch.cli import serving_map
+    from keras_object_detection_torch.data import YoloDataset
+    from keras_object_detection_torch.eval import (InferenceModel,
+                                                   load_serving_state)
+    from keras_object_detection_torch.ops.map import mean_average_precision
+
+    data, ckpt, train_argv = trained
+    if not os.path.exists(os.path.join(ckpt, "config.json")):
+        cli_train.main(train_argv)
+    capsys.readouterr()
+    serving_map.main(["--checkpoint-dir", ckpt, "--data", data, "--device",
+                      "cpu", "--batch-size", "2", "--serving", "int8",
+                      "--calib-images", "3", "--latency", "1"])
+    int8 = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(int8) == _jax_serving_map_keys(1)
+    assert int8["serving"] == "int8" and int8["calib_images"] == 3
+    assert 0.0 <= int8["serving_mAP"] <= 1.0 and int8["images"] == 5
+
+    serving_map.main(["--checkpoint-dir", ckpt, "--data", data, "--device",
+                      "cpu", "--batch-size", "2", "--conf-threshold", "0.0",
+                      "--map-iou", "0.01"])
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    with open(os.path.join(ckpt, "config.json")) as f:
+        cfg = tconfig.Config.from_json(f.read())
+    cfg = dataclasses.replace(cfg, eval=dataclasses.replace(
+        cfg.eval, conf_threshold=0.0))
+    _, sd, _ = load_serving_state(cfg, ckpt, device="cpu")
+    model = InferenceModel(cfg, sd, device="cpu")
+    ds = YoloDataset(data, cfg.model.image_size, 5, max_boxes=32)
+    images, boxes, valid = next(ds.epoch())
+    rows, keep = model.predict(images)
+    gt = np.concatenate([boxes[..., 4:5], np.ones_like(boxes[..., :1]),
+                         boxes[..., :4]], axis=-1)
+    want = float(mean_average_precision(
+        torch.from_numpy(gt), torch.from_numpy(valid), rows, keep,
+        cfg.grid.num_classes, 0.01))
+    # a loose IoU threshold, so that the seeded model's boxes score at all
+    assert got["serving_mAP"] == round(want, 4) and want > 0, want
+    assert (got["serving"], got["nms_mode"], got["conf_threshold"]) == (
+        "float", "hard", 0.0)

@@ -5,7 +5,9 @@ CPU mode, and the paths that run them (serving, the train step, the
 frozen-backbone and GAP-head steps, the recipe step with remat, the mAP
 accumulator, ``Trainer.fit``, the pinned-memory prefetch), and the YOLOv2
 anchor family's card-side cases (K2/K3 at its 21 BatchNorm shapes, K1
-behind the top-k cut, the v2 loss on the card, a passthrough step). They skip
+behind the top-k cut, the v2 loss on the card, a passthrough step), and the
+int8 route (``ops/int8_conv.py``), int8 serving and soft / fast NMS on the
+card. They skip
 without a card. This file imports neither JAX nor the JAX package, so on a
 machine without JAX it runs alone:
 
@@ -1088,3 +1090,82 @@ def test_v3_loss_on_the_card_matches_the_cpu(cuda):
     for a, b in zip(card_grads, cpu_grads):
         torch.testing.assert_close(a, b, rtol=1e-5,
                                    atol=1e-5 * b.abs().max().item())
+
+
+# --- the serving extras and int8 serving on the card ----------------------
+
+
+@pytest.mark.parametrize("kernel,stride,pad,size,batch,cin,cout", [
+    (3, 1, 1, 9, 2, 3, 16), (7, 2, 3, 32, 4, 3, 64), (3, 2, 1, 10, 2, 16, 8),
+    (1, 1, 0, 6, 3, 64, 24), (3, 1, "SAME", 7, 2, 16, 12),
+    (3, 2, "SAME", 8, 2, 8, 16), (3, 1, 1, 3, 1, 16, 8)])  # M = 9 <= 16
+def test_int8_route_equals_the_plain_gemm(cuda, kernel, stride, pad, size,
+                                          batch, cin, cout):
+    """The route (im2col + torch._int_mm, K, N and M padded where
+    _int_mm needs it) against the plain float64 GEMM on the card and the
+    CPU's, equal; one GEMM counted."""
+    from keras_object_detection_torch.ops import int8_conv
+
+    g = torch.Generator().manual_seed(size * 10 + cin)
+    xq = torch.randint(-127, 128, (batch, size, size, cin), generator=g,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (cout, kernel, kernel, cin), generator=g,
+                       dtype=torch.int8)
+    before = int8_conv.LAUNCHES
+    got = int8_conv.int8_conv2d(xq.to(cuda), wq.to(cuda), stride, pad)
+    assert int8_conv.LAUNCHES == before + 1
+    a, _ = int8_conv.im2col(xq.to(cuda), kernel, stride, pad)
+    w = int8_conv._kernel_matrix(wq.to(cuda), a.shape[1])
+    plain = int8_conv.plain_int8_matmul(a, w)[:, :cout].reshape(got.shape)
+    assert torch.equal(got, plain)
+    assert torch.equal(got.cpu(), int8_conv.int8_conv2d(xq, wq, stride, pad))
+
+
+def test_int8_route_raises_rather_than_falling_back(cuda):
+    from keras_object_detection_torch.ops import int8_conv
+
+    a = torch.ones(32, 27, dtype=torch.int8, device=cuda)  # K not 8k
+    with pytest.raises(RuntimeError):
+        int8_conv.int8_matmul(a, torch.ones(8, 27, dtype=torch.int8,
+                                            device=cuda))
+
+
+@pytest.mark.parametrize("case", ["3x98", "tied 4x49", "identical boxes 4x49",
+                                  "iou tie 0.5", "signed zeros"])
+@pytest.mark.parametrize("mode", ["gaussian", "linear", "fast"])
+def test_soft_and_fast_nms_on_the_card_equal_the_cpu(cuda, case, mode):
+    from chip_smoke import SOFT_NMS_RTOL, nms_mode_fn, nms_rows, same_nms_result
+
+    rows, iou, conf = ((nms_rows(9, 3, 98), 0.5, 0.4) if case == "3x98"
+                       else NMS_CASES[case]())
+    rows = torch.from_numpy(rows)
+    fn = nms_mode_fn(mode)
+    ok, rel = same_nms_result(fn(rows.to(cuda), iou, conf),
+                              fn(rows, iou, conf), SOFT_NMS_RTOL)
+    assert ok, rel
+
+
+def test_int8_serving_on_the_gpu_goes_through_the_route_and_k1(cuda):
+    from keras_object_detection_torch.export import Int8InferenceModel
+    from keras_object_detection_torch.ops import int8_conv
+
+    cfg = tiny_cpu_config()
+    sd = build_model(cfg, torch.Generator().manual_seed(0)).state_dict()
+    model = Int8InferenceModel(cfg, sd)
+    assert model.device.type == "cuda"
+    n_int8 = sum("w_q" in layer for layer in model.layers)
+    images = np.random.RandomState(9).randint(0, 256, (4, 224, 224, 3),
+                                              np.uint8)
+    nms_before, int8_before = cuda_nms.LAUNCHES, int8_conv.LAUNCHES
+    rows, valid = model.predict(images)
+    assert cuda_nms.LAUNCHES == nms_before + 1
+    assert int8_conv.LAUNCHES == int8_before + n_int8
+    want = Int8InferenceModel(cfg, sd, device="cpu").predict_raw(images)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the float32 final conv
+    try:
+        got = model.predict_raw(images).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-4)

@@ -6,8 +6,11 @@ runs a one-epoch ``Trainer.fit`` over a small decoded-cache dataset with
 ``Evaluator.evaluate`` on it and a two-epoch one with the v1 recipe
 (mosaic, mixup, multiscale, adamw, remat, ``steps_per_dispatch`` over the
 device cache), takes a step with each IoU box loss and sgdw, takes a
-YOLOv2 anchor + passthrough step and a YOLOv3 FPN step and serves each, and
-the three command lines answer ``--help``;
+YOLOv2 anchor + passthrough step and a YOLOv3 FPN step and serves each,
+serves soft and fast NMS and the staged latency, runs the error analysis,
+serves int8 (dynamic, calibrated, bias-corrected, QAT, weight-only, on the
+FPN plan too) and picks a serving model, and the four command lines answer
+``--help``;
 h5py is never imported (only reading a Keras file needs it)."""
 
 import pathlib
@@ -157,7 +160,42 @@ assert torch.isfinite(metrics["total"])
 rows, valid = InferenceModel(fc, state.model.state_dict(), device="cpu"
                              ).predict(images[:, :56, :56])
 assert rows.shape == (2, 512, 6) and torch.isfinite(rows).all()
-for cli in ("train", "evaluate", "kmeans_anchors"):
+# serving extras: soft / fast NMS, staged latency, the error analysis
+for mode in ("soft_gaussian", "soft_linear", "fast"):
+    mc = dataclasses.replace(tc, eval=dataclasses.replace(tc.eval,
+                                                          nms_mode=mode))
+    model = InferenceModel(mc, create_train_state(mc, device="cpu")
+                           .model.state_dict(), device="cpu")
+    rows, valid = model.predict(images[:, :56, :56])
+    assert rows.shape == (2, 49, 6)
+    assert model.benchmark_latency(images[:1, :56, :56], runs=1,
+                                   staged=True)["batch"] == 1
+from keras_object_detection_torch.ops.map import MeanAveragePrecision
+metric = MeanAveragePrecision(3)
+grid = torch.zeros(2, 7, 7, 13)
+metric.update_state(grid, grid)
+assert metric.result_error_analysis()["num_detections"] == 0
+# int8 serving
+from keras_object_detection_torch.export import (
+    Int8InferenceModel, QuantizedInferenceModel, select_serving_model)
+sd = create_train_state(tc, device="cpu").model.state_dict()
+calib = images[:3, :56, :56]
+for kw in (dict(), dict(calib_images=calib),
+           dict(calib_images=calib, bias_correct=True),
+           dict(calib_images=calib, qat_steps=1, qat_batch=2)):
+    rows, valid = Int8InferenceModel(tc, sd, device="cpu", **kw).predict(
+        images[:, :56, :56])
+    assert rows.shape == (2, 49, 6) and torch.isfinite(rows).all(), kw
+rows, valid = QuantizedInferenceModel(tc, sd, device="cpu").predict(
+    images[:, :56, :56])
+assert rows.shape == (2, 49, 6)
+model, info = select_serving_model(tc, sd, "auto", probe_runs=1, device="cpu")
+assert info["chosen"] in ("float", "int8")
+rows, valid = Int8InferenceModel(fc, create_train_state(fc, device="cpu")
+                                 .model.state_dict(), device="cpu").predict(
+    images[:, :56, :56])
+assert rows.shape == (2, 512, 6)
+for cli in ("train", "evaluate", "kmeans_anchors", "serving_map"):
     proc = subprocess.run([sys.executable, "-c", "import sys; "
                            f"sys.modules.update(dict.fromkeys({BLOCKED!r})); "
                            f"from keras_object_detection_torch.cli.{{cli}} "

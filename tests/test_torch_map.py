@@ -214,8 +214,9 @@ def test_empty_accumulator_and_unported_layouts():
     assert metric.result_pr_curves() == {}
     assert metric.result_multi()["mAP@[.50:.95]"] == 0.0
     np.testing.assert_array_equal(metric.result_per_class(), np.zeros(3))
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.13"):
-        metric.result_error_analysis()
+    # the error analysis (ROADMAP 1.13, ported): JAX's empty report
+    assert metric.result_error_analysis() == \
+        jmap.MeanAveragePrecision(3, 2).result_error_analysis()
     # one prior over 3 scales: as in JAX, the constructor takes it and
     # partition_anchors raises at the first update
     grids = [np.zeros((1, s, s, 8), np.float32) for s in (7, 14, 28)]

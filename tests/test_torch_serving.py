@@ -126,8 +126,6 @@ def test_default_device_is_the_gpu():
 
 
 @pytest.mark.parametrize("eval_override,kwargs,match", [
-    ({"nms_mode": "soft_gaussian"}, {}, "ROADMAP 1.13"),
-    ({"nms_mode": "fast"}, {}, "ROADMAP 1.13"),
     ({}, {"mesh": object()}, "ROADMAP 1.15"),
 ])
 def test_unported_serving_options_raise(eval_override, kwargs, match):
@@ -136,6 +134,31 @@ def test_unported_serving_options_raise(eval_override, kwargs, match):
                                                             **eval_override))
     with pytest.raises(NotImplementedError, match=match):
         InferenceModel(cfg, {}, device="cpu", **kwargs)
+
+
+# the serving options the port refused before its serving extras were
+# ported: predict is the mode's NMS of predict_decoded (JAX's
+# forward_decode_nms; tests/test_torch_serving_extras.py holds them
+# against JAX)
+@pytest.mark.parametrize("nms_mode", ["soft_gaussian", "fast"])
+def test_once_unported_serving_options_serve(nms_mode):
+    from keras_object_detection_torch.models import build_model
+    from keras_object_detection_torch.ops import nms as tnms
+
+    cfg = tconfig.tiny_cpu_config()
+    cfg = dataclasses.replace(cfg, eval=dataclasses.replace(
+        cfg.eval, nms_mode=nms_mode))
+    sd = build_model(cfg, torch.Generator().manual_seed(0)).state_dict()
+    tm = InferenceModel(cfg, sd, device="cpu")
+    images = _images(1, n=2)
+    e = cfg.eval
+    want = (tnms.batched_fast_non_max_suppression(
+        tm.predict_decoded(images), e.iou_threshold, e.conf_threshold)
+        if nms_mode == "fast" else tnms.batched_soft_non_max_suppression(
+            tm.predict_decoded(images), e.iou_threshold, e.conf_threshold,
+            e.soft_nms_sigma, "gaussian"))
+    got = tm.predict(images)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_benchmark_latency_reports_and_refuses_staged():
@@ -147,8 +170,10 @@ def test_benchmark_latency_reports_and_refuses_staged():
     assert set(out) == {"p50_ms", "min_ms", "mean_ms", "batch",
                         "pipelined_per_call_ms"}
     assert out["batch"] == 1 and out["min_ms"] > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.13"):
-        tm.benchmark_latency(_images(0, n=1), staged=True)
+    # staged (ROADMAP 1.13, ported): the same keys
+    staged = tm.benchmark_latency(_images(0, n=1), runs=2, staged=True,
+                                  pipeline_k=2)
+    assert set(staged) == set(out) and staged["batch"] == 1
 
 
 def test_unknown_tta_raises():
