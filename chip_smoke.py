@@ -183,7 +183,36 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
              p50; one JSON line "int8";
 16. launches - CUDA launches per call of K1, K4, K5, K2 and K3 (1 each)
              and of the other checkout's, from a torch.profiler trace, after the
-             train and fit phases so that no profiler hook slows them.
+             train and fit phases so that no profiler hook slows them;
+17. parallel - data parallelism (keras_object_detection_torch.parallel):
+             (a) the flagship kernel-path step at batch 64 through the
+             data-parallel path over a one-rank NCCL group, bit-equal to
+             the one-device step (deterministic cuDNN) with no collective
+             in it, its p50 and launches (K2/K3 25, K4/K5 1 a step), and one
+             NCCL all-reduce of the step's float32 gradient bucket timed;
+             (b) two ranks on the one card over gloo with CUDA tensors
+             (started as `python -m chip_smoke --parallel-rank JOB`), a
+             global batch of 64 (its brightness ramped down the rows), 32
+             a rank: the float32 SGD step against the one process's (loss
+             and running statistics to 1e-4; the parameters' updates in
+             norm, the worst and the median within twice what the one
+             process's step with its batch reversed parts from it, at
+             least 2e-2 and 1e-4), rank 1's state equal to rank 0's, and
+             the same comparison shown to catch three planted wrong
+             reductions (K2's sums or K3's sums not all-reduced, the
+             gradients averaged instead of summed); the bf16 kernel path's
+             p50, launches a rank (K2/K3 25, K4/K5 1 a step), all-reduces
+             and their bytes, the gradient all-reduce's time; over NCCL too
+             where there are two cards; (c) float and int8 serving of the
+             flagship and YOLOv3 over the device mesh [cuda:0, cuda:0] at
+             batch 16 (8 a shard, deterministic cuDNN): rows and masks
+             torch.equal to one device serving each shard, K1 once a shard
+             a predict call (the int8 GEMM once an int8 conv a shard); the
+             int8 models also equal to one device serving all 16 (counts,
+             classes, rows); the float models' distance to it (bf16 cuDNN
+             may pick other algorithms at batch 16) reported, beside one
+             device's own batch-8-against-16 distance with no mesh; p50 beside
+             one device's; one JSON line "parallel".
 
 Then one JSON line describing each kernel (K1's launches add the hard-mode
 serving of phase 14 and the int8 serving of phase 15 to phase 4's), one line
@@ -197,6 +226,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import copy
 import dataclasses
 import gzip
 import json
@@ -3592,6 +3622,508 @@ def profile_train(state, step, batch, profile_dir: str,
     log(table)
 
 
+# phase parallel: data parallelism on the card
+PARALLEL_DIR = os.path.join("build", "parallel")
+PARALLEL_WARMUP, PARALLEL_STEPS = 2, 5
+# float32 updates of the two-rank step, in norm: the worst parameter and
+# the median parameter each within twice what the one process's step
+# parts from itself with its batch reversed (the order of its sums alone
+# changes), or these, whichever is larger
+PARALLEL_UPDATE_RTOL = 2e-2
+PARALLEL_MEDIAN_RTOL = 1e-4
+PARALLEL_LOSS_RTOL = 1e-4  # its loss and running statistics
+# wrong reductions planted in the two ranks' step (``planted``), each of
+# which the comparison above must catch
+PLANTED_FAULTS = ("bn_stats_local", "bn_grad_stats_local", "grads_averaged")
+PARALLEL_SERVE_BATCH = 16
+FLAGSHIP_BN_LAUNCHES = {"bn_stats": 25, "bn_grad_stats": 25,
+                        "yolo_loss_forward": 1, "yolo_loss_backward": 1}
+
+
+def parallel_f32_config():
+    """The flagship at full width in float32 with SGD: the two-rank step's
+    yardstick (bf16 rounding makes the early layers' gradients at a random
+    init nearly independent of the summation order, see compare_paths)."""
+    cfg = train_config(True)
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, compute_dtype="float32"),
+        train=dataclasses.replace(cfg.train, optimizer="sgd"))
+
+
+@contextlib.contextmanager
+def planted(fault):
+    """Inside the block the data-parallel step reduces wrongly, as a bug
+    would (``None``: as it should): ``bn_stats_local`` the training
+    BatchNorms normalise with their rank's own statistics (K2's sums not
+    all-reduced), ``bn_grad_stats_local`` K3's sums are not all-reduced
+    (the forward's are), ``grads_averaged`` the gradients are averaged over
+    the ranks instead of summed."""
+    from keras_object_detection_torch.ops import bn
+    from keras_object_detection_torch.parallel import distributed
+
+    saved = bn.bn_batch_stats, bn.all_reduce_, distributed.all_reduce_flat_
+    stats, reduce_, flat_ = saved
+    if fault == "bn_stats_local":
+        bn.bn_batch_stats = lambda x, group=None: stats(x, None)
+    elif fault == "bn_grad_stats_local":
+        def forward_reduced(x, group=None):
+            bn.all_reduce_ = reduce_
+            try:
+                return stats(x, group)
+            finally:
+                bn.all_reduce_ = lambda t, group: t
+
+        bn.bn_batch_stats = forward_reduced
+        bn.all_reduce_ = lambda t, group: t
+    elif fault == "grads_averaged":
+        def averaged(tensors, group):
+            flat_(tensors, group)
+            for t in tensors:
+                t.div_(distributed.world_size(group))
+
+        distributed.all_reduce_flat_ = averaged
+    elif fault is not None:
+        raise ValueError(f"unknown fault {fault!r}")
+    try:
+        yield
+    finally:
+        bn.bn_batch_stats, bn.all_reduce_, distributed.all_reduce_flat_ = saved
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def dp_step(cfg, dev, group, seed: int = 5, reverse: bool = False,
+            state=None):
+    """One step of ``cfg`` from seeded weights on this rank's block of the
+    synthetic global batch of 64 with the global batch's draws (the same
+    on every rank); deterministic cuDNN. The images' brightness ramps down
+    the batch, so that the ranks' row blocks differ in their statistics
+    (noise rows all alike would hide a rank that normalised with its own).
+    ``reverse``: the batch and its draws in reverse order, which changes
+    only the order of the step's sums. ``state``: those seeded weights,
+    already built (the step updates it in place). Returns (state,
+    metrics)."""
+    from keras_object_detection_torch.parallel import distributed
+    from keras_object_detection_torch.train import (create_train_state,
+                                                    make_train_step,
+                                                    sample_step_draws)
+
+    world, rank = distributed.world_size(group), distributed.rank_of(group)
+    b = cfg.data.batch_size
+    if state is None:
+        state = create_train_state(cfg, torch.Generator().manual_seed(0), dev)
+    images, boxes, valid = synthetic_batch(b, cfg.model.image_size,
+                                           cfg.data.max_boxes_per_image, dev)
+    ramp = torch.linspace(1.0, 0.25, b, device=dev)[:, None, None, None]
+    batch = ((images.float() * ramp).to(torch.uint8), boxes, valid)
+    own = slice(rank * b // world, (rank + 1) * b // world)
+    draws = sample_step_draws(cfg, state.model, b, seed, 0)
+    if reverse:
+        batch = tuple(t.flip(0) for t in batch)
+        draws = [x.replaced(iter([t.flip(0) for t in x.tensors()]))
+                 for x in draws]
+    with deterministic_cudnn():
+        state, metrics = make_train_step(cfg, group=group)(
+            state, *(t[own] for t in batch), seed, draws=draws)
+        torch.cuda.synchronize()
+    return state, metrics
+
+
+def dp_timed(cfg, dev, group) -> dict:
+    """PARALLEL_WARMUP then PARALLEL_STEPS timed steps of ``cfg`` on this
+    rank's block: p50 ms, the kernels' launches and the collectives of the
+    timed steps (counts at 0 just before, read just after)."""
+    from keras_object_detection_torch.parallel import distributed
+    from keras_object_detection_torch.train import (create_train_state,
+                                                    make_train_step)
+
+    world, rank = distributed.world_size(group), distributed.rank_of(group)
+    b = cfg.data.batch_size
+    state = create_train_state(cfg, torch.Generator().manual_seed(0), dev)
+    batch = synthetic_batch(b, cfg.model.image_size,
+                            cfg.data.max_boxes_per_image, dev)
+    own = slice(rank * b // world, (rank + 1) * b // world)
+    step = make_train_step(cfg, group=group)
+    for _ in range(PARALLEL_WARMUP):
+        state, metrics = step(state, *(t[own] for t in batch), 1)
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    distributed.reset_counts()
+    times = []
+    for _ in range(PARALLEL_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, *(t[own] for t in batch), 1)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = kernel_counts()
+    n_grad = sum(p.numel() for p in state.model.parameters())
+    return {"p50_ms": float(np.median(times)), "counts": counts,
+            "all_reduces": distributed.ALL_REDUCES,
+            "all_reduce_bytes": distributed.ALL_REDUCE_BYTES,
+            "gathers": distributed.GATHERS, "loss": metrics["total"].item(),
+            "grad_values": n_grad, "rows": own.stop - own.start}
+
+
+def all_reduce_ms(n: int, dev, group, reps: int = 10) -> float:
+    """Device milliseconds (CUDA events) of one SUM all-reduce of ``n``
+    float32 values, the flat gradient bucket of a step."""
+    import torch.distributed as dist
+
+    flat = torch.ones(n, dtype=torch.float32, device=dev)
+    for _ in range(2):
+        dist.all_reduce(flat, group=group)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        dist.all_reduce(flat, group=group)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check_step_counts(tag: str, res: dict) -> None:
+    per_step = {k: v / PARALLEL_STEPS for k, v in res["counts"].items()}
+    if per_step != FLAGSHIP_BN_LAUNCHES:
+        raise SystemExit(f"[parallel] {tag}: launched {per_step} a step, "
+                         f"expected {FLAGSHIP_BN_LAUNCHES}")
+
+
+def parallel_rank(job_path: str) -> int:
+    """One rank of phase parallel (b): joins the group the environment
+    describes (``job["backend"]``; gloo with CUDA tensors on one card), takes
+    the float32 step (every rank saves its state), the same step with each
+    of PLANTED_FAULTS (rank 0 saves its state) and the timed bf16
+    kernel-path steps, and writes its results."""
+    from keras_object_detection_torch.parallel import distributed
+    from keras_object_detection_torch.train import create_train_state
+
+    with open(job_path) as f:
+        job = json.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = int(os.environ["RANK"])
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    distributed.maybe_initialize(backend=job["backend"])
+    group = torch.distributed.group.WORLD
+    cfg = parallel_f32_config()
+    seeded = create_train_state(cfg, torch.Generator().manual_seed(0), dev)
+    for fault in (None,) + PLANTED_FAULTS:
+        with planted(fault):
+            state, metrics = dp_step(cfg, dev, group,
+                                     state=copy.deepcopy(seeded))
+        if rank == 0 or fault is None:
+            torch.save({"model": {k: v.cpu() for k, v in
+                                  state.model.state_dict().items()},
+                        "loss": metrics["total"].item()},
+                       os.path.join(job["dir"], f"{job['tag']}_"
+                                    f"{fault or 'f32'}_rank{rank}.pt"))
+        del state
+    del seeded
+    torch.cuda.empty_cache()
+    res = dp_timed(train_config(True), dev, group)
+    res["all_reduce_ms"] = all_reduce_ms(res["grad_values"], dev, group, 3)
+    res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    with open(os.path.join(job["dir"], f"{job['tag']}_rank{rank}.json"),
+              "w") as f:
+        json.dump(res, f)
+    distributed.barrier(group)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def parallel_two_ranks(dev, tag: str, backend: str) -> dict:
+    """Phase parallel (b): two ranks over ``backend`` against the one
+    process's float32 step (loss and running statistics to
+    PARALLEL_LOSS_RTOL; the parameters' updates in norm, the worst and the
+    median within twice the one process's reversed-batch distance or
+    PARALLEL_UPDATE_RTOL and PARALLEL_MEDIAN_RTOL), rank 1's state equal to
+    rank 0's, each planted fault caught by the same comparison, and their
+    timed kernel-path steps (25/25/1/1 a rank a step)."""
+    from keras_object_detection_torch.models import build_model
+    from keras_object_detection_torch.parallel import distributed
+
+    ref, ref_metrics = dp_step(parallel_f32_config(), dev, None)
+    want = {k: v.detach().cpu() for k, v in ref.model.state_dict().items()}
+    del ref
+    rev, _ = dp_step(parallel_f32_config(), dev, None, reverse=True)
+    reordered = {k: v.detach().cpu() for k, v in rev.model.state_dict().items()}
+    del rev
+    torch.cuda.empty_cache()
+
+    init = build_model(parallel_f32_config(),
+                       torch.Generator().manual_seed(0)).state_dict()
+    os.makedirs(PARALLEL_DIR, exist_ok=True)
+    job = os.path.join(PARALLEL_DIR, f"{tag}.json")
+    with open(job, "w") as f:
+        json.dump({"backend": backend, "dir": PARALLEL_DIR, "tag": tag}, f)
+    t0 = time.perf_counter()
+    rc = distributed.launch_local("chip_smoke", ["--parallel-rank", job], 2)
+    wall = time.perf_counter() - t0
+    if rc:
+        raise SystemExit(f"[parallel] {tag}: a rank exited with {rc}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(PARALLEL_DIR, f"{tag}_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    ref_loss = ref_metrics["total"].item()
+
+    def distances(run):
+        """(loss, running statistics, worst update with its tensor, median
+        update) of a two-rank run's state against the one process's."""
+        got = torch.load(os.path.join(PARALLEL_DIR, f"{tag}_{run}_rank0.pt"))
+        stat, updates = 0.0, []
+        for k, v in want.items():
+            if "running" in k:
+                stat = max(stat, rel_norm(got["model"][k], v))
+            elif not zero_gradient(k) and k in init and v.is_floating_point():
+                updates.append((rel_norm(got["model"][k] - init[k],
+                                         v - init[k]), k))
+        return (abs(got["loss"] - ref_loss) / abs(ref_loss), stat,
+                max(updates), float(np.median([u for u, _ in updates])))
+
+    reversed_updates = [(rel_norm(reordered[k] - init[k], v - init[k]), k)
+                        for k, v in want.items()
+                        if "running" not in k and not zero_gradient(k)
+                        and k in init and v.is_floating_point()]
+    worst_reordered = max(reversed_updates)
+    median_reordered = float(np.median([u for u, _ in reversed_updates]))
+    update_tol = max(PARALLEL_UPDATE_RTOL, 2 * worst_reordered[0])
+    median_tol = max(PARALLEL_MEDIAN_RTOL, 2 * median_reordered)
+
+    def caught(d):
+        return (d[0] > PARALLEL_LOSS_RTOL or d[1] > PARALLEL_LOSS_RTOL
+                or d[2][0] > update_tol or d[3] > median_tol)
+
+    loss_err, worst_stat, worst_update, median_update = distances("f32")
+    rank1 = torch.load(os.path.join(PARALLEL_DIR, f"{tag}_f32_rank1.pt"))
+    rank0 = torch.load(os.path.join(PARALLEL_DIR, f"{tag}_f32_rank0.pt"))
+    ranks_equal = rank1["loss"] == rank0["loss"] and all(
+        torch.equal(v, rank1["model"][k]) for k, v in rank0["model"].items())
+    del rank0, rank1
+    faults = {}
+    for fault in PLANTED_FAULTS:
+        d = distances(fault)
+        faults[fault] = {"loss_rel_err": d[0], "running_rel_err": d[1],
+                         "update_rel_err": d[2][0],
+                         "update_rel_err_tensor": d[2][1],
+                         "median_update_rel_err": d[3], "caught": caught(d)}
+    res = {"backend": backend, "wall_s": wall, "loss_rel_err": loss_err,
+           "running_rel_err": worst_stat, "update_rel_err": worst_update[0],
+           "update_rel_err_tensor": worst_update[1],
+           "median_update_rel_err": median_update,
+           "reversed_update_rel_err": worst_reordered[0],
+           "reversed_update_rel_err_tensor": worst_reordered[1],
+           "reversed_median_update_rel_err": median_reordered,
+           "update_tol": update_tol, "median_tol": median_tol,
+           "ranks_equal": ranks_equal, "faults": faults, "ranks": ranks}
+    log(f"[parallel] ({tag}) 2 ranks over {backend} on "
+        f"{sorted({r['rows'] for r in ranks})} rows each: float32 step loss "
+        f"rel err {loss_err:.3e}, running statistics {worst_stat:.3e}, "
+        f"worst update {worst_update[0]:.3e} in norm ({worst_update[1]}), "
+        f"median update {median_update:.3e}; the one process against itself "
+        f"with the batch reversed {worst_reordered[0]:.3e} "
+        f"({worst_reordered[1]}), median {median_reordered:.3e}; tolerances "
+        f"{PARALLEL_LOSS_RTOL}, {PARALLEL_LOSS_RTOL}, {update_tol:.3e}, "
+        f"{median_tol:.3e}; rank 1's state equal to rank 0's {ranks_equal}")
+    for fault, d in faults.items():
+        log(f"[parallel] ({tag}) planted {fault}: loss rel err "
+            f"{d['loss_rel_err']:.3e}, running statistics "
+            f"{d['running_rel_err']:.3e}, worst update "
+            f"{d['update_rel_err']:.3e} ({d['update_rel_err_tensor']}), "
+            f"median update {d['median_update_rel_err']:.3e}: caught "
+            f"{d['caught']}")
+    for r, rr in enumerate(ranks):
+        log(f"[parallel] ({tag}) rank {r}: bf16 kernel path p50 "
+            f"{rr['p50_ms']:.3f} ms a step at {rr['rows']} rows, launches "
+            f"{rr['counts']} over {PARALLEL_STEPS} steps, {rr['all_reduces']}"
+            f" all-reduces ({rr['all_reduce_bytes'] / PARALLEL_STEPS / 1e6:.1f}"
+            f" MB a step), gradient all-reduce {rr['all_reduce_ms']:.3f} ms, "
+            f"peak {rr['peak_gib']:.3f} GiB")
+        check_step_counts(f"({tag}) rank {r}", rr)
+    if caught((loss_err, worst_stat, worst_update, median_update)):
+        raise SystemExit(f"[parallel] ({tag}) the two-rank step parts from "
+                         "the one-process step beyond its tolerance")
+    if not ranks_equal:
+        raise SystemExit(f"[parallel] ({tag}) rank 1's state differs from "
+                         "rank 0's")
+    missed = [f for f, d in faults.items() if not d["caught"]]
+    if missed:
+        raise SystemExit(f"[parallel] ({tag}) the comparison does not catch "
+                         f"the planted {missed}")
+    return res
+
+
+def parallel_serving(dev) -> dict:
+    """Phase parallel (c): float and int8 serving of the flagship and YOLOv3
+    over the device mesh [cuda:0, cuda:0] at batch 16 (8 a shard), the
+    filter at the median confidence (phase 14), deterministic cuDNN: the
+    mesh's rows and masks torch.equal to one device serving each shard
+    (the program each replica runs), K1 once a shard a predict call (and
+    the int8 GEMM once an int8 conv a shard); against one device serving
+    all 16 at once the int8 models' valid counts, kept classes and kept
+    rows exact, and the float models' (whose bf16 cuDNN convs may choose
+    other algorithms at batch 16) decoded candidates' largest difference,
+    valid counts and kept classes reported."""
+    from keras_object_detection_torch.eval import InferenceModel
+    from keras_object_detection_torch.export import Int8InferenceModel
+    from keras_object_detection_torch.ops import cuda_nms, int8_conv
+    from keras_object_detection_torch.ops.nms import top_k_candidates
+    from keras_object_detection_torch.parallel import create_mesh
+
+    mesh = create_mesh(devices=[dev, dev])
+    half = PARALLEL_SERVE_BATCH // 2
+    out = {}
+    for tag in ("flagship", "yolov3"):
+        cfg, sd = serving_weights(tag)
+        images = serving_images(cfg, PARALLEL_SERVE_BATCH, dev)
+        for kind, cls in (("float", InferenceModel),
+                          ("int8", Int8InferenceModel)):
+            single = cls(cfg, sd, device=dev)
+            decoded = single.predict_decoded(images)
+            if cfg.eval.max_candidates:
+                decoded = top_k_candidates(decoded, cfg.eval.max_candidates)
+            e = dataclasses.replace(cfg.eval, conf_threshold=float(
+                decoded[..., 1].median()))
+            lcfg = dataclasses.replace(cfg, eval=e)
+            single.config = lcfg
+            meshed = cls(lcfg, sd, mesh=mesh)
+            with deterministic_cudnn():
+                shards = [single.predict(images[i:i + half])
+                          for i in (0, half)]
+                want_rows = torch.cat([r for r, _ in shards])
+                want_valid = torch.cat([v for _, v in shards])
+                whole_rows, whole_valid = single.predict(images)
+                whole_decoded = single.predict_decoded(images)
+                decoded_err = float((meshed.predict_decoded(images)
+                                     - whole_decoded).abs().max())
+                # the witness without a mesh: one device at batch 8 twice
+                # against the same device at batch 16
+                b8_err = float((torch.cat([single.predict_decoded(
+                    images[i:i + half]) for i in (0, half)])
+                    - whole_decoded).abs().max())
+                # the main path: counts at 0 just before, read just after
+                cuda_nms.LAUNCHES = int8_conv.LAUNCHES = 0
+                rows, valid = meshed.predict(images)
+                torch.cuda.synchronize()
+                k1, gemms = cuda_nms.LAUNCHES, int8_conv.LAUNCHES
+            n_int8 = (sum("w_q" in layer for layer in meshed.layers)
+                      if kind == "int8" else 0)
+            exact = torch.equal(rows, want_rows) and torch.equal(valid,
+                                                                 want_valid)
+            counts_equal = torch.equal(valid.sum(1), whole_valid.sum(1))
+            classes_equal = counts_equal and all(
+                torch.equal(rows[i][valid[i]][:, 0],
+                            whole_rows[i][whole_valid[i]][:, 0])
+                for i in range(PARALLEL_SERVE_BATCH))
+            box_err = (float((rows[valid] - whole_rows[whole_valid]).abs()
+                             .max()) if classes_equal and valid.any()
+                       else float("nan"))
+            p50 = call_p50(lambda: meshed.predict(images), 5)
+            p50_single = call_p50(lambda: single.predict(images), 5)
+            res = {"k1_launches": k1, "int8_launches": gemms,
+                   "kept": int(valid.sum()), "equal_to_shards": exact,
+                   "kept_one_device": int(whole_valid.sum()),
+                   "counts_equal_one_device": counts_equal,
+                   "classes_equal_one_device": classes_equal,
+                   "max_box_err_one_device": box_err,
+                   "max_decoded_err_one_device": decoded_err,
+                   "max_decoded_err_b8_b16_no_mesh": b8_err,
+                   "p50_ms": p50, "p50_ms_single": p50_single,
+                   "replicas": len(meshed._replicas)}
+            out[f"{tag}_{kind}"] = res
+            log(f"[parallel] (c) {tag} {kind} over [cuda:0, cuda:0] at batch "
+                f"{PARALLEL_SERVE_BATCH}: K1 {k1}, int8 GEMMs {gemms} in one "
+                f"predict, {res['kept']} kept, equal to one device on each "
+                f"shard {exact}; one device on all {PARALLEL_SERVE_BATCH}: "
+                f"{res['kept_one_device']} kept, counts equal {counts_equal}, "
+                f"classes equal {classes_equal}, max kept-row error "
+                f"{box_err:.3e}, max decoded difference {decoded_err:.3e}; "
+                f"one device alone at batch 8 against batch 16 (no mesh): "
+                f"max decoded difference {b8_err:.3e}; "
+                f"p50 {p50:.3f} ms against one device's {p50_single:.3f}")
+            if k1 != 2 or gemms != 2 * n_int8:
+                raise SystemExit(f"[parallel] (c) {tag} {kind}: K1 {k1}, "
+                                 f"int8 GEMMs {gemms} (expected 2 and "
+                                 f"{2 * n_int8}: once a shard)")
+            if not exact:
+                raise SystemExit(f"[parallel] (c) {tag} {kind}: the mesh's "
+                                 "rows differ from one device's on each shard")
+            # int8 convs accumulate in integers: batch 16 on one device is
+            # the same function; the bf16 cuDNN convs may not be
+            if kind == "int8" and not (counts_equal and classes_equal
+                                       and box_err == 0.0):
+                raise SystemExit(f"[parallel] (c) {tag} int8: the mesh's rows "
+                                 "differ from one device's at batch 16")
+            del single, meshed
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_parallel(dev) -> dict:
+    """Data parallelism on the card (module docstring, phase 17)."""
+    import torch.distributed as dist
+
+    from keras_object_detection_torch.parallel import distributed
+
+    t_phase = time.perf_counter()
+    out = {"card": card()}
+    # (a) one rank over NCCL: the data-parallel path is the one-device step
+    cfg = train_config(True)
+    dist.init_process_group("nccl", init_method="tcp://127.0.0.1:"
+                            f"{distributed.free_port()}", rank=0,
+                            world_size=1)
+    group = dist.group.WORLD
+    try:
+        single, m1 = dp_step(cfg, dev, None)
+        want = {k: v.clone() for k, v in single.model.state_dict().items()}
+        del single
+        distributed.reset_counts()
+        dp, m2 = dp_step(cfg, dev, group)
+        equal = (torch.equal(m1["total"], m2["total"]) and all(
+            torch.equal(v, want[k]) for k, v in dp.model.state_dict().items()))
+        collectives = distributed.ALL_REDUCES + distributed.GATHERS
+        del dp, want
+        torch.cuda.empty_cache()
+        timed = dp_timed(cfg, dev, group)
+        ar_ms = all_reduce_ms(timed["grad_values"], dev, group)
+    finally:
+        dist.destroy_process_group()
+    out["world1"] = dict(timed, bit_equal=equal, collectives=collectives,
+                         all_reduce_ms=ar_ms)
+    log(f"[parallel] (a) 1 rank over NCCL: step bit-equal to the one-device "
+        f"step {equal}, {collectives} collectives in it; bf16 kernel path p50 "
+        f"{timed['p50_ms']:.3f} ms, launches {timed['counts']} over "
+        f"{PARALLEL_STEPS} steps; one all-reduce of the "
+        f"{timed['grad_values']} float32 gradient values "
+        f"({timed['grad_values'] * 4 / 1e6:.1f} MB) {ar_ms:.3f} ms")
+    if not equal or collectives:
+        raise SystemExit("[parallel] (a) the one-rank data-parallel step is "
+                         "not the one-device step")
+    check_step_counts("(a)", timed)
+    torch.cuda.empty_cache()
+    # (b) two ranks on the card over gloo with CUDA tensors (and over NCCL
+    # where there are two cards)
+    out["gloo"] = parallel_two_ranks(dev, "gloo", "gloo")
+    if torch.cuda.device_count() >= 2:
+        out["nccl"] = parallel_two_ranks(dev, "nccl", "nccl")
+    # (c) mesh serving
+    out["serving"] = parallel_serving(dev)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[parallel] phase wall {out['wall_s']:.1f} s")
+    print(json.dumps({"parallel": out}))
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", default="",
@@ -3602,12 +4134,17 @@ def main() -> int:
                         help="a checkout of another commit (the parent's tree) "
                         "whose NMS, loss and BN kernels are timed in turns "
                         "with these")
+    parser.add_argument("--parallel-rank", default="",
+                        help=argparse.SUPPRESS)  # a rank of phase parallel
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import keras_object_detection_torch  # noqa: F401  fails outside the repo
+
+    if args.parallel_rank:
+        return parallel_rank(args.parallel_rank)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3631,6 +4168,7 @@ def main() -> int:
     extras = phase_serving_extras(dev)
     int8 = phase_int8(dev)
     phase_launches(loss, nms, bn)
+    parallel = phase_parallel(dev)
     counts = train["kernels"]["counts"]
     no_library = ("no single PyTorch call computes this function")
     nt = nms["timing"]
@@ -3685,7 +4223,17 @@ def main() -> int:
         for name, t in out["nms_times"].items():
             k1.update({f"{f}_{tag}_{name}": t[f]
                        for f in ("ms", "plain_ms", "bound_ms", "bound_by")})
+    k1["launches_parallel_mesh"] = {k: v["k1_launches"] for k, v in
+                                    parallel["serving"].items()}
+    k1["launches"] += sum(k1["launches_parallel_mesh"].values())
     kernels = [k1]
+
+    def parallel_entry(name: str) -> dict:
+        two = [r["counts"][name] for r in parallel["gloo"]["ranks"]]
+        return {"launches_parallel_world1": parallel["world1"]["counts"][name],
+                "launches_parallel_gloo_ranks": two,
+                "launches_parallel_steps": PARALLEL_STEPS}
+
     for name, key, line in (("yolo_loss_forward", "forward", 107),
                             ("yolo_loss_backward", "backward", 149)):
         lt = loss["timing"][key]
@@ -3708,6 +4256,7 @@ def main() -> int:
                                          else "k5"))
         entry.update(family_kernel_entry(yolov2, name, "yolov2"))
         entry.update(family_kernel_entry(yolov3, name, "yolov3"))
+        entry.update(parallel_entry(name))
         if "parent" in lt:
             entry.update(parent_ms=lt["parent"]["ms"],
                          parent_call_ms=lt["parent"]["call_ms"],
@@ -3757,7 +4306,8 @@ def main() -> int:
             **recipe_kernel_entry(recipe, name, "k2" if key == "stats"
                                   else "k3"),
             **family_kernel_entry(yolov2, name, "yolov2"),
-            **family_kernel_entry(yolov3, name, "yolov3")})
+            **family_kernel_entry(yolov3, name, "yolov3"),
+            **parallel_entry(name)})
     log(f"[train] kernels path p50 {train['kernels']['p50_ms']:.3f} ms, "
         f"{train['kernels']['images_per_s']:.1f} images/s; plain path p50 "
         f"{train['plain']['p50_ms']:.3f} ms, "

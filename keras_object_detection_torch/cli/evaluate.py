@@ -12,10 +12,14 @@ Examples:
       --checkpoint-dir checkpoints --image data/test.jpg \\
       --serving int8 --calib-images 64 --data-dir voc/test
 
+  # dataset loss and mAP over a mesh of 2 GPUs (one process, a replica
+  # of the weights on each, a shard of each batch)
+  python -m keras_object_detection_torch.cli.evaluate \\
+      --checkpoint-dir checkpoints --data-dir voc/test --data-parallel 2
+
 Reads ``config.json`` from the checkpoint directory (written by
 ``cli.train``). Runs on ``--device`` (default cuda). Tagged images
-(``utils/viz``) and several devices are not ported yet (ROADMAP 1.15) and
-raise.
+(``utils/viz``) are not ported yet (ROADMAP 1.15) and raise.
 """
 
 from __future__ import annotations
@@ -46,7 +50,10 @@ def parse_args(argv=None):
     p.add_argument("--cache-dir", help="decode-ahead disk cache for --data-dir")
     p.add_argument("--coco-map", action="store_true",
                    help="also mAP@[.50:.95] and each COCO threshold")
-    p.add_argument("--data-parallel", type=int, default=1)
+    p.add_argument("--data-parallel", type=int, default=1,
+                   help="evaluate --data-dir over a mesh of this many "
+                        "devices (-1: every GPU; on --device cpu, replicas "
+                        "on the CPU): each batch cut into one shard a device")
     p.add_argument("--pr-json", metavar="PATH",
                    help="with --data-dir: per-class precision/recall curves")
     p.add_argument("--error-analysis", action="store_true",
@@ -87,9 +94,27 @@ def check_flags(args) -> None:
     if args.tag_dir or args.grid_overlay or (args.image and args.names):
         raise NotImplementedError("tagged images (utils/viz) are not ported "
                                   "yet (ROADMAP 1.15)")
-    if args.data_parallel != 1:
-        raise NotImplementedError("evaluation over several devices is not "
-                                  "ported yet (ROADMAP 1.15)")
+
+
+def eval_mesh(args):
+    """The device mesh of ``--data-parallel`` (None for 1): the first N
+    GPUs (-1: all), or N replicas on the CPU where ``--device cpu`` asks
+    for it; JAX's mesh-size error where there are fewer GPUs, and the
+    GPU-by-default error where there is none."""
+    if args.data_parallel == 1:
+        return None
+    import torch
+
+    from keras_object_detection_torch.parallel.mesh import (create_mesh,
+                                                            local_devices)
+
+    if torch.device(args.device).type == "cpu":
+        devs = [torch.device("cpu")] * max(args.data_parallel, 1)
+    else:
+        devs = local_devices()
+        if args.data_parallel != -1:
+            devs = devs[:args.data_parallel]
+    return create_mesh(data_parallel=args.data_parallel, devices=devs)
 
 
 def calibration_images(ds, n: int):
@@ -234,7 +259,9 @@ def main(argv=None) -> None:
                          max_boxes=max_boxes, cache_dir=args.cache_dir,
                          letterbox=cfg.data.letterbox)
         # --use-ema decides here, as on the single-image path
-        evaluator = Evaluator(cfg, use_ema=args.use_ema, device=args.device)
+        mesh = eval_mesh(args)
+        evaluator = Evaluator(cfg, use_ema=args.use_ema,
+                              device=None if mesh else args.device, mesh=mesh)
         results = evaluator.evaluate(state, ds, coco_map=args.coco_map)
         print("evaluation:", {k: round(float(v), 5) for k, v in results.items()})
         names = _labels(args.names) if args.names else None

@@ -27,10 +27,20 @@ Examples:
   python -m keras_object_detection_torch.cli.train --data-dir voc/ \\
       --preset yolov3
 
+  # data parallelism over 4 GPUs: 4 local ranks (NCCL), a global batch of
+  # 64, 16 a rank; or under torchrun (--nproc-per-node 4) as it is
+  python -m keras_object_detection_torch.cli.train --data-dir voc/ \\
+      --preset voc --data-parallel 4
+  # 2 ranks on the CPU (gloo)
+  python -m keras_object_detection_torch.cli.train --data-dir data/ \\
+      --preset tiny --batch-size 4 --data-parallel 2 --device cpu
+
 Writes ``config.json`` beside the checkpoints (``cli.evaluate`` reads it),
 resumes from the latest checkpoint with ``--resume``, and evaluates the best
 checkpoint on ``--test-dir`` after the fit. A flag whose feature is not
-ported yet raises, naming its ROADMAP item.
+ported yet raises, naming its ROADMAP item. With ``--data-parallel N``
+every rank trains on its row block of each global batch; rank 0 writes the
+config, logs and checkpoints.
 """
 
 from __future__ import annotations
@@ -89,7 +99,10 @@ def parse_args(argv=None):
                    help="train with the backbone frozen (eval mode, no "
                         "gradient)")
     p.add_argument("--data-parallel", type=int, default=-1,
-                   help="-1 or 1: one device (several are ROADMAP 1.15)")
+                   help="ranks of data parallelism: N > 1 starts N local "
+                        "processes (one a GPU; gloo with --device cpu) unless "
+                        "a torchrun world is up; -1 takes that world, or one "
+                        "process")
     p.add_argument("--early-stop-patience", type=int)
     p.add_argument("--cache-in-memory", action="store_true",
                    help="keep decoded uint8 images in host RAM across epochs")
@@ -140,12 +153,6 @@ def check_flags(args) -> None:
         if getattr(args, name) is not None:
             raise NotImplementedError(f"--{name.replace('_', '-')} is not "
                                       f"ported yet (ROADMAP {item})")
-    if args.data_parallel not in (-1, 1):
-        raise NotImplementedError("--data-parallel over several devices is "
-                                  "not ported yet (ROADMAP 1.15)")
-    if args.device_cache_layout == "sharded":
-        raise NotImplementedError("--device-cache-layout sharded is not "
-                                  "ported yet (ROADMAP 1.15)")
 
 
 def build_config(args):
@@ -200,18 +207,34 @@ def build_config(args):
 
 
 def main(argv=None) -> None:
+    import sys
+
     args = parse_args(argv)
     check_flags(args)
     cfg = build_config(args)
 
     from keras_object_detection_torch.data import YoloDataset
+    from keras_object_detection_torch.parallel import distributed
     from keras_object_detection_torch.train import Trainer
+    from keras_object_detection_torch.train.loop import check_batch_divides
 
+    if args.data_parallel > 1 and not distributed.in_launched_world():
+        check_batch_divides(cfg, args.data_parallel)
+        rc = distributed.launch_local(
+            "keras_object_detection_torch.cli.train",
+            sys.argv[1:] if argv is None else list(argv), args.data_parallel)
+        if rc:
+            raise SystemExit(f"error: a data-parallel rank exited with {rc}")
+        return
+    distributed.maybe_initialize(
+        backend="gloo" if args.device.startswith("cpu") else None)
     trainer = Trainer(cfg, device=args.device)
     state = trainer.init_state()  # raises on an unported model first
-    os.makedirs(cfg.train.checkpoint_dir, exist_ok=True)
-    with open(os.path.join(cfg.train.checkpoint_dir, "config.json"), "w") as f:
-        f.write(cfg.to_json())
+    if trainer.is_main:
+        os.makedirs(cfg.train.checkpoint_dir, exist_ok=True)
+        with open(os.path.join(cfg.train.checkpoint_dir, "config.json"),
+                  "w") as f:
+            f.write(cfg.to_json())
 
     d = cfg.data
     cache = (lambda split: os.path.join(d.cache_dir, split)
@@ -235,13 +258,15 @@ def main(argv=None) -> None:
     if args.resume:
         latest = trainer.ckpt.latest_step
         if latest is None:
-            print("no checkpoint to resume from; starting fresh")
+            if trainer.is_main:
+                print("no checkpoint to resume from; starting fresh")
         else:
             state = trainer.ckpt.restore(state, step=latest)
             # the checkpoint axis is the epoch: the schedule continues at
             # the next one whatever the batch or dataset size
             start_epoch = trainer.ckpt.latest_epoch + 1
-            print(f"resumed from epoch {start_epoch} (optimizer step "
+            if trainer.is_main:
+                print(f"resumed from epoch {start_epoch} (optimizer step "
                   f"{state.step})")
     state = trainer.fit(train_ds, val_ds, state=state,
                         early_stop_patience=args.early_stop_patience,
@@ -252,7 +277,9 @@ def main(argv=None) -> None:
         test_ds = YoloDataset(d.test_dir, cfg.model.image_size, d.batch_size,
                               max_boxes=d.max_boxes_per_image,
                               letterbox=d.letterbox)
-        print("test results:", trainer.evaluate(best, test_ds))
+        results = trainer.evaluate(best, test_ds)
+        if trainer.is_main:
+            print("test results:", results)
     trainer.close()
 
 

@@ -9,6 +9,11 @@ inside the train step. A thread pool decodes the files of a batch;
 host buffers, so the copy of the next batch overlaps the step on this one.
 ``DeviceCachedDataset`` holds the whole set on the device and gathers each
 batch by index, with no per-step image copy at all.
+
+Under data parallelism every rank reads the same file list and shuffle
+stream and loads only its row block of each global batch (``block``), so
+the batches are those of one process; ``DeviceCachedDataset(layout=
+"sharded")`` splits the rows of the set over the ranks.
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ import torch
 from keras_object_detection_torch.data import disk_cache
 from keras_object_detection_torch.data.reader import (list_examples,
                                                       load_example)
+from keras_object_detection_torch.parallel import distributed
+from keras_object_detection_torch.parallel.mesh import shard_rows
 
 Batch = Tuple[np.ndarray, np.ndarray, np.ndarray]
 Device = Union[str, torch.device]
@@ -41,14 +48,24 @@ class YoloDataset:
     first read; ``cache_dir`` decodes every file once into a memmapped disk
     cache (``data/disk_cache.py``, built on construction when absent or
     stale); ``letterbox`` keeps the aspect with gray padding.
+
+    ``shard_index`` / ``shard_count``: JAX's multi-host input split, each
+    host reading the strided slice ``paths[shard_index::shard_count]`` of
+    the file list. The data-parallel ``Trainer`` does not use it: there
+    every rank reads the whole list and loads its row block of each global
+    batch (``epoch(block=...)``), so batches match one process's.
     """
 
     def __init__(self, data_dir: str, image_size: int, batch_size: int,
                  max_boxes: int = 64, shuffle: bool = False,
                  drop_remainder: bool = False, num_workers: int = 8,
-                 seed: int = 0, cache_in_memory: bool = False,
+                 seed: int = 0, shard_index: int = 0, shard_count: int = 1,
+                 cache_in_memory: bool = False,
                  cache_dir: Optional[str] = None, letterbox: bool = False):
-        self.paths = np.array(list_examples(data_dir))
+        paths = np.array(list_examples(data_dir))
+        if shard_count > 1:
+            paths = paths[shard_index::shard_count]
+        self.paths = paths
         if len(self.paths) == 0:
             raise FileNotFoundError(f"no *.jpg files under {data_dir!r}")
         self.image_size = image_size
@@ -89,10 +106,13 @@ class YoloDataset:
             self._cache[path] = ex
         return ex
 
-    def _load_batch(self, paths, pin: bool = False):
-        """One batch, zero-padded to ``batch_size``: numpy arrays, or with
-        ``pin`` torch tensors in pinned (page-locked) host memory."""
-        s, m, b = self.image_size, self.max_boxes, self.batch_size
+    def _load_batch(self, paths, pin: bool = False,
+                    rows: Optional[int] = None):
+        """One batch, zero-padded to ``rows`` (default ``batch_size``):
+        numpy arrays, or with ``pin`` torch tensors in pinned (page-locked)
+        host memory."""
+        s, m = self.image_size, self.max_boxes
+        b = self.batch_size if rows is None else rows
         results = list(self._pool.map(self._load_one, paths))
         shapes = ((b, s, s, 3), (b, m, 5), (b, m))
         if pin:
@@ -118,22 +138,34 @@ class YoloDataset:
         for i in range(len(self)):
             yield order[i * self.batch_size:(i + 1) * self.batch_size]
 
-    def epoch(self) -> Iterator[Batch]:
-        """Host (numpy) batches for one epoch."""
-        for sel in self.epoch_indices():
-            yield self._load_batch(self.paths[sel])
+    def _block(self, block: Optional[slice]):
+        """``(rows, selector)``: the rows of a batch the caller loads and
+        the function picking their indices out of a batch's."""
+        if block is None:
+            return self.batch_size, lambda sel: sel
+        return block.stop - block.start, lambda sel: sel[block]
 
-    def prefetched(self, device: Device, prefetch: int = 2
+    def epoch(self, block: Optional[slice] = None) -> Iterator[Batch]:
+        """Host (numpy) batches for one epoch; with ``block`` only those
+        rows of each (padded) batch."""
+        rows, pick = self._block(block)
+        for sel in self.epoch_indices():
+            yield self._load_batch(self.paths[pick(sel)], rows=rows)
+
+    def prefetched(self, device: Device, prefetch: int = 2,
+                   block: Optional[slice] = None
                    ) -> Iterator[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
-        """One epoch as tensors on ``device``, ``prefetch`` batches ahead.
-        On a CUDA device each batch is loaded into pinned host memory and
-        copied with ``non_blocking=True`` (PyTorch's pinned-memory
-        allocator reuses a buffer only after its copy has ended)."""
+        """One epoch as tensors on ``device``, ``prefetch`` batches ahead,
+        with ``block`` only those rows of each (padded) batch. On a CUDA
+        device each batch is loaded into pinned host memory and copied with
+        ``non_blocking=True`` (PyTorch's pinned-memory allocator reuses a
+        buffer only after its copy has ended)."""
         dev = torch.device(device)
         pin = dev.type == "cuda"
+        rows, pick = self._block(block)
 
         def put(sel):
-            host = self._load_batch(self.paths[sel], pin=pin)
+            host = self._load_batch(self.paths[pick(sel)], pin=pin, rows=rows)
             if pin:
                 return tuple(t.to(dev, non_blocking=True) for t in host)
             return tuple(torch.from_numpy(a).to(dev) for a in host)
@@ -172,37 +204,65 @@ class DeviceCachedDataset:
     Row ``num_examples`` is an all-zero sentinel that pads the final partial
     batch, as the host loader pads with zeros. The order comes from the
     wrapped ``YoloDataset``'s shuffle stream, so batches are bit-equal to the
-    host loader's. ``layout="sharded"`` (rows split over several GPUs) is
-    not ported yet (ROADMAP 1.15).
+    host loader's.
+
+    ``mesh``: a process mesh of data parallelism, each rank gathering its
+    row block of each global batch. ``layout="replicated"``: every rank
+    holds the whole set. ``layout="sharded"`` (needs ``mesh``): rank r of
+    dp holds rows ``[r * n_rows / dp, (r + 1) * n_rows / dp)``, ``n_rows``
+    rounded up to a multiple of dp with more zero sentinel rows; the gather
+    has each rank fill the slots of the global batch whose rows it owns and
+    zero the rest, and one integer SUM reduce-scatter hands each rank its
+    block: exactly one owner contributes to a slot, so uint8 never widens
+    (JAX's ``shard_map`` + ``psum_scatter``). The memory check is per
+    device.
     """
 
     def __init__(self, ds: YoloDataset, device: Device,
-                 layout: str = "replicated"):
-        if layout == "sharded":
-            raise NotImplementedError("device_cache_layout 'sharded' is not "
-                                      "ported yet (ROADMAP 1.15)")
-        if layout != "replicated":
+                 layout: str = "replicated", mesh=None):
+        if layout not in ("replicated", "sharded"):
             raise ValueError(f"unknown device_cache layout {layout!r}")
+        if layout == "sharded" and mesh is None:
+            raise ValueError("layout='sharded' requires a mesh")
+        self.group = None if mesh is None else mesh.group
+        dp = 1 if mesh is None else mesh.data_parallel
+        if mesh is not None and self.group is None and dp > 1:
+            raise ValueError("the device cache of a data-parallel run takes "
+                             "a process mesh (one process a device)")
         self.device = torch.device(device)
         n, s, m = ds.num_examples, ds.image_size, ds.max_boxes
         n_rows = n + 1
+        if layout == "sharded":
+            n_rows = -(-n_rows // dp) * dp
         row_bytes = s * s * 3 + m * 5 * 4 + m
+        per_device = n_rows * row_bytes // (dp if layout == "sharded" else 1)
         budget = device_budget_bytes(self.device)
-        if n_rows * row_bytes > budget:  # before any allocation or decode
+        if per_device > budget:  # before any allocation or decode
             raise ValueError(
-                f"device_cache: the dataset needs {n_rows * row_bytes / 1e9:.1f}"
-                f" GB, too large for the device (budget {budget / 1e9:.1f} "
-                "GB); use cache_dir (disk) instead")
-        imgs = np.zeros((n_rows, s, s, 3), np.uint8)
-        boxes = np.zeros((n_rows, m, 5), np.float32)
-        valid = np.zeros((n_rows, m), bool)
-        for i, p in enumerate(ds.paths):
-            imgs[i], boxes[i], valid[i] = ds._load_one(p)
+                f"device_cache: the dataset needs {per_device / 1e9:.1f} GB "
+                f"per device ({layout}), too large for the device (budget "
+                f"{budget / 1e9:.1f} GB); "
+                + ("use cache_dir (disk) instead" if layout == "sharded"
+                   or dp == 1 else "try device_cache_layout='sharded' or "
+                   "cache_dir (disk)"))
+        rank = 0 if self.group is None else mesh.index
+        lo, hi = ((rank * n_rows // dp, (rank + 1) * n_rows // dp)
+                  if layout == "sharded" else (0, n_rows))
+        imgs = np.zeros((hi - lo, s, s, 3), np.uint8)
+        boxes = np.zeros((hi - lo, m, 5), np.float32)
+        valid = np.zeros((hi - lo, m), bool)
+        for i in range(lo, min(hi, n)):
+            imgs[i - lo], boxes[i - lo], valid[i - lo] = ds._load_one(
+                ds.paths[i])
         self.images = torch.from_numpy(imgs).to(self.device)
         self.boxes = torch.from_numpy(boxes).to(self.device)
         self.valid = torch.from_numpy(valid).to(self.device)
         if ds._cache:
             ds._cache.clear()  # the device holds the data now
+        self.layout = layout
+        self.n_rows = n_rows
+        self.row_offset = lo
+        self.data_parallel = dp
         self.pad_row = n
         self.batch_size = ds.batch_size
         self.num_examples = n
@@ -210,6 +270,33 @@ class DeviceCachedDataset:
 
     def __len__(self) -> int:
         return len(self._ds)
+
+    def block(self) -> slice:
+        """This rank's rows of a global batch."""
+        return shard_rows(self.batch_size, self.data_parallel)[
+            distributed.rank_of(self.group)]
+
+    def gather(self, idx: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``(images, boxes, valid)`` of this rank's block of the global
+        batch ``idx`` (``(batch,)`` row indices on the device)."""
+        if self.layout == "replicated":
+            own = idx[self.block()]
+            return self.images[own], self.boxes[own], self.valid[own]
+        local = idx - self.row_offset
+        ok = (local >= 0) & (local < self.images.shape[0])
+        li = local.clamp(0, self.images.shape[0] - 1)
+
+        def pick(arr):
+            rows = arr[li]
+            mask = ok.reshape((-1,) + (1,) * (rows.dim() - 1))
+            rows = torch.where(mask, rows, torch.zeros((), dtype=rows.dtype,
+                                                       device=rows.device))
+            return distributed.reduce_scatter_rows(rows, self.group)
+
+        # bool has no sum: validity travels as uint8
+        return (pick(self.images), pick(self.boxes),
+                pick(self.valid.to(torch.uint8)) != 0)
 
     def epoch_indices(self) -> Iterator[np.ndarray]:
         """Each batch's row indices, padded to ``batch_size`` with the
@@ -223,10 +310,11 @@ class DeviceCachedDataset:
     def epoch(self) -> Iterator[Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                       torch.Tensor]]:
         """One epoch of ``(images, boxes, valid, idx)`` on the device, each
-        batch a gather by its row indices; the epoch's indices go to the
-        device in one copy."""
+        this rank's block of a global batch gathered by its row indices
+        (``idx``, the block's); the epoch's indices go to the device in one
+        copy."""
         rows = list(self.epoch_indices())
         if not rows:
             return
         for idx in torch.from_numpy(np.stack(rows)).to(self.device):
-            yield self.images[idx], self.boxes[idx], self.valid[idx], idx
+            yield (*self.gather(idx), idx[self.block()])

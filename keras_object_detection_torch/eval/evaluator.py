@@ -14,8 +14,12 @@ or ``"soft_linear"`` the top-K cut, then fast or soft NMS in plain torch.
 
 ``ServingModel`` is what the float, weight-only int8 and true int8 serving
 models (``export/``) share: the decode, TTA, NMS, ``predict*`` and
-``benchmark_latency``. Mesh serving (ROADMAP 1.15) is not ported yet and
-raises.
+``benchmark_latency``, and mesh serving (JAX's ``_serving_jit`` over a
+mesh): with a device ``parallel.Mesh`` one process keeps a replica of the
+weights on each device of the data axis, each runs the whole forward ->
+decode -> cut -> NMS on its contiguous shard of the batch, and the outputs
+are concatenated in batch order on the first device. ``Evaluator(mesh=)``
+evaluates so too.
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ from keras_object_detection_torch.ops.cuda_nms import \
 from keras_object_detection_torch.ops.nms import (
     batched_fast_non_max_suppression, batched_soft_non_max_suppression,
     top_k_candidates)
+from keras_object_detection_torch.parallel.mesh import (check_data_parallel,
+                                                        map_shards, replicate)
 from keras_object_detection_torch.train.checkpoint import (CheckpointManager,
                                                            average_checkpoints)
 from keras_object_detection_torch.train.loop import (TrainState, _device,
@@ -86,10 +92,37 @@ class ServingModel:
     for the anchor head, the sum over the scales of S_s²*B_s for the FPN
     head, twice that with ``tta="hflip"``), ``predict`` the NMS rows and
     survivor mask (``serving_nms``: N cut to ``max_candidates`` first where
-    it is larger)."""
+    it is larger). With a mesh (``_shard_over``) each call's batch must
+    divide by the data axis and is served shard by shard by the replicas,
+    one a device."""
 
     config: Config
     device: torch.device
+    mesh = None
+    _replicas: Tuple["ServingModel", ...] = ()
+
+    def _shard_over(self, mesh) -> None:
+        """Serve over ``mesh``'s devices: a replica of this model a
+        position (``parallel.mesh.replicate``; the first is this model)."""
+        if mesh is not None:
+            self._replicas = tuple(replicate(self, mesh.devices, self.device,
+                                             "device"))
+            self.mesh = mesh
+
+    def _served(self, method: str, images_u8: Images):
+        """``method`` on the whole batch, or on a mesh each replica's on its
+        shard of it, the outputs concatenated in batch order on
+        ``device``."""
+        if self.mesh is None:
+            return getattr(self, method)(images_u8)
+        x = torch.as_tensor(images_u8)
+        da, dp = self.mesh.data_axis, self.mesh.data_parallel
+        if x.shape[0] % dp:
+            raise ValueError(
+                f"serving batch {x.shape[0]} must divide by the mesh data "
+                f"axis {da}={dp} (pad the batch or drop the mesh)")
+        return map_shards(lambda rep, xs: getattr(rep, method)(xs),
+                          self._replicas, self.device, x)
 
     def _forward(self, images_u8: torch.Tensor):
         raise NotImplementedError
@@ -115,10 +148,16 @@ class ServingModel:
 
     @torch.inference_mode()
     def predict_raw(self, images_u8: Images):
+        return self._served("_predict_raw", images_u8)
+
+    def _predict_raw(self, images_u8: Images):
         return self._forward(self._images(images_u8))
 
     @torch.inference_mode()
     def predict_decoded(self, images_u8: Images) -> torch.Tensor:
+        return self._served("_predict_decoded", images_u8)
+
+    def _predict_decoded(self, images_u8: Images) -> torch.Tensor:
         x = self._images(images_u8)
         boxes = self._decode(self._forward(x))
         if self._tta == "hflip":
@@ -130,7 +169,10 @@ class ServingModel:
 
     @torch.inference_mode()
     def predict(self, images_u8: Images) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self._nms(self.predict_decoded(images_u8))
+        return self._served("_predict", images_u8)
+
+    def _predict(self, images_u8: Images) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self._nms(self._predict_decoded(images_u8))
 
     def predict_single(self, image_u8: Images) -> torch.Tensor:
         """One image -> ``(num_kept, 6)`` rows, the reference's NMS output."""
@@ -138,8 +180,9 @@ class ServingModel:
         return boxes[0][valid[0]]
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in {self.device, *(r.device for r in self._replicas)}:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     @torch.inference_mode()
     def _staged(self, x: torch.Tensor):
@@ -170,7 +213,11 @@ class ServingModel:
         PyTorch every stage is its own launches either way, so the
         difference is the stages' barriers. ``pipeline_k > 0`` adds
         ``pipelined_per_call_ms``: K calls issued back to back, one
-        synchronise."""
+        synchronise. On a mesh ``staged`` raises, as in JAX: it is a
+        single-device diagnostic."""
+        if staged and self.mesh is not None:
+            raise ValueError("staged latency benchmarking is a single-device "
+                             "diagnostic; construct the model with mesh=None")
         x = self._images(images_u8)
         run: Callable = self._staged if staged else self.predict
         run(x)  # warm-up: kernel build, cuDNN plans
@@ -195,30 +242,44 @@ class ServingModel:
 
 
 def check_serving_config(e: EvalConfig, mesh) -> None:
-    """Raise on what no serving model takes: a mesh (not ported yet) or an
-    unknown TTA."""
+    """Raise on what no serving model takes: a mesh with a model axis
+    (tensor parallelism, ROADMAP 1.15), a process mesh (serving is one
+    process driving a device mesh) or an unknown TTA."""
     if mesh is not None:
-        raise NotImplementedError("mesh serving is not ported yet "
-                                  "(ROADMAP 1.15)")
+        check_data_parallel(mesh)
+        if mesh.group is not None:
+            raise ValueError("serving runs one process over a device mesh "
+                             "(create_mesh(devices=...)), not a process "
+                             "group")
     if e.tta not in ("none", "hflip"):
         raise ValueError(f"unknown EvalConfig.tta {e.tta!r} "
                          "(expected 'none' or 'hflip')")
+
+
+def serving_device(device, mesh):
+    """``device``, or where it is None the first device of ``mesh``."""
+    if device is None and mesh is not None:
+        return mesh.devices[0]
+    return device
 
 
 class InferenceModel(ServingModel):
     """Forward + decode (+ NMS) serving of a float ``state_dict``.
 
     ``device=None`` means ``"cuda"`` and raises when no GPU is present; only
-    an explicit ``device="cpu"`` serves on the CPU (with the plain NMS)."""
+    an explicit ``device="cpu"`` serves on the CPU (with the plain NMS).
+    ``mesh``: a device ``parallel.Mesh``; the model serves over its devices
+    (``ServingModel``) and ``device`` defaults to the first of them."""
 
     def __init__(self, config: Config, state_dict: Mapping[str, torch.Tensor],
                  device: Optional[Union[str, torch.device]] = None, mesh=None):
         check_serving_config(config.eval, mesh)
-        self.device = _device(device, "serving")
+        self.device = _device(serving_device(device, mesh), "serving")
         self.config = config
         model = build_model(config)
         model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device, memory_format=torch.channels_last)
+        self._shard_over(mesh)
 
     def _forward(self, images_u8: torch.Tensor):
         g, head = self.config.grid, self.config.model.head
@@ -270,18 +331,47 @@ class Evaluator:
 
     ``use_ema``: None follows the config (``ema_decay`` and
     ``eval_with_ema``), True or False overrides it (the CLI's
-    ``--use-ema``). Evaluation over several devices is not ported yet
-    (ROADMAP 1.15)."""
+    ``--use-ema``).
+
+    ``mesh``: a device ``parallel.Mesh``, as JAX's ``Evaluator(mesh=)``:
+    the batch size must divide by its data axis; each batch is cut into one
+    contiguous shard a device, each evaluated by a replica of the state on
+    its device, the shards' losses summed and their grids concatenated in
+    batch order on ``device`` (default: the mesh's first) for the mAP."""
 
     def __init__(self, config: Config, use_ema: Optional[bool] = None,
                  device: Optional[Union[str, torch.device]] = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("evaluation over several devices is not "
-                                      "ported yet (ROADMAP 1.15)")
         self.config = config
-        self.device = _device(device, "evaluation")
+        if mesh is not None:
+            check_serving_config(config.eval, mesh)
+            dp = mesh.data_parallel
+            if config.data.batch_size % dp:
+                raise ValueError(
+                    f"eval batch size {config.data.batch_size} must divide "
+                    f"by the data-parallel mesh size {dp}")
+        self.mesh = mesh
+        self.device = _device(serving_device(device, mesh), "evaluation")
         self._eval_step = make_eval_step(config, use_ema=use_ema)
         self.map_metric = _map_metric(config)
+
+    def _mesh_step(self, state: TrainState):
+        """The eval step over the mesh: a replica of ``state``'s model and
+        EMA a position (``parallel.mesh.replicate``), each on its shard; the
+        shards' losses summed, their grids joined on ``device``."""
+        replicas = replicate(dataclasses.replace(state, opt=None),
+                             self.mesh.devices, self.device)
+
+        def shard(rep, images, boxes, valid, weight):
+            loss, y_true, y_pred = self._eval_step(rep, images, boxes, valid,
+                                                   weight)
+            return loss.reshape(1), y_true, y_pred
+
+        def step(_state, images, boxes, valid, weight=None):
+            loss, y_true, y_pred = map_shards(shard, replicas, self.device,
+                                              images, boxes, valid, weight)
+            return loss.sum(), y_true, y_pred
+
+        return step
 
     def evaluate(self, state: TrainState, ds: YoloDataset,
                  with_map: bool = True,
@@ -295,8 +385,9 @@ class Evaluator:
         if where != self.device:
             raise ValueError(f"the state is on {where}, the evaluator on "
                              f"{self.device}")
+        step = self._eval_step if self.mesh is None else self._mesh_step(state)
         loss, map_val = run_dataset_eval(
-            self.config, self._eval_step, self.map_metric, state, ds,
+            self.config, step, self.map_metric, state, ds,
             with_map=with_map or coco_map)
         out = {"loss": loss}
         if with_map:

@@ -55,7 +55,8 @@ import torch.nn.functional as F
 from keras_object_detection_torch.config import Config
 from keras_object_detection_torch.eval.evaluator import (InferenceModel,
                                                          ServingModel,
-                                                         check_serving_config)
+                                                         check_serving_config,
+                                                         serving_device)
 from keras_object_detection_torch.models.darknet import (ARCHITECTURES,
                                                          _downsample_indices)
 from keras_object_detection_torch.models.layers import space_to_depth
@@ -639,7 +640,10 @@ class Int8InferenceModel(ServingModel):
     ``bias_correct``). As in JAX, ``predict`` serves hard NMS (the kernel on
     the GPU) whatever ``EvalConfig.nms_mode`` says. ``device=None`` means
     ``"cuda"``; there the int8 convs take ``torch._int_mm`` or raise.
-    ``mesh`` serving is not ported yet (ROADMAP 1.15)."""
+    ``mesh``: a device ``parallel.Mesh``: the layers are built (and
+    calibrated) on ``device``, by default the mesh's first device, and
+    replicated on each device of the mesh, which serves shard by shard as
+    ``InferenceModel(mesh=)`` does."""
 
     def __init__(self, config: Config, state_dict: Mapping[str, torch.Tensor],
                  float_tail: int = 0, calib_images=None,
@@ -647,7 +651,7 @@ class Int8InferenceModel(ServingModel):
                  qat_steps: int = 0, qat_lr: float = 1e-5, qat_batch: int = 8,
                  device: Device = None, mesh=None):
         check_serving_config(config.eval, mesh)
-        self.device = _device(device, "int8 serving")
+        self.device = _device(serving_device(device, mesh), "int8 serving")
         self.config = config
         if act_quant == "auto":
             act_quant = "static" if calib_images is not None else "dynamic"
@@ -682,6 +686,7 @@ class Int8InferenceModel(ServingModel):
             if scales is not None:
                 layers = apply_activation_scales(layers, scales)
         self.plan, self.layers = plan, layers
+        self._shard_over(mesh)
 
     def _forward(self, images_u8: torch.Tensor):
         return int8_forward(self.plan, self.layers, images_u8,

@@ -25,7 +25,8 @@ from torch.func import functional_call
 
 from keras_object_detection_torch.config import Config
 from keras_object_detection_torch.eval.evaluator import (ServingModel,
-                                                         check_serving_config)
+                                                         check_serving_config,
+                                                         serving_device)
 from keras_object_detection_torch.data.augment import preprocess_eval_batch
 from keras_object_detection_torch.models.yolo import build_model
 from keras_object_detection_torch.ops.cuda_nms import \
@@ -85,7 +86,7 @@ class QuantizedInferenceModel(ServingModel):
     def __init__(self, config: Config, state_dict: Mapping[str, torch.Tensor],
                  device: Optional[Union[str, torch.device]] = None, mesh=None):
         check_serving_config(config.eval, mesh)
-        self.device = _device(device, "serving")
+        self.device = _device(serving_device(device, mesh), "serving")
         self.config = config
         model = build_model(config)
         model.load_state_dict(state_dict, strict=True)
@@ -98,6 +99,7 @@ class QuantizedInferenceModel(ServingModel):
                 {k: v for k, v in state_dict.items() if k in names}).items()}
         self._buffers = {k: v.to(self.device) for k, v in state_dict.items()
                          if k not in names}
+        self._shard_over(mesh)
 
     def _forward(self, images_u8: torch.Tensor):
         g, head = self.config.grid, self.config.model.head

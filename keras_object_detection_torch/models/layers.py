@@ -22,6 +22,10 @@ from torch import nn
 from keras_object_detection_torch.config import check_bn_mode
 from keras_object_detection_torch.ops.bn import (_channel_sums, fused_bn_train,
                                                  per_channel)
+from keras_object_detection_torch.parallel.distributed import (all_reduce_,
+                                                               all_reduce_sum,
+                                                               rank_of,
+                                                               world_size)
 
 
 def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -40,14 +44,19 @@ class MxuBNTrain(torch.autograd.Function):
     torch. Forward: ``mean = sum(x) / M``, ``var = max(0, sum(x^2) / M -
     mean^2)``. Backward: ``s1 = sum(dy)``, ``s2 = (sum(dy * x) - mean * s1) *
     rstd``, ``dx = scale * rstd * (dy - s1/M - xhat * s2/M)``; ``d scale =
-    s2``, ``d bias = s1``. ``mean`` and ``var`` take no gradient."""
+    s2``, ``d bias = s1``. ``mean`` and ``var`` take no gradient. Over a
+    ``group`` of ranks the column sums of both passes are summed over the
+    ranks and ``M`` counts every rank's rows (as ``FusedBNTrain``)."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps):
+    def forward(ctx, x, scale, bias, eps, group=None):
+        ctx.group = group
         xf = x.to(torch.float32)
-        m = x.numel() // x.shape[1]
-        mean = _channel_sums(xf) / m
-        var = torch.clamp_min(_channel_sums(xf * xf) / m - mean * mean, 0.0)
+        m = x.numel() // x.shape[1] * world_size(group)
+        s1, s2 = all_reduce_(torch.stack(
+            [_channel_sums(xf), _channel_sums(xf * xf)]), group)
+        mean = s1 / m
+        var = torch.clamp_min(s2 / m - mean * mean, 0.0)
         rstd = torch.rsqrt(var + eps)
         mul = rstd * scale.to(torch.float32)
         y = ((xf - per_channel(mean, x)) * per_channel(mul, x)
@@ -60,14 +69,18 @@ class MxuBNTrain(torch.autograd.Function):
     def backward(ctx, dy, _dmean, _dvar):
         x, scale, mean, rstd = ctx.saved_tensors
         xf, dyf = x.to(torch.float32), dy.to(torch.float32)
-        m = x.numel() // x.shape[1]
+        m = x.numel() // x.shape[1] * world_size(ctx.group)
         s1 = _channel_sums(dyf)
-        s2 = (_channel_sums(dyf * xf) - mean * s1) * rstd
+        sdx = _channel_sums(dyf * xf)
+        # this rank's d scale and d bias, summed with the other gradients
+        d_scale, d_bias = (sdx - mean * s1) * rstd, s1
+        s1, sdx = all_reduce_(torch.stack([s1, sdx]), ctx.group)
+        s2 = (sdx - mean * s1) * rstd
         coef = per_channel(scale.to(torch.float32) * rstd, x)
         xhat = (xf - per_channel(mean, x)) * per_channel(rstd, x)
         dx = (coef * (dyf - per_channel(s1 / m, x)
                       - xhat * per_channel(s2 / m, x))).to(x.dtype)
-        return dx, s2.to(scale.dtype), s1.to(scale.dtype), None
+        return dx, d_scale.to(scale.dtype), d_bias.to(scale.dtype), None, None
 
 
 class BatchNorm(nn.Module):
@@ -95,7 +108,15 @@ class BatchNorm(nn.Module):
     (Keras's, as the JAX ConvBlock sets it) or MobileNetV2's 0.999. A
     forward that ``remat`` recomputes in the backward skips that update
     (``updates_running_stats`` is False then), so a step updates them
-    once."""
+    once.
+
+    ``group`` (set by ``data_group``): the process group of data
+    parallelism. With more than one rank the batch statistics are the
+    global batch's: every mode sums its per-channel sums over the ranks
+    (``flax`` and ``flax@N`` through ``all_reduce_sum``, which carries the
+    gradient), and ``flax@N`` takes the first N rows of the global batch,
+    the ranks' row blocks in rank order. The running statistics then agree
+    on every rank."""
 
     def __init__(self, features: int, eps: float = 1e-3, bn_mode: str = "flax",
                  momentum: float = 0.99):
@@ -109,6 +130,27 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
         self.updates_running_stats = True
+        self.group = None
+
+    def _global_stats(self, x: torch.Tensor):
+        """``(mean, var)`` of the global batch over ``group``'s ranks (this
+        process's batch where there is one), in the arithmetic of ``flax``
+        (clamped) or ``flax@N`` (unclamped as SubsetStatsBatchNorm computes
+        it, the first N global rows)."""
+        world, rank = world_size(self.group), rank_of(self.group)
+        rows, pixels = x.shape[0], x[0].numel() // x.shape[1]
+        xf = x.float()
+        if self.bn_mode == "flax":
+            n = rows * world
+        else:
+            n = min(int(self.bn_mode[len("flax@"):]), rows * world)
+            xf = xf[:min(max(n - rank * rows, 0), rows)]
+        sums = torch.stack([_channel_sums(xf), _channel_sums(xf * xf)])
+        s1, s2 = all_reduce_sum(sums, self.group) / (n * pixels)
+        var = s2 - s1 * s1
+        if self.bn_mode == "flax":
+            var = torch.maximum(var, torch.zeros_like(s1))
+        return s1, var
 
     def _normalize(self, x, mean, var):
         mul = torch.rsqrt(var + self.eps) * self.weight
@@ -120,20 +162,13 @@ class BatchNorm(nn.Module):
         if not self.training:
             return self._normalize(x, self.running_mean, self.running_var)
         if self.bn_mode == "fused":
-            y, mean, var = fused_bn_train(x, self.weight, self.bias, self.eps)
+            y, mean, var = fused_bn_train(x, self.weight, self.bias, self.eps,
+                                          self.group)
         elif self.bn_mode == "mxu":
-            y, mean, var = MxuBNTrain.apply(x, self.weight, self.bias, self.eps)
+            y, mean, var = MxuBNTrain.apply(x, self.weight, self.bias, self.eps,
+                                            self.group)
         else:
-            dims = (0, 2, 3) if x.dim() == 4 else 0
-            if self.bn_mode == "flax":
-                xf = x.float()
-                mean = xf.mean(dim=dims)
-                mean2 = (xf * xf).mean(dim=dims)
-                var = torch.maximum(mean2 - mean * mean, torch.zeros_like(mean))
-            else:  # flax@N, unclamped as SubsetStatsBatchNorm computes it
-                sub = x[:int(self.bn_mode[len("flax@"):])].float()
-                mean = sub.mean(dim=dims)
-                var = (sub * sub).mean(dim=dims) - mean * mean
+            mean, var = self._global_stats(x)
             y = self._normalize(x, mean, var)
         if not self.updates_running_stats:
             return y
@@ -142,6 +177,22 @@ class BatchNorm(nn.Module):
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1 - m) * var)
         return y
+
+
+@contextlib.contextmanager
+def data_group(module: nn.Module, group):
+    """The BatchNorms of ``module`` compute their training statistics over
+    the ranks of ``group`` (the process group of data parallelism; ``None``:
+    this process's batch alone) inside the block; restored after."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    before = [bn.group for bn in bns]
+    for bn in bns:
+        bn.group = group
+    try:
+        yield
+    finally:
+        for bn, g in zip(bns, before):
+            bn.group = g
 
 
 @contextlib.contextmanager

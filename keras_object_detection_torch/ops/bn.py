@@ -15,6 +15,13 @@ Numerics follow ``flax.linen.BatchNorm`` (fast variance, float32 reductions):
 ``mean = s1 / M``, ``var = max(0, s2 / M - mean^2)``, the normalise in
 float32, one cast to the activation dtype at the end.
 
+Under data parallelism (a process ``group`` of more than one rank) the
+kernels' ``(2, C)`` sums are summed over the group's ranks between the
+kernel and the finish, and ``M`` is the global row count, so every rank
+normalises with the global batch's statistics, as JAX's step over a sharded
+batch does; the kernels themselves are unchanged. Every rank holds the same
+number of rows (the batch divides by the data axis).
+
 ``STATS_LAUNCHES`` and ``GRAD_STATS_LAUNCHES`` count the kernel launches;
 ``DY_LAYOUT_COPIES`` counts the backward's ``dy`` that arrived in another
 layout and had to be copied to the kernels' layout before its kernel.
@@ -30,6 +37,8 @@ from typing import Dict, Tuple
 import torch
 
 from keras_object_detection_torch.ops import _build
+from keras_object_detection_torch.parallel.distributed import (all_reduce_,
+                                                               world_size)
 
 STATS_LAUNCHES = 0
 GRAD_STATS_LAUNCHES = 0
@@ -267,11 +276,14 @@ def _route(x: torch.Tensor, kernel, plain):
     raise ValueError(f"no BN statistics for device {x.device}")
 
 
-def bn_batch_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def bn_batch_stats(x: torch.Tensor, group=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-channel float32 ``(mean, var)`` of an NCHW or ``(M, C)`` tensor;
-    ``var = max(0, E[x^2] - E[x]^2)`` (flax's fast variance)."""
-    sums = _route(x, cuda_bn_stats_sums, bn_stats_sums_plain)(x)
-    m = x.numel() // x.shape[1]
+    ``var = max(0, E[x^2] - E[x]^2)`` (flax's fast variance); over the
+    ranks of ``group`` together where it has more than one."""
+    sums = all_reduce_(_route(x, cuda_bn_stats_sums, bn_stats_sums_plain)(x),
+                       group)
+    m = x.numel() // x.shape[1] * world_size(group)
     mean = sums[0] / m
     var = torch.clamp_min(sums[1] / m - mean * mean, 0.0)
     return mean, var
@@ -294,11 +306,15 @@ class FusedBNTrain(torch.autograd.Function):
     Forward: the statistics kernel, then the normalise in float32 torch
     arithmetic and one cast to ``x``'s dtype. Backward: the gradient
     statistics kernel, then ``dx = scale * rstd * (dy - s1/M - xhat * s2/M)``
-    in torch; ``d scale = s2``, ``d bias = s1``."""
+    in torch; ``d scale = s2``, ``d bias = s1``. Over a ``group`` of ranks
+    both kernels' sums are summed over the ranks before the finish and
+    ``M`` counts every rank's rows; ``d scale`` and ``d bias`` stay this
+    rank's own sums, which the step's gradient all-reduce adds up."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps):
-        mean, var = bn_batch_stats(x)
+    def forward(ctx, x, scale, bias, eps, group=None):
+        ctx.group = group
+        mean, var = bn_batch_stats(x, group)
         rstd = torch.rsqrt(var + eps)
         mul = rstd * scale.to(torch.float32)
         y = ((x.to(torch.float32) - per_channel(mean, x)) * per_channel(mul, x)
@@ -316,15 +332,21 @@ class FusedBNTrain(torch.autograd.Function):
                                if dy.dim() == 4 else torch.contiguous_format)
             DY_LAYOUT_COPIES += 1
         s1, s2 = bn_grad_stats(dy, x, mean, rstd)
-        m = x.numel() // x.shape[1]
+        d_scale, d_bias = s2, s1
+        if world_size(ctx.group) > 1:
+            s1, s2 = all_reduce_(torch.stack([s1, s2]), ctx.group)
+        m = x.numel() // x.shape[1] * world_size(ctx.group)
         coef = per_channel(scale.to(torch.float32) * rstd, x)
         xhat = (x.to(torch.float32) - per_channel(mean, x)) * per_channel(rstd, x)
         dx = (coef * (dy.to(torch.float32) - per_channel(s1 / m, x)
                       - xhat * per_channel(s2 / m, x))).to(x.dtype)
-        return dx, s2.to(scale.dtype), s1.to(scale.dtype), None
+        return (dx, d_scale.to(scale.dtype), d_bias.to(scale.dtype), None,
+                None)
 
 
 def fused_bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                   eps: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``FusedBNTrain.apply``: ``(y, mean, var)``."""
-    return FusedBNTrain.apply(x, scale, bias, eps)
+                   eps: float, group=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``FusedBNTrain.apply``: ``(y, mean, var)``, the statistics over the
+    ranks of ``group`` where it has more than one."""
+    return FusedBNTrain.apply(x, scale, bias, eps, group)

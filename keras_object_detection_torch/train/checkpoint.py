@@ -22,7 +22,8 @@ JAX package configures it (checked against orbax itself):
 step updates the state in place; the file is written by a background
 thread, as orbax saves asynchronously (``wait`` joins it). ``restore``
 returns a new state that shares no tensor with the template or the model
-being trained.
+being trained. A manager that is not the ``writer`` (a data-parallel rank
+other than 0) keeps the same books and writes nothing; every rank reads.
 """
 
 from __future__ import annotations
@@ -91,12 +92,18 @@ class CheckpointManager:
     """The best ``max_to_keep`` checkpoints by ``MONITOR``, as orbax keeps
     them (module docstring)."""
 
-    def __init__(self, directory: str, max_to_keep: Optional[int] = 3):
+    def __init__(self, directory: str, max_to_keep: Optional[int] = 3,
+                 writer: bool = True):
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
+        self.writer = writer
+        if writer:
+            os.makedirs(self.directory, exist_ok=True)
         self._max_to_keep = max_to_keep
         self._metrics: Dict[int, float] = {}
-        for name in os.listdir(self.directory):
+        # a reader may come before the writer has made the directory
+        names = (os.listdir(self.directory) if os.path.isdir(self.directory)
+                 else [])
+        for name in names:
             path = os.path.join(self.directory, name, METRICS_NAME)
             if name.isdigit() and os.path.exists(path):
                 with open(path) as f:
@@ -141,6 +148,8 @@ class CheckpointManager:
         dropped = ranked[:max(cut, 0)]
         for s in dropped:
             del self._metrics[s]
+        if not self.writer:
+            return True
         # the host copy is taken before the next step changes the state
         payload = None if step in dropped else state_to_host(state)
         self._pending.append(self._pool.submit(

@@ -31,7 +31,15 @@ training mode, the eval step in eval mode. ``create_train_state``,
 reference's mAP policy, best-by-val-loss checkpoints, plateau LR scaling,
 early stopping and resume; multiscale training (a resolution drawn per
 epoch, ``multiscale_grid``) and ``steps_per_dispatch`` (``_train_batches``).
-Several devices are not ported yet (ROADMAP 1.15).
+
+Data parallelism (a ``parallel.Mesh`` over a process group, one process a
+device) keeps JAX's semantics, one program over the global batch: each rank
+steps on its row block, the BatchNorm statistics are the global batch's
+(``models.layers.data_group``), the draws are the global batch's with each
+rank taking its rows, mosaic and mixup see the gathered global batch, the
+gradients and metrics are summed over the ranks (every loss is a sum, so no
+averaging), evaluation gathers the predictions in global row order, and rank
+0 alone writes the logs and checkpoints.
 """
 
 from __future__ import annotations
@@ -57,12 +65,17 @@ from keras_object_detection_torch.data.pipeline import (DeviceCachedDataset,
 from keras_object_detection_torch.losses.yolo import yolo_v1_loss_terms
 from keras_object_detection_torch.losses.yolov2 import yolo_v2_loss_terms
 from keras_object_detection_torch.losses.yolov3 import yolo_v3_loss_terms
+from keras_object_detection_torch.models.layers import data_group
 from keras_object_detection_torch.models.yolo import (YoloV1,
                                                      backbone_feature_size,
                                                      build_model)
 from keras_object_detection_torch.ops.map import (COCO_IOU_THRESHOLDS,
                                                   MeanAveragePrecision)
 from keras_object_detection_torch.ops.yolo_loss import fused_yolo_v1_loss
+from keras_object_detection_torch.parallel import distributed
+from keras_object_detection_torch.parallel.mesh import (check_data_parallel,
+                                                        create_mesh,
+                                                        shard_rows)
 from keras_object_detection_torch.train import optim
 from keras_object_detection_torch.train.checkpoint import CheckpointManager
 from keras_object_detection_torch.train.metrics_logger import MetricLogger
@@ -214,6 +227,18 @@ class StepDraws:
                          part(self.mixup),
                          None if self.keep is None else next(tensors))
 
+    def rows(self, block: slice) -> "StepDraws":
+        """The per-image draws of the rows ``block`` of the batch: the
+        colour and crop draws and the dropout mask; the mosaic's and the
+        mixup's stay whole (they run on the whole batch)."""
+        augment = dataclasses.replace(self.augment, **{
+            f.name: getattr(self.augment, f.name)[block]
+            for f in dataclasses.fields(self.augment)
+            if isinstance(getattr(self.augment, f.name), torch.Tensor)})
+        return dataclasses.replace(
+            self, augment=augment,
+            keep=None if self.keep is None else self.keep[block])
+
     def to(self, device) -> "StepDraws":
         """On ``device``, in one copy (``stage``)."""
         tensors = self.tensors()
@@ -307,7 +332,7 @@ def validate_multiscale(config: Config) -> None:
 
 
 def make_train_step(config: Config, image_size: Optional[int] = None,
-                    grid: Optional[int] = None):
+                    grid: Optional[int] = None, group=None):
     """Build ``step(state, images_u8, boxes, valid, seed, draws=None)``.
 
     ``images_u8`` is ``(B, H, W, 3)`` uint8, ``boxes`` ``(B, N, 5)``
@@ -327,7 +352,18 @@ def make_train_step(config: Config, image_size: Optional[int] = None,
     microbatches (rows ``i::k``), their gradients and loss terms summed, and
     the BN running statistics updated by each in turn. Returns the state and
     the metrics: ``{"total"}`` on the fused-loss path, the five loss terms
-    on the plain one, as 0-dim tensors on the device."""
+    on the plain one, as 0-dim tensors on the device.
+
+    ``group``: the process group of data parallelism, W ranks. The step
+    then takes this rank's row block of a global batch of W times its rows
+    and computes JAX's step over that global batch: ``draws`` (or the
+    seed's) are the global batch's and the rank takes its rows of each
+    (of each microbatch: microbatch i is rows ``i::k`` of every block, the
+    global microbatch's rows in this rank's block, in order); mosaic and
+    mixup run on the gathered global (micro)batch; BatchNorm takes the
+    global statistics; the gradients (after the microbatches, in one flat
+    all-reduce, frozen parameters skipped) and the metrics are summed over
+    the ranks. One rank, or no group, adds no collective."""
     check_ported(config, training=True)
     g, d, t = config.grid, config.data, config.train
     accum = max(t.grad_accum_steps or 1, 1)
@@ -370,13 +406,25 @@ def make_train_step(config: Config, image_size: Optional[int] = None,
                                   t.lambda_coord, t.lambda_noobj, t.noobj_mode,
                                   t.box_loss_mode)
 
+    world, rank = distributed.world_size(group), distributed.rank_of(group)
+
     def backward_on(model, images_u8, boxes, valid, draws: StepDraws):
+        own = slice(rank * images_u8.shape[0], (rank + 1) * images_u8.shape[0])
+        mixing = d.mosaic_prob > 0 or d.mixup_prob > 0
+        if mixing and world > 1:
+            # partners come from the whole (micro)batch: gather it
+            images_u8, boxes, valid = (distributed.all_gather_rows(t, group)
+                                       for t in (images_u8, boxes, valid))
         if d.mosaic_prob > 0:
             images_u8, boxes, valid = mosaic_batch(
                 images_u8, boxes, valid, draws.mosaic, d.mosaic_prob)
         if d.mixup_prob > 0:
             images_u8, boxes, valid = mixup_batch(
                 images_u8, boxes, valid, draws.mixup, d.mixup_prob)
+        if mixing and world > 1:
+            images_u8, boxes, valid = images_u8[own], boxes[own], valid[own]
+        if world > 1:
+            draws = draws.rows(own)
         images, aboxes, avalid = augment_batch(
             images_u8, boxes, valid, draws.augment, hflip_prob=d.hflip_prob,
             color_strengths=tuple(d.color_jitter),
@@ -402,10 +450,10 @@ def make_train_step(config: Config, image_size: Optional[int] = None,
         images_u8 = torch.as_tensor(images_u8).to(dev)
         boxes = torch.as_tensor(boxes).to(dev, torch.float32)
         valid = torch.as_tensor(valid).to(dev, torch.bool)
-        b = images_u8.shape[0]
-        if b % accum:
+        b = images_u8.shape[0] * world  # the global batch
+        if b % (accum * world):
             raise ValueError(f"grad_accum_steps={accum} must divide the batch "
-                             f"size {b}")
+                             f"size {b // world}")
         if draws is None:
             draws = sample_step_draws(config, model, b, seed, state.step)
         elif isinstance(draws, (AugmentDraws, StepDraws)):
@@ -425,12 +473,21 @@ def make_train_step(config: Config, image_size: Optional[int] = None,
         for p in params:
             p.grad = None
         metrics: Dict[str, torch.Tensor] = {}
-        for i in range(accum):
-            rows = slice(i, None, accum)
-            terms = backward_on(model, images_u8[rows], boxes[rows],
-                                valid[rows], draws[i].to(dev))
-            metrics = {k: metrics[k] + v if k in metrics else v
-                       for k, v in terms.items()}
+        with data_group(model, group):
+            for i in range(accum):
+                rows = slice(i, None, accum)
+                terms = backward_on(model, images_u8[rows], boxes[rows],
+                                    valid[rows], draws[i].to(dev))
+                metrics = {k: metrics[k] + v if k in metrics else v
+                           for k, v in terms.items()}
+        if world > 1:
+            # every loss is a sum over the batch: sum, never average
+            distributed.all_reduce_flat_(
+                [p.grad for p in params if p.grad is not None], group)
+            keys = sorted(metrics)
+            summed = distributed.all_reduce_(
+                torch.stack([metrics[k] for k in keys]), group)
+            metrics = dict(zip(keys, summed.unbind()))
         optim.apply_updates(state.opt, params, [
             torch.zeros_like(p) if p.grad is None and id(p) in frozen else p.grad
             for p in params])
@@ -521,29 +578,49 @@ EvalOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]
 
 
 def run_dataset_eval(config: Config, eval_step, map_metric, state: TrainState,
-                     ds: YoloDataset, with_map: bool = True, stash=None):
+                     ds: YoloDataset, with_map: bool = True, stash=None,
+                     group=None):
     """One eval pass over ``ds`` on the state's device: ``(loss, mAP or
     None)``. With ``eval.mask_padded_images`` the zero images that pad the
     last batch weigh 0 in the loss and are dropped from the mAP (see
+    ``_accumulate_eval``). ``group``: the process group of data
+    parallelism; each rank evaluates its row block of each batch, the loss
+    is summed over the ranks and the mAP sees the global batch (see
     ``_accumulate_eval``)."""
     mask = config.eval.mask_padded_images
     dev = next(state.model.parameters()).device
+    world, rank = distributed.world_size(group), distributed.rank_of(group)
+    block = (None if world == 1 else
+             shard_rows(ds.batch_size, world)[rank])
 
     def stepped() -> Iterable[EvalOut]:
-        for i, (images, boxes, valid) in enumerate(ds.prefetched(dev)):
+        for i, (images, boxes, valid) in enumerate(
+                ds.prefetched(dev, block=block)):
             weight = None
             if mask:
                 n_real = min(ds.batch_size, ds.num_examples - i * ds.batch_size)
                 weight = torch.arange(ds.batch_size, device=dev) < n_real
+                if block is not None:
+                    weight = weight[block]
             yield (*eval_step(state, images, boxes, valid, weight), weight)
 
     return _accumulate_eval(mask, ds.batch_size, ds.num_examples, stepped(),
-                            with_map, map_metric, stash)
+                            with_map, map_metric, stash, group)
+
+
+def _gathered(t, group):
+    """A rank's rows (a tensor, a per-scale tuple of them or None) of a
+    batch, gathered into the global batch in row order."""
+    if t is None or distributed.world_size(group) == 1:
+        return t
+    if isinstance(t, tuple):
+        return tuple(distributed.all_gather_rows(x, group) for x in t)
+    return distributed.all_gather_rows(t, group)
 
 
 def _accumulate_eval(mask: bool, batch_size: int, num_examples: int,
                      stepped: Iterable[EvalOut], with_map: bool, map_metric,
-                     stash=None):
+                     stash=None, group=None):
     """The loss summed on the device and read back once after the loop;
     the mAP updates (or, with ``stash`` and no mAP, the ``(y_true, y_pred,
     weight)`` of each batch kept for a later mAP without another forward).
@@ -551,19 +628,30 @@ def _accumulate_eval(mask: bool, batch_size: int, num_examples: int,
     Masked, the loss is ``sum * batch_size / n_evaluated``: the unmasked
     mean of batch sums whenever the batch divides the set, and the exact
     unpadded value when it does not; ``n_evaluated`` counts only the images
-    of batches that ran (a dropped remainder does not)."""
+    of batches that ran (a dropped remainder does not).
+
+    Over a ``group`` of ranks, ``stepped`` yields each rank's rows: the
+    loss sum is summed over the ranks once after the loop, and the grids
+    and weights are gathered into the global batch in row order before the
+    mAP sees them (greedy matching follows that order on ties), so every
+    rank holds the global loss and mAP."""
     total, batches = None, 0
     if with_map:
         map_metric.reset_states()
     for loss, y_true, y_pred, weight in stepped:
         total = loss if total is None else total + loss
         batches += 1
+        if with_map or stash is not None:
+            y_true, y_pred, weight = (_gathered(t, group)
+                                      for t in (y_true, y_pred, weight))
         if with_map:
             map_metric.update_state(y_true, y_pred, image_valid=weight)
         elif stash is not None:
             stash.append((y_true, y_pred, weight))
     if not batches:
         return 0.0, (map_metric.result() if with_map else None)
+    if distributed.world_size(group) > 1:
+        total = distributed.all_reduce_(total.reshape(1).clone(), group)[0]
     if mask:
         n_evaluated = min(num_examples, batches * batch_size)
         loss_out = float(total) * batch_size / max(n_evaluated, 1)
@@ -583,31 +671,65 @@ def _map_metric(config: Config) -> MeanAveragePrecision:
         max_candidates=e.max_candidates)
 
 
+def check_batch_divides(config: Config, dp: int) -> None:
+    """JAX's ``Trainer`` checks: the batch divides by the data axis, and by
+    ``grad_accum_steps`` times it (strided microbatches stay balanced)."""
+    batch = config.data.batch_size
+    if batch % dp != 0:
+        raise ValueError(f"batch_size {batch} must be divisible by the "
+                         f"data-parallel mesh size {dp}")
+    accum = max(config.train.grad_accum_steps or 1, 1)
+    if batch % (accum * dp) != 0:
+        raise ValueError(
+            f"batch_size {batch} must be divisible by grad_accum_steps * "
+            f"data_parallel = {accum}*{dp} so strided microbatches stay "
+            "shard-balanced")
+
+
 class Trainer:
     """The training run (the reference's ``model.fit`` with its callbacks):
-    ``fit`` for epochs, ``evaluate`` on a test set. One device: ``cuda``
-    unless ``device`` says otherwise."""
+    ``fit`` for epochs, ``evaluate`` on a test set, on ``cuda`` unless
+    ``device`` says otherwise.
+
+    ``mesh``: a ``parallel.Mesh``; by default ``create_mesh`` of
+    ``config.mesh``, over the process group's ranks once one is started
+    (``parallel.distributed.maybe_initialize``), else over this process's
+    device alone. Over a process group every rank builds the same Trainer
+    and state (same seed, so the same weights) and steps on its row block
+    of each global batch; the batch must divide by the data axis and by
+    ``grad_accum_steps`` times it (JAX's checks). Rank 0 alone writes the
+    logs and checkpoints; every rank restores them."""
 
     def __init__(self, config: Config,
                  device: Optional[Union[str, torch.device]] = None,
                  use_tensorboard: bool = True, mesh=None):
         check_ported(config, training=True)
         m, t = config.mesh, config.train
-        if mesh is not None or m.data_parallel not in (-1, 1) \
-                or m.model_parallel != 1:
-            raise NotImplementedError("training on several devices is not "
-                                      "ported yet (ROADMAP 1.15)")
-        validate_multiscale(config)
-        accum = max(t.grad_accum_steps or 1, 1)
-        if config.data.batch_size % accum:
-            raise ValueError(f"batch_size {config.data.batch_size} must be "
-                             f"divisible by grad_accum_steps {accum}")
-        self.config = config
         self.device = _device(device)
-        self._train_steps = {None: make_train_step(config)}  # by size
+        if mesh is None:
+            mesh = create_mesh(m.data_parallel, m.model_parallel,
+                               m.data_axis, m.model_axis,
+                               devices=None if torch.distributed.is_initialized()
+                               else [self.device])
+        check_data_parallel(mesh)
+        if mesh.group is None and mesh.data_parallel > 1:
+            raise ValueError("training over several devices runs one process "
+                             "a device: start the ranks with torchrun or "
+                             "cli.train --data-parallel N")
+        dp = mesh.data_parallel
+        check_batch_divides(config, dp)
+        validate_multiscale(config)
+        self.config = config
+        self.mesh = mesh
+        self.group = mesh.group
+        self.is_main = distributed.is_main(self.group)
+        self._block = (None if dp == 1 else
+                       shard_rows(config.data.batch_size, dp)[mesh.index])
+        self._train_steps = {None: make_train_step(config, group=self.group)}
         self._eval_step = make_eval_step(config)
-        self.logger = MetricLogger(t.log_dir, use_tensorboard=use_tensorboard)
-        self.ckpt = CheckpointManager(t.checkpoint_dir)
+        self.logger = MetricLogger(t.log_dir, use_tensorboard=use_tensorboard,
+                                   enabled=self.is_main)
+        self.ckpt = CheckpointManager(t.checkpoint_dir, writer=self.is_main)
         self.map_metric = _map_metric(config)
 
     def init_state(self, seed: Optional[int] = None) -> TrainState:
@@ -625,7 +747,7 @@ class Trainer:
         if dev_val is None:
             loss, map_val = run_dataset_eval(
                 self.config, self._eval_step, self.map_metric, state, val_ds,
-                with_map=with_map, stash=stash)
+                with_map=with_map, stash=stash, group=self.group)
         else:
             mask = self.config.eval.mask_padded_images
 
@@ -637,7 +759,7 @@ class Trainer:
 
             loss, map_val = _accumulate_eval(
                 mask, dev_val.batch_size, dev_val.num_examples, stepped(),
-                with_map, self.map_metric, stash)
+                with_map, self.map_metric, stash, self.group)
         out = {"val_loss": loss}
         if with_map:
             out["val_mAP"] = map_val
@@ -678,7 +800,7 @@ class Trainer:
         if size not in self._train_steps:
             self._train_steps[size] = make_train_step(
                 self.config, image_size=size,
-                grid=multiscale_grid(self.config, size))
+                grid=multiscale_grid(self.config, size), group=self.group)
         return self._train_steps[size]
 
     def _epoch_size(self, epoch: int) -> Optional[int]:
@@ -701,9 +823,11 @@ class Trainer:
         whole epoch; the last chunk holds the rest) whose row indices and
         draws (``sample_step_draws``, the same as the step's own) go to the
         device in one copy. The batches and draws do not depend on K, so
-        neither does any step."""
+        neither does any step. Over a process group each rank gets its row
+        block of every batch; the draws are the global batch's."""
         if dev_train is None:
-            for images, boxes, valid in train_ds.prefetched(self.device):
+            for images, boxes, valid in train_ds.prefetched(
+                    self.device, block=self._block):
                 yield images, boxes, valid, None
             return
         spd = self.config.train.steps_per_dispatch or 1
@@ -722,8 +846,7 @@ class Trainer:
             idx_rows = next(staged)
             draws = [[x.replaced(staged) for x in step] for step in draws]
             for idx, step_draws in zip(idx_rows, draws):
-                yield (dev_train.images[idx], dev_train.boxes[idx],
-                       dev_train.valid[idx], step_draws)
+                yield (*dev_train.gather(idx), step_draws)
 
     def fit(self, train_ds: YoloDataset, val_ds: Optional[YoloDataset] = None,
             epochs: Optional[int] = None, state: Optional[TrainState] = None,
@@ -745,7 +868,9 @@ class Trainer:
         A checkpoint is saved when the val loss beats the best saved one
         (not within ``save_cooldown_epochs`` of the last save), and the
         final state always, unless that epoch was just saved. Each epoch's
-        line goes to the logger (and stdout with ``verbose``)."""
+        line goes to the logger (and stdout with ``verbose``); over a
+        process group, rank 0's alone, and every rank waits at the end
+        until rank 0's checkpoints are on disk."""
         cfg = self.config
         epochs = cfg.train.epochs if epochs is None else epochs
         if state is None:
@@ -753,9 +878,11 @@ class Trainer:
         dev_train = dev_val = None
         if cfg.data.device_cache:
             layout = cfg.data.device_cache_layout
-            dev_train = DeviceCachedDataset(train_ds, self.device, layout)
+            dev_train = DeviceCachedDataset(train_ds, self.device, layout,
+                                            self.mesh)
             if val_ds is not None:
-                dev_val = DeviceCachedDataset(val_ds, self.device, layout)
+                dev_val = DeviceCachedDataset(val_ds, self.device, layout,
+                                              self.mesh)
         epoch_offset = (start_epoch if start_epoch is not None
                         else state.step // max(len(train_ds), 1))
         lrs = epoch_schedule(cfg.train.schedule, epoch_offset + epochs)
@@ -820,7 +947,7 @@ class Trainer:
                     if (reduce_on_plateau is not None
                             and since_best % reduce_on_plateau[1] == 0):
                         lr_scale *= reduce_on_plateau[0]
-                        if verbose:
+                        if verbose and self.is_main:
                             print(f"plateau: scaling LR by "
                                   f"{reduce_on_plateau[0]} -> scale "
                                   f"{lr_scale:.4g}")
@@ -837,13 +964,13 @@ class Trainer:
 
             logs["wall_s"] = time.time() - t0
             self.logger.log(epoch, logs)
-            if verbose:
+            if verbose and self.is_main:
                 msg = " ".join(f"{k}={v:.5g}" for k, v in logs.items())
                 print(f"epoch {epoch + 1}/{epoch_offset + epochs}: {msg}",
                       flush=True)
             if (early_stop_patience is not None
                     and since_best >= early_stop_patience):
-                if verbose:
+                if verbose and self.is_main:
                     print(f"early stop at epoch {epoch + 1}")
                 break
 
@@ -851,10 +978,11 @@ class Trainer:
         if epochs > 0 and last_save != epoch:
             self.ckpt.save(epoch, state, {"val_loss": float(last_monitor)})
         self.ckpt.wait()
+        distributed.barrier(self.group)
         return state
 
     def evaluate(self, state: TrainState, ds: YoloDataset) -> Dict[str, float]:
-        """Test-set loss and mAP."""
+        """Test-set loss and mAP (over the process group, as validation)."""
         return self._validate(state, ds, None, True)
 
     def close(self) -> None:

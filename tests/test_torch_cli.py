@@ -183,17 +183,58 @@ def test_the_jax_clis_config_loads_in_the_port(flags, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("cli,argv,match", [
     (cli_train, ["--profile-dir", "p"], "ROADMAP 1.15"),
-    (cli_train, ["--data-parallel", "4"], "ROADMAP 1.15"),
-    (cli_train, ["--device-cache-layout", "sharded"], "ROADMAP 1.15"),
     (cli_evaluate, ["--tag-dir", "t"], "ROADMAP 1.15"),
     (cli_evaluate, ["--image", "a.jpg", "--names", "n"], "ROADMAP 1.15"),
-    (cli_evaluate, ["--data-parallel", "2"], "ROADMAP 1.15"),
 ])
 def test_unported_flags_raise(cli, argv, match, tmp_path):
     base = (["--data-dir", str(tmp_path)] if cli is cli_train
             else ["--checkpoint-dir", str(tmp_path)])
     with pytest.raises(NotImplementedError, match=match):
         cli.main(base + argv + ["--device", "cpu"])
+
+
+def _evaluation(out):
+    line = next(x for x in out.splitlines() if x.startswith("evaluation:"))
+    return {k: v for k, v in eval(line[len("evaluation:"):]).items()
+            if not k.endswith(("_s", "_per_s"))}
+
+
+# the multi-device flags, which the port refused before its data
+# parallelism was ported: what the JAX CLIs do with them
+@pytest.mark.parametrize("case", ["train_dp4", "train_sharded", "evaluate_dp2"])
+def test_multi_device_flags_run_as_in_jax(trained, case, tmp_path, capsys):
+    data, ckpt, train_argv = trained
+    if case == "train_dp4":
+        # the tiny preset's batch of 2 over 4 ranks: JAX's Trainer error,
+        # raised before any rank starts
+        with pytest.raises(ValueError, match="data-parallel mesh size 4"):
+            cli_train.main(["--data-dir", data, "--preset", "tiny",
+                            "--data-parallel", "4", "--device", "cpu"])
+        return
+    if not os.path.exists(os.path.join(ckpt, "config.json")):
+        cli_train.main(train_argv)
+    capsys.readouterr()
+    if case == "train_sharded":
+        # a one-device mesh holds the whole set in its one shard
+        out = str(tmp_path / "c")
+        cli_train.main(["--data-dir", data, "--preset", "tiny", "--epochs",
+                        "1", "--device", "cpu", "--checkpoint-dir", out,
+                        "--log-dir", str(tmp_path / "l"), "--device-cache",
+                        "--device-cache-layout", "sharded"])
+        assert "epoch 1/1:" in capsys.readouterr().out
+        with open(os.path.join(out, "config.json")) as f:
+            assert json.load(f)["data"]["device_cache_layout"] == "sharded"
+        return
+    # evaluation over a mesh of 2 CPU replicas: the single device's loss
+    # and mAP
+    base = ["--checkpoint-dir", ckpt, "--data-dir", data, "--device", "cpu",
+            "--coco-map"]
+    cli_evaluate.main(base)
+    single = _evaluation(capsys.readouterr().out)
+    cli_evaluate.main(base + ["--data-parallel", "2"])
+    meshed = _evaluation(capsys.readouterr().out)
+    assert meshed == pytest.approx(single, rel=1e-5, abs=1e-6)
+    assert meshed["mAP"] == single["mAP"]
 
 
 def test_the_default_device_is_the_gpu(trained):
@@ -204,6 +245,18 @@ def test_the_default_device_is_the_gpu(trained):
         cli_train.main(["--data-dir", data, "--preset", "tiny",
                         "--checkpoint-dir", ckpt + "_gpu"])
     assert not os.path.exists(ckpt + "_gpu")
+
+
+def test_evaluate_data_parallel_default_device_is_the_gpu(trained):
+    # a mesh of every device takes the GPUs, never the CPU unasked
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    data, ckpt, train_argv = trained
+    if not os.path.exists(os.path.join(ckpt, "config.json")):
+        cli_train.main(train_argv)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_evaluate.main(["--checkpoint-dir", ckpt, "--data-dir", data,
+                           "--data-parallel", "-1"])
 
 
 # the serving flags, which the port refused before its serving extras and

@@ -232,5 +232,15 @@ def test_device_cache_size_guard_and_sharded_layout(data_dir):
     with pytest.raises(ValueError, match="too large for the device"):
         pipeline.DeviceCachedDataset(ds, "cpu")
     small = pipeline.YoloDataset(data_dir, 56, 2, max_boxes=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.15"):
+    # as JAX's: the sharded layout needs a mesh; over a one-device mesh
+    # its batches are the replicated layout's (two ranks:
+    # tests/test_torch_parallel_fit.py)
+    with pytest.raises(ValueError, match="requires a mesh"):
         pipeline.DeviceCachedDataset(small, "cpu", layout="sharded")
+    from keras_object_detection_torch.parallel import create_mesh
+    mesh = create_mesh(devices=["cpu"])
+    sharded = pipeline.DeviceCachedDataset(small, "cpu", "sharded", mesh)
+    replicated = pipeline.DeviceCachedDataset(small, "cpu")
+    for a, b in zip(sharded.epoch(), replicated.epoch()):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)

@@ -273,8 +273,10 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(tmp_path):
             make()
 
 
+# data_parallel > 1 is ported (tests/test_torch_parallel_fit.py); the
+# model axis, tensor parallelism, is what stays in ROADMAP 1.15
 @pytest.mark.parametrize("section,override,match", [
-    ("mesh", {"data_parallel": 2}, "ROADMAP 1.15"),
+    ("mesh", {"model_parallel": 2}, "ROADMAP 1.15"),
 ])
 def test_unported_trainer_switches_raise(tmp_path, section, override, match):
     cfg = _port(_jcfg(str(tmp_path)))

@@ -7,7 +7,8 @@ accumulator, ``Trainer.fit``, the pinned-memory prefetch), and the YOLOv2
 anchor family's card-side cases (K2/K3 at its 21 BatchNorm shapes, K1
 behind the top-k cut, the v2 loss on the card, a passthrough step), and the
 int8 route (``ops/int8_conv.py``), int8 serving and soft / fast NMS on the
-card. They skip
+card, and data parallelism on the card (mesh serving over ``[cuda:0,
+cuda:0]``, a one-rank NCCL step). They skip
 without a card. This file imports neither JAX nor the JAX package, so on a
 machine without JAX it runs alone:
 
@@ -103,6 +104,59 @@ def test_serving_on_the_gpu_goes_through_the_kernel(cuda):
         model.predict_decoded(images))
     assert torch.equal(got_valid, want_valid)
     assert torch.equal(got_rows, want_rows)
+
+
+def test_mesh_serving_on_the_gpu_runs_the_kernel_once_a_shard(cuda):
+    """A device mesh of two replicas on one card serves each half of the
+    batch as one device serves it, through K1 once a shard."""
+    from keras_object_detection_torch.parallel import create_mesh
+
+    cfg = tiny_cpu_config()
+    cfg = dataclasses.replace(cfg, eval=dataclasses.replace(
+        cfg.eval, conf_threshold=0.0))
+    sd = build_model(cfg, torch.Generator().manual_seed(0)).state_dict()
+    one = InferenceModel(cfg, sd)
+    meshed = InferenceModel(cfg, sd, mesh=create_mesh(
+        devices=[one.device, one.device]))
+    images = np.random.RandomState(9).randint(0, 256, (4, 224, 224, 3), np.uint8)
+    want = [one.predict(images[i:i + 2]) for i in (0, 2)]
+    before = cuda_nms.LAUNCHES
+    rows, valid = meshed.predict(images)
+    assert cuda_nms.LAUNCHES == before + 2
+    assert torch.equal(rows, torch.cat([r for r, _ in want]))
+    assert torch.equal(valid, torch.cat([v for _, v in want]))
+
+
+def test_one_rank_nccl_step_is_the_one_device_step(cuda):
+    """The data-parallel step over a one-rank NCCL group adds no collective
+    and gives the one-device step's bits (deterministic cuDNN)."""
+    import torch.distributed as dist
+
+    from chip_smoke import deterministic_cudnn, tiny_train_config
+    from keras_object_detection_torch.parallel import distributed
+
+    cfg = tiny_train_config()
+    rng = np.random.RandomState(0)
+    images = rng.randint(0, 256, (4, 56, 56, 3)).astype(np.uint8)
+    boxes = np.tile(np.array([0.5, 0.5, 0.3, 0.3, 1.0], np.float32), (4, 2, 1))
+    valid = np.ones((4, 2), bool)
+    dist.init_process_group("nccl", init_method="tcp://127.0.0.1:"
+                            f"{distributed.free_port()}", rank=0, world_size=1)
+    try:
+        out = []
+        for group in (None, dist.group.WORLD):
+            state = create_train_state(cfg, torch.Generator().manual_seed(0))
+            distributed.reset_counts()
+            with deterministic_cudnn():
+                state, m = make_train_step(cfg, group=group)(
+                    state, images, boxes, valid, 3)
+            out.append((m["total"], state.model.state_dict()))
+        assert distributed.ALL_REDUCES == distributed.GATHERS == 0
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(out[0][0], out[1][0])
+    for k, v in out[0][1].items():
+        assert torch.equal(v, out[1][1][k]), k
 
 
 def _loss_tensors(kind, n, device):

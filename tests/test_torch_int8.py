@@ -384,8 +384,12 @@ def test_int8_model_options_and_guards():
                                 bias_correct=True), "exclusive")]:
         with pytest.raises(ValueError, match=match):
             T.Int8InferenceModel(tcfg, sd, device="cpu", **kwargs)
+    # a data-axis mesh serves (tests/test_torch_sharded_serving.py); a
+    # model axis, tensor parallelism, stays in ROADMAP 1.15
+    from keras_object_detection_torch.parallel import Mesh
     with pytest.raises(NotImplementedError, match="ROADMAP 1.15"):
-        T.Int8InferenceModel(tcfg, sd, device="cpu", mesh=object())
+        T.Int8InferenceModel(tcfg, sd, device="cpu",
+                             mesh=Mesh(1, 2, (torch.device("cpu"),) * 2))
     for head in ("gap_dense", "flatten_dense"):
         dense = dataclasses.replace(tcfg, model=dataclasses.replace(
             tcfg.model, head=head))

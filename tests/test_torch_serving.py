@@ -21,6 +21,7 @@ from keras_object_detection_torch import config as tconfig
 from keras_object_detection_torch.eval.evaluator import InferenceModel
 from keras_object_detection_torch.models import flax_to_torch
 from keras_object_detection_torch.ops import cuda_nms
+from keras_object_detection_torch.parallel import Mesh
 
 from test_torch_model import jax_model_and_variables
 
@@ -125,8 +126,10 @@ def test_default_device_is_the_gpu():
             InferenceModel(cfg, sd)
 
 
+# a mesh over the data axis serves (tests/test_torch_sharded_serving.py);
+# a model axis, tensor parallelism, stays in ROADMAP 1.15
 @pytest.mark.parametrize("eval_override,kwargs,match", [
-    ({}, {"mesh": object()}, "ROADMAP 1.15"),
+    ({}, {"mesh": Mesh(1, 2, (torch.device("cpu"),) * 2)}, "ROADMAP 1.15"),
 ])
 def test_unported_serving_options_raise(eval_override, kwargs, match):
     cfg = tconfig.tiny_cpu_config()
