@@ -212,7 +212,32 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
              classes, rows); the float models' distance to it (bf16 cuDNN
              may pick other algorithms at batch 16) reported, beside one
              device's own batch-8-against-16 distance with no mesh; p50 beside
-             one device's; one JSON line "parallel".
+             one device's; one JSON line "parallel";
+18. tensor_parallel - tensor parallelism (parallel/tensor.py), four gloo
+             ranks on the one card started once (`python -m chip_smoke
+             --tp-rank JOB`, files under build/tensor_parallel/): (a) on
+             ranks 0 and 1, a (1 data, 2 model) mesh, the flagship's kernel
+             path at full width (bf16, nadam, bn_mode fused, the fused
+             loss, batch 64): JAX's 39 sharded leaves (13 kernels, 67,239,936
+             values, and their moments), parameters and moments a rank
+             (69,653,342 - 33,619,968) x 12 B, launches a rank a step (K2 25,
+             K3 25, K4 1, K5 1), gathers and reductions and their bytes a
+             step, p50 of 3 steps, the collectives' time in one instrumented
+             step, peak memory, K2/K3 against their plain versions and at
+             each of the step's shapes (the sharded blocks' (M, C / 2))
+             device time beside the bound; (b) on all four, a (2, 2) mesh,
+             the float32 SGD step on phase 17's ramped batch (32 rows a data
+             rank) against the one process with phase 17's four limits, the
+             four ranks' gathered states bit-equal, and four planted faults
+             (TP_FAULTS) each caught; (c) float and int8 serving of the
+             flagship and YOLOv3 over a (2, 2) device mesh of [cuda:0] x 4
+             at batch 16: rows equal to the (2, 1) mesh's, K1 once a data
+             shard a predict call; (d) the flagship's float32 serving
+             function through torch.export (.pt2), loaded and run against
+             the model's forward; (e) utils/profiling.trace of two flagship
+             steps: op_breakdown's K2/K3/K4/K5 counts equal to the launch
+             counters (50/50/2/2); (f) parallel/dryrun.py over 4 ranks (the
+             flagship on (2, 2)); one JSON line "tensor_parallel".
 
 Then one JSON line describing each kernel (K1's launches add the hard-mode
 serving of phase 14 and the int8 serving of phase 15 to phase 4's), one line
@@ -4124,6 +4149,557 @@ def phase_parallel(dev) -> dict:
     return out
 
 
+TP_DIR = os.path.join("build", "tensor_parallel")
+TP_WARMUP, TP_STEPS = 1, 3
+TP_RANKS = 4  # (b)'s dp2 x tp2; (a) runs on ranks 0 and 1
+TP_FAULTS = ("copy_in_not_summed", "gather_backward_summed",
+             "grads_over_world", "partial_grads_local")
+TP_SHARDED_LEAVES = 39  # JAX's state_sharding of the flagship's nadam state
+TP_SHARDED_VALUES = 67_239_936  # the 13 kernels it shards
+
+
+@contextlib.contextmanager
+def tp_planted(fault, mesh):
+    """Inside the block the tensor-parallel step combines wrongly, as a bug
+    would (``None``: as it should): ``copy_in_not_summed`` a column-parallel
+    layer's input gradient is not summed over the model group,
+    ``gather_backward_summed`` the gather's backward sums the gradient over
+    the model group before it slices (it should only slice),
+    ``grads_over_world`` the gradients are all-reduced over every rank
+    instead of the data group, ``partial_grads_local`` the replicated 1-D
+    parameters of the sharded channels keep each rank's slice of their
+    gradient (not summed over the model group)."""
+    from keras_object_detection_torch.parallel import distributed, tensor
+
+    gather = distributed.GatherChannels
+    saved = (distributed.sum_over, gather.backward,
+             distributed.all_reduce_flat_, tensor.reduce_partial_grads)
+    sum_over, backward, flat_, _ = saved
+    if fault == "copy_in_not_summed":
+        distributed.sum_over = lambda t, group: t
+    elif fault == "gather_backward_summed":
+        def summed(ctx, grad):
+            return (sum_over(grad.contiguous(), ctx.group)
+                    .narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None)
+
+        gather.backward = staticmethod(summed)
+    elif fault == "grads_over_world":
+        def over_world(tensors, group):
+            flat_(tensors, torch.distributed.group.WORLD
+                  if group is mesh.data_group else group)
+
+        distributed.all_reduce_flat_ = over_world
+    elif fault == "partial_grads_local":
+        tensor.reduce_partial_grads = lambda model: None
+    elif fault is not None:
+        raise ValueError(f"unknown fault {fault!r}")
+    try:
+        yield
+    finally:
+        (distributed.sum_over, gather.backward, distributed.all_reduce_flat_,
+         tensor.reduce_partial_grads) = saved
+
+
+@contextlib.contextmanager
+def collective_timer(out: dict):
+    """Host seconds inside each kind of collective, the device synchronised
+    before and after each (gloo stages CUDA tensors through the host):
+    ``gather`` (the column-parallel gathers and the running statistics'),
+    ``input_grad_sum`` (copy_in's backward), ``all_reduce`` (the
+    BatchNorms' sums, the 1-D gradients over the model group, the gradient
+    and metrics all-reduces over the data group)."""
+    from keras_object_detection_torch.models import layers
+    from keras_object_detection_torch.ops import bn
+    from keras_object_detection_torch.parallel import distributed
+
+    def timed(kind, fn):
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            out[kind] = out.get(kind, 0.0) + time.perf_counter() - t0
+            return result
+        return wrapped
+
+    with contextlib.ExitStack() as stack:
+        for module, attr, kind in (
+                (distributed, "all_gather_dim", "gather"),
+                (layers, "all_gather_dim", "gather"),
+                (distributed, "sum_over", "input_grad_sum"),
+                (distributed, "all_reduce_", "all_reduce"),
+                (bn, "all_reduce_", "all_reduce"),
+                (layers, "all_reduce_", "all_reduce")):
+            stack.enter_context(unittest.mock.patch.object(
+                module, attr, timed(kind, getattr(module, attr))))
+        yield
+
+
+def tp_state_bytes(state) -> int:
+    """Bytes of this rank's parameters and optimizer moments."""
+    opt = state.opt
+    return sum(t.numel() * t.element_size() for t in
+               list(state.model.parameters()) + opt.mu + opt.nu + opt.trace)
+
+
+def tp_bn_shapes(calls: dict) -> list:
+    """K2 and K3 at each distinct shape of a captured step's calls:
+    bit-equal from call to call, device ms (CUDA graph), the bound, and
+    how many of the step's calls have that shape."""
+    from keras_object_detection_torch.ops import bn
+
+    rows = []
+    for name, kernel in (("k2", bn.cuda_bn_stats_sums),
+                         ("k3", bn.cuda_bn_grad_sums)):
+        seen = {}
+        for args in calls[name]:
+            x = args[0] if name == "k2" else args[1]
+            key = tuple(x.shape)
+            if key in seen:
+                seen[key]["calls"] += 1
+                continue
+            if not torch.equal(kernel(*args), kernel(*args)):
+                raise SystemExit(f"[tensor_parallel] {name.upper()} differs "
+                                 f"from call to call at {key}")
+            bound, by = bn_bound_ms(key, x.element_size(), name == "k3")
+            seen[key] = {"kernel": name, "shape": list(key),
+                         "rows_x_channels": [math.prod(key) // key[1],
+                                             key[1]],
+                         "calls": 1, "ms": graph_ms(lambda: kernel(*args),
+                                                    20, 5),
+                         "bound_ms": bound, "bound_by": by}
+        rows += list(seen.values())
+    return rows
+
+
+def tp_flagship_rank(dev, mesh, out: dict) -> None:
+    """(a) on this rank of the (1, 2) mesh: the flagship's kernel-path step
+    at batch 64 (every rank all 64 rows), its sharded leaves, bytes,
+    launches, collectives, p50, the collectives' share and K2/K3 at the
+    step's shapes (rank 0)."""
+    from keras_object_detection_torch.parallel import distributed, dryrun
+    from keras_object_detection_torch.parallel import tensor
+    from keras_object_detection_torch.train import (create_train_state,
+                                                    make_train_step)
+
+    cfg = train_config(True)
+    state = create_train_state(cfg, torch.Generator().manual_seed(0), dev)
+    whole = tp_state_bytes(state)
+    leaves = dryrun.sharded_leaves(state, mesh)
+    tensor.shard_state(state, mesh)
+    values = sum(state.model.get_parameter(n).numel()
+                 for n in tensor.placement(state.model).sharded)
+    batch = synthetic_batch(cfg.data.batch_size, cfg.model.image_size,
+                            cfg.data.max_boxes_per_image, dev)
+    step = make_train_step(cfg, group=mesh.data_group)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(TP_WARMUP):
+        state, metrics = step(state, *batch, 1)
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    distributed.reset_counts()
+    times = []
+    for _ in range(TP_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, *batch, 1)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = kernel_counts()
+    collectives = {k: getattr(distributed, k) / TP_STEPS for k in (
+        "GATHERS", "GATHER_BYTES", "ALL_REDUCES", "ALL_REDUCE_BYTES")}
+    spent: dict = {}
+    with collective_timer(spent):
+        t0 = time.perf_counter()
+        state, metrics = step(state, *batch, 1)
+        torch.cuda.synchronize()
+        instrumented = (time.perf_counter() - t0) * 1e3
+    out.update({
+        "sharded_leaves": leaves, "sharded_kernels":
+            len(tensor.placement(state.model).sharded),
+        "sharded_kernel_values": values * mesh.model_parallel,
+        "state_bytes": tp_state_bytes(state), "state_bytes_whole": whole,
+        "p50_ms": float(np.median(times)), "step_ms": times,
+        "counts": counts, "collectives_a_step": collectives,
+        "instrumented_step_ms": instrumented,
+        "collective_ms": {k: v * 1e3 for k, v in spent.items()},
+        "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        "loss": metrics["total"].item()})
+    # every rank takes the captured step (its collectives need them all);
+    # rank 0 checks and times the kernels on its inputs
+    calls = capture_kernel_calls(step, state, batch, 1)
+    if mesh.model_index == 0:
+        out["errors"] = kernel_errors(calls)
+        out["bn_shapes"] = tp_bn_shapes(calls)
+
+
+def tp_float32_rank(dev, mesh, job: dict) -> None:
+    """(b) on this rank of the (2, 2) mesh: the float32 SGD step of
+    parallel_f32_config on the ramped batch (dp_step), clean and with each
+    of TP_FAULTS; the gathered whole state saved (every rank's for the
+    clean run, rank 0's for the faults)."""
+    from keras_object_detection_torch.parallel import tensor
+    from keras_object_detection_torch.train import create_train_state
+
+    cfg = parallel_f32_config()
+    seeded = create_train_state(cfg, torch.Generator().manual_seed(0), dev)
+    rank = torch.distributed.get_rank()
+    for fault in (None,) + TP_FAULTS:
+        state = tensor.shard_state(copy.deepcopy(seeded), mesh)
+        with tp_planted(fault, mesh):
+            state, metrics = dp_step(cfg, dev, mesh.data_group, state=state)
+        whole = tensor.full_tensors(state.model, state.model.state_dict())
+        if rank == 0 or fault is None:
+            torch.save({"model": {k: v.cpu() for k, v in whole.items()},
+                        "loss": metrics["total"].item()},
+                       os.path.join(job["dir"],
+                                    f"f32_{fault or 'clean'}_rank{rank}.pt"))
+        del state, whole
+        if rank == 0:
+            log(f"[tensor_parallel] (b) {fault or 'clean'} step done")
+    del seeded
+    torch.cuda.empty_cache()
+
+
+def tp_rank(job_path: str) -> int:
+    """One rank of phase tensor_parallel: joins the 4-rank gloo group the
+    environment describes, runs (a) on ranks 0 and 1 (a (1, 2) mesh of
+    their own), then (b) on all four ((2, 2)), and writes its results."""
+    from keras_object_detection_torch.parallel import create_mesh, distributed
+
+    with open(job_path) as f:
+        job = json.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = int(os.environ["RANK"])
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    distributed.maybe_initialize(backend="gloo")
+    world = torch.distributed.group.WORLD
+    res: dict = {"rank": rank}
+    pair = torch.distributed.new_group([0, 1])  # every rank creates it
+    if rank < 2:
+        tp_flagship_rank(dev, create_mesh(1, 2, group=pair), res)
+        torch.cuda.empty_cache()
+        log(f"[tensor_parallel] rank {rank}: (a) done")
+    distributed.barrier(world)
+    tp_float32_rank(dev, create_mesh(2, 2), job)
+    res["peak_gib_process"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    with open(os.path.join(job["dir"], f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    distributed.barrier(world)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def tp_float32_check(dev) -> dict:
+    """(b) against the one process: PR 12's four limits (loss and running
+    statistics to PARALLEL_LOSS_RTOL; the parameters' updates in norm, the
+    worst and the median within twice the one process's reversed-batch
+    distance, at least PARALLEL_UPDATE_RTOL and PARALLEL_MEDIAN_RTOL), the
+    four ranks' gathered states bit-equal, each planted fault caught."""
+    from keras_object_detection_torch.models import build_model
+
+    ref, ref_metrics = dp_step(parallel_f32_config(), dev, None)
+    want = {k: v.detach().cpu() for k, v in ref.model.state_dict().items()}
+    del ref
+    rev, _ = dp_step(parallel_f32_config(), dev, None, reverse=True)
+    reordered = {k: v.detach().cpu() for k, v in rev.model.state_dict().items()}
+    del rev
+    torch.cuda.empty_cache()
+    init = build_model(parallel_f32_config(),
+                       torch.Generator().manual_seed(0)).state_dict()
+    ref_loss = ref_metrics["total"].item()
+
+    def updates(got):
+        return [(rel_norm(got[k] - init[k], v - init[k]), k)
+                for k, v in want.items()
+                if "running" not in k and not zero_gradient(k)
+                and k in init and v.is_floating_point()]
+
+    def distances(run):
+        got = torch.load(os.path.join(TP_DIR, f"f32_{run}_rank0.pt"))
+        stat = max(rel_norm(got["model"][k], v) for k, v in want.items()
+                   if "running" in k)
+        ups = updates(got["model"])
+        return (abs(got["loss"] - ref_loss) / abs(ref_loss), stat, max(ups),
+                float(np.median([u for u, _ in ups])))
+
+    rev_ups = updates(reordered)
+    update_tol = max(PARALLEL_UPDATE_RTOL, 2 * max(rev_ups)[0])
+    median_tol = max(PARALLEL_MEDIAN_RTOL,
+                     2 * float(np.median([u for u, _ in rev_ups])))
+
+    def caught(d):
+        return (d[0] > PARALLEL_LOSS_RTOL or d[1] > PARALLEL_LOSS_RTOL
+                or d[2][0] > update_tol or d[3] > median_tol)
+
+    clean = distances("clean")
+    states = [torch.load(os.path.join(TP_DIR, f"f32_clean_rank{r}.pt"))
+              for r in range(TP_RANKS)]
+    ranks_equal = all(s["loss"] == states[0]["loss"] and all(
+        torch.equal(v, s["model"][k]) for k, v in states[0]["model"].items())
+        for s in states[1:])
+    del states
+    faults = {}
+    for fault in TP_FAULTS:
+        d = distances(fault)
+        faults[fault] = {"loss_rel_err": d[0], "running_rel_err": d[1],
+                         "update_rel_err": d[2][0],
+                         "update_rel_err_tensor": d[2][1],
+                         "median_update_rel_err": d[3], "caught": caught(d)}
+    res = {"loss_rel_err": clean[0], "running_rel_err": clean[1],
+           "update_rel_err": clean[2][0],
+           "update_rel_err_tensor": clean[2][1],
+           "median_update_rel_err": clean[3], "update_tol": update_tol,
+           "median_tol": median_tol, "ranks_equal": ranks_equal,
+           "faults": faults}
+    log(f"[tensor_parallel] (b) float32 SGD step over dp2 x tp2 (4 gloo "
+        f"ranks on the card, 32 rows a data rank) against one process: loss "
+        f"rel err {clean[0]:.3e}, running statistics {clean[1]:.3e}, worst "
+        f"update {clean[2][0]:.3e} ({clean[2][1]}), median update "
+        f"{clean[3]:.3e}; tolerances {PARALLEL_LOSS_RTOL}, "
+        f"{PARALLEL_LOSS_RTOL}, {update_tol:.3e}, {median_tol:.3e}; the four "
+        f"ranks' gathered states bit-equal {ranks_equal}")
+    for fault, d in faults.items():
+        log(f"[tensor_parallel] (b) planted {fault}: loss rel err "
+            f"{d['loss_rel_err']:.3e}, running statistics "
+            f"{d['running_rel_err']:.3e}, worst update "
+            f"{d['update_rel_err']:.3e} ({d['update_rel_err_tensor']}), "
+            f"median update {d['median_update_rel_err']:.3e}: caught "
+            f"{d['caught']}")
+    if caught(clean):
+        raise SystemExit("[tensor_parallel] (b) the dp2 x tp2 step parts "
+                         "from the one-process step beyond its tolerance")
+    if not ranks_equal:
+        raise SystemExit("[tensor_parallel] (b) the ranks' gathered states "
+                         "differ")
+    missed = [f for f, d in faults.items() if not d["caught"]]
+    if missed:
+        raise SystemExit(f"[tensor_parallel] (b) the comparison does not "
+                         f"catch the planted {missed}")
+    return res
+
+
+def tp_serving(dev) -> dict:
+    """(c) float and int8 serving of the flagship and YOLOv3 over a (2, 2)
+    device mesh of [cuda:0] x 4 at batch 16 (deterministic cuDNN): rows and
+    masks torch.equal to the (2, 1) mesh's, K1 once a data shard a
+    predict call (2)."""
+    from keras_object_detection_torch.eval import InferenceModel
+    from keras_object_detection_torch.export import Int8InferenceModel
+    from keras_object_detection_torch.ops import cuda_nms
+    from keras_object_detection_torch.ops.nms import top_k_candidates
+    from keras_object_detection_torch.parallel import create_mesh
+
+    two_by_two = create_mesh(2, 2, devices=[dev] * 4)
+    two_by_one = create_mesh(2, devices=[dev] * 2)
+    out = {}
+    for tag in ("flagship", "yolov3"):
+        cfg, sd = serving_weights(tag)
+        images = serving_images(cfg, PARALLEL_SERVE_BATCH, dev)
+        for kind, cls in (("float", InferenceModel),
+                          ("int8", Int8InferenceModel)):
+            probe = cls(cfg, sd, device=dev)
+            decoded = probe.predict_decoded(images)
+            if cfg.eval.max_candidates:
+                decoded = top_k_candidates(decoded, cfg.eval.max_candidates)
+            lcfg = dataclasses.replace(cfg, eval=dataclasses.replace(
+                cfg.eval, conf_threshold=float(decoded[..., 1].median())))
+            del probe
+            wide, narrow = (cls(lcfg, sd, mesh=two_by_two),
+                            cls(lcfg, sd, mesh=two_by_one))
+            with deterministic_cudnn():
+                want_rows, want_valid = narrow.predict(images)
+                cuda_nms.LAUNCHES = 0
+                rows, valid = wide.predict(images)
+                torch.cuda.synchronize()
+                k1 = cuda_nms.LAUNCHES
+            equal = torch.equal(rows, want_rows) and torch.equal(valid,
+                                                                 want_valid)
+            out[f"{tag}_{kind}"] = {
+                "k1_launches": k1, "equal_to_data_axis_mesh": equal,
+                "replicas": len(wide._replicas), "kept": int(valid.sum()),
+                "p50_ms": call_p50(lambda: wide.predict(images), 5)}
+            log(f"[tensor_parallel] (c) {tag} {kind} over a (2, 2) mesh of "
+                f"[cuda:0] x 4 at batch {PARALLEL_SERVE_BATCH}: K1 {k1} in "
+                f"one predict, {int(valid.sum())} kept, rows equal to the "
+                f"(2, 1) mesh's {equal}, p50 "
+                f"{out[f'{tag}_{kind}']['p50_ms']:.3f} ms")
+            if k1 != 2 or not equal:
+                raise SystemExit(f"[tensor_parallel] (c) {tag} {kind}: K1 "
+                                 f"{k1} (expected 2), rows equal {equal}")
+            del wide, narrow
+            torch.cuda.empty_cache()
+    return out
+
+
+def tp_export(dev) -> dict:
+    """(d) the flagship's float32 serving function exported
+    (torch.export, .pt2) on the card, loaded and run at batch 2 against the
+    model's float32 forward on the same weights."""
+    from keras_object_detection_torch.export import litert
+
+    cfg, sd = serving_weights("flagship")
+    os.makedirs(TP_DIR, exist_ok=True)
+    path = os.path.join(TP_DIR, "flagship.pt2")
+    t0 = time.perf_counter()
+    blob = litert.export_program(cfg, sd, path, batch_size=2, device=dev)
+    export_s = time.perf_counter() - t0
+    program = litert.load_program(path)
+    x = torch.from_numpy(np.random.RandomState(3).rand(
+        2, 448, 448, 3).astype(np.float32)).to(dev)
+    with torch.no_grad(), deterministic_cudnn():
+        got = program(x)
+        want = litert._make_serving_fn(cfg, sd, dev)(x)
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    log(f"[tensor_parallel] (d) export of the flagship (float32, batch 2): "
+        f"{len(blob)} bytes in {export_s:.1f} s; the loaded program's grids "
+        f"{tuple(got.shape)} against the model's float32 forward on the card:"
+        f" max abs difference {err:.3e} (grid scale {scale:.3e})")
+    if not (torch.isfinite(got).all() and err <= 1e-4 * max(scale, 1.0)):
+        raise SystemExit(f"[tensor_parallel] (d) the exported program parts "
+                         f"from the model by {err:.3e}")
+    return {"bytes": len(blob), "export_s": export_s, "max_abs_err": err,
+            "grid_scale": scale, "shape": list(got.shape)}
+
+
+def tp_kernel_of(name: str):
+    """The port's kernel a trace's kernel name is, or None."""
+    if "bn_stats_kernel" in name:
+        return "bn_grad_stats" if ", true," in name else "bn_stats"
+    if "loss_forward_kernel" in name:
+        return "yolo_loss_forward"
+    if "loss_backward_kernel" in name:
+        return "yolo_loss_backward"
+    return None
+
+
+def tp_profile(dev) -> dict:
+    """(e) utils/profiling.trace of two flagship kernel-path steps (batch
+    64, one process): op_breakdown's counts of K2, K3, K4 and K5 equal to
+    their launch counters (50, 50, 2, 2); retried where the profiler lost
+    its device events, as phase launches does."""
+    from keras_object_detection_torch.train import (create_train_state,
+                                                    make_train_step)
+    from keras_object_detection_torch.utils import profiling
+
+    cfg = train_config(True)
+    state = create_train_state(cfg, torch.Generator().manual_seed(0), dev)
+    batch = synthetic_batch(cfg.data.batch_size, cfg.model.image_size,
+                            cfg.data.max_boxes_per_image, dev)
+    step = make_train_step(cfg)
+    state, _ = step(state, *batch, 1)
+    for attempt in range(3):
+        trace_dir = os.path.join(TP_DIR, f"trace{attempt}")
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        reset_kernel_counts()
+        with profiling.trace(trace_dir):
+            for _ in range(2):
+                state, _ = step(state, *batch, 1)
+        launched = kernel_counts()
+        breakdown = profiling.op_breakdown(profiling.traced_events(trace_dir),
+                                           top_k=None)
+        traced = {k: 0 for k in launched}
+        for op in breakdown["top_ops"]:
+            kind = tp_kernel_of(op["name"])
+            if kind is not None:
+                traced[kind] += op["count"]
+        if traced == launched:
+            break
+    lanes = profiling.device_lane_ms(profiling.traced_events(trace_dir))
+    log(f"[tensor_parallel] (e) profiling.trace of 2 flagship steps: "
+        f"op_breakdown counts {traced} against the launch counters "
+        f"{launched} (attempt {attempt + 1}); device busy "
+        f"{breakdown['total_ms']:.3f} ms over {len(lanes)} lanes; top "
+        f"categories " + ", ".join(f"{k} {v:.3f}" for k, v in list(
+            breakdown["categories"].items())[:5]))
+    want = {"bn_stats": 50, "bn_grad_stats": 50, "yolo_loss_forward": 2,
+            "yolo_loss_backward": 2}
+    if traced != launched or launched != want:
+        raise SystemExit(f"[tensor_parallel] (e) traced {traced}, launched "
+                         f"{launched}, expected {want}")
+    return {"traced": traced, "launched": launched,
+            "device_busy_ms": breakdown["total_ms"],
+            "categories_ms": dict(list(breakdown["categories"].items())[:10]),
+            "attempts": attempt + 1}
+
+
+def phase_tensor_parallel(dev) -> dict:
+    """Tensor parallelism on the card (module docstring, phase 18)."""
+    from keras_object_detection_torch.parallel import distributed, dryrun
+
+    t_phase = time.perf_counter()
+    out = {"card": card()}
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    os.makedirs(TP_DIR, exist_ok=True)
+    torch.cuda.empty_cache()
+    job = os.path.join(TP_DIR, "job.json")
+    with open(job, "w") as f:
+        json.dump({"dir": TP_DIR}, f)
+    t0 = time.perf_counter()
+    rc = distributed.launch_local("chip_smoke", ["--tp-rank", job], TP_RANKS)
+    out["ranks_wall_s"] = time.perf_counter() - t0
+    if rc:
+        raise SystemExit(f"[tensor_parallel] a rank exited with {rc}")
+    ranks = []
+    for r in range(TP_RANKS):
+        with open(os.path.join(TP_DIR, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    flagship = ranks[:2]
+    out["flagship"] = flagship
+    want_bytes = (69_653_342 - TP_SHARDED_VALUES // 2) * 12
+    for rr in flagship:
+        per_step = {k: v / TP_STEPS for k, v in rr["counts"].items()}
+        c, ms = rr["collectives_a_step"], rr["collective_ms"]
+        log(f"[tensor_parallel] (a) rank {rr['rank']} of the flagship over "
+            f"dp1 x tp2 (bf16, nadam, fused, batch 64, 2 gloo ranks on the "
+            f"card): {rr['sharded_leaves']} sharded leaves, "
+            f"{rr['sharded_kernels']} kernels of {rr['sharded_kernel_values']}"
+            f" values; parameters and moments {rr['state_bytes'] / 1e6:.1f} MB"
+            f" against {rr['state_bytes_whole'] / 1e6:.1f} MB whole; p50 "
+            f"{rr['p50_ms']:.3f} ms a step, launches {per_step} a step, "
+            f"{c['GATHERS']:.0f} gathers ({c['GATHER_BYTES'] / 1e6:.1f} MB a "
+            f"rank) and {c['ALL_REDUCES']:.0f} reductions "
+            f"({c['ALL_REDUCE_BYTES'] / 1e6:.1f} MB) a step; in an "
+            f"instrumented step of {rr['instrumented_step_ms']:.1f} ms: "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in ms.items())
+            + f"; peak {rr['peak_gib']:.3f} GiB; loss {rr['loss']:.4f}")
+        if per_step != FLAGSHIP_BN_LAUNCHES:
+            raise SystemExit(f"[tensor_parallel] (a) rank {rr['rank']} "
+                             f"launched {per_step} a step, expected "
+                             f"{FLAGSHIP_BN_LAUNCHES}")
+        if (rr["sharded_leaves"] != TP_SHARDED_LEAVES
+                or rr["sharded_kernel_values"] != TP_SHARDED_VALUES
+                or rr["state_bytes"] != want_bytes):
+            raise SystemExit(f"[tensor_parallel] (a) rank {rr['rank']}: "
+                             f"{rr['sharded_leaves']} leaves, "
+                             f"{rr['sharded_kernel_values']} values, "
+                             f"{rr['state_bytes']} bytes; expected "
+                             f"{TP_SHARDED_LEAVES}, {TP_SHARDED_VALUES}, "
+                             f"{want_bytes}")
+    for row in flagship[0]["bn_shapes"]:
+        log(f"[tensor_parallel] (a) {row['kernel'].upper()} at "
+            f"{'x'.join(map(str, row['shape']))} ({row['rows_x_channels'][0]}"
+            f" rows x {row['rows_x_channels'][1]} channels, {row['calls']} a "
+            f"step): {row['ms']:.5f} ms device, bound {row['bound_ms']:.5f} "
+            f"({row['bound_by']}), {row['bound_ms'] / row['ms'] * 100:.1f} %")
+    out["float32"] = tp_float32_check(dev)
+    out["float32"]["peak_gib_ranks"] = [r["peak_gib_process"] for r in ranks]
+    out["serving"] = tp_serving(dev)
+    out["export"] = tp_export(dev)
+    out["profile"] = tp_profile(dev)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dryrun.dryrun_multichip(4)
+    out["dryrun_s"] = time.perf_counter() - t0
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[tensor_parallel] (f) dry run over 4 ranks on the card "
+        f"{out['dryrun_s']:.1f} s; phase wall {out['wall_s']:.1f} s")
+    print(json.dumps({"tensor_parallel": out}))
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", default="",
@@ -4136,6 +4712,8 @@ def main() -> int:
                         "with these")
     parser.add_argument("--parallel-rank", default="",
                         help=argparse.SUPPRESS)  # a rank of phase parallel
+    parser.add_argument("--tp-rank", default="",
+                        help=argparse.SUPPRESS)  # of phase tensor_parallel
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4145,6 +4723,8 @@ def main() -> int:
 
     if args.parallel_rank:
         return parallel_rank(args.parallel_rank)
+    if args.tp_rank:
+        return tp_rank(args.tp_rank)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4169,6 +4749,7 @@ def main() -> int:
     int8 = phase_int8(dev)
     phase_launches(loss, nms, bn)
     parallel = phase_parallel(dev)
+    tp = phase_tensor_parallel(dev)
     counts = train["kernels"]["counts"]
     no_library = ("no single PyTorch call computes this function")
     nt = nms["timing"]
@@ -4226,13 +4807,26 @@ def main() -> int:
     k1["launches_parallel_mesh"] = {k: v["k1_launches"] for k, v in
                                     parallel["serving"].items()}
     k1["launches"] += sum(k1["launches_parallel_mesh"].values())
+    k1["launches_tensor_parallel_mesh"] = {k: v["k1_launches"] for k, v in
+                                           tp["serving"].items()}
+    k1["launches"] += sum(k1["launches_tensor_parallel_mesh"].values())
     kernels = [k1]
 
     def parallel_entry(name: str) -> dict:
         two = [r["counts"][name] for r in parallel["gloo"]["ranks"]]
         return {"launches_parallel_world1": parallel["world1"]["counts"][name],
                 "launches_parallel_gloo_ranks": two,
-                "launches_parallel_steps": PARALLEL_STEPS}
+                "launches_parallel_steps": PARALLEL_STEPS,
+                "launches_tensor_parallel_ranks": [
+                    r["counts"][name] for r in tp["flagship"]],
+                "launches_tensor_parallel_steps": TP_STEPS,
+                "launches_tensor_parallel_profiled": tp["profile"]["launched"][
+                    name]}
+
+    def tp_shapes(key: str) -> list:
+        return [{k: row[k] for k in ("shape", "calls", "ms", "bound_ms",
+                                     "bound_by")}
+                for row in tp["flagship"][0]["bn_shapes"] if row["kernel"] == key]
 
     for name, key, line in (("yolo_loss_forward", "forward", 107),
                             ("yolo_loss_backward", "backward", 149)):
@@ -4307,7 +4901,8 @@ def main() -> int:
                                   else "k3"),
             **family_kernel_entry(yolov2, name, "yolov2"),
             **family_kernel_entry(yolov3, name, "yolov3"),
-            **parallel_entry(name)})
+            **parallel_entry(name),
+            "tensor_parallel_shapes": tp_shapes(k)})
     log(f"[train] kernels path p50 {train['kernels']['p50_ms']:.3f} ms, "
         f"{train['kernels']['images_per_s']:.1f} images/s; plain path p50 "
         f"{train['plain']['p50_ms']:.3f} ms, "

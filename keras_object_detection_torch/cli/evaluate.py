@@ -17,9 +17,16 @@ Examples:
   python -m keras_object_detection_torch.cli.evaluate \\
       --checkpoint-dir checkpoints --data-dir voc/test --data-parallel 2
 
+  # tag one image (or with --image-dir and --tag-dir every image) with its
+  # detections; --grid-overlay adds the S x S lattice and box centres
+  python -m keras_object_detection_torch.cli.evaluate \\
+      --checkpoint-dir checkpoints --image data/test.jpg \\
+      --names data/test.names --output tagged.jpg
+
 Reads ``config.json`` from the checkpoint directory (written by
-``cli.train``). Runs on ``--device`` (default cuda). Tagged images
-(``utils/viz``) are not ported yet (ROADMAP 1.15) and raise.
+``cli.train``). Runs on ``--device`` (default cuda). Tagged images are drawn
+with cv2 (``utils/viz.py``) in the frame the model saw (letterboxed where
+the config letterboxes), as the JAX CLI draws them.
 """
 
 from __future__ import annotations
@@ -41,11 +48,16 @@ def parse_args(argv=None):
                    help="every *.jpg of a directory (no labels needed): "
                         "detections to --detections-json")
     p.add_argument("--detections-json", default="detections.json")
-    p.add_argument("--tag-dir")
-    p.add_argument("--names", help="class-names file (per-class AP and PR "
-                                    "curve labels)")
-    p.add_argument("--output", default="tagged.jpg")
-    p.add_argument("--grid-overlay", action="store_true")
+    p.add_argument("--tag-dir",
+                   help="with --image-dir and --names: write tagged copies "
+                        "of every image here")
+    p.add_argument("--names", help="class-names file: tagged images, "
+                                    "per-class AP and PR curve labels")
+    p.add_argument("--output", default="tagged.jpg",
+                   help="the tagged --image (with --names)")
+    p.add_argument("--grid-overlay", action="store_true",
+                   help="tagged images also show the S x S lattice and the "
+                        "boxes' centres")
     p.add_argument("--latency-runs", type=int, default=5)
     p.add_argument("--cache-dir", help="decode-ahead disk cache for --data-dir")
     p.add_argument("--coco-map", action="store_true",
@@ -87,13 +99,6 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu to run on the CPU)")
     return p.parse_args(argv)
-
-
-def check_flags(args) -> None:
-    """Raise on a flag whose feature the port does not have yet."""
-    if args.tag_dir or args.grid_overlay or (args.image and args.names):
-        raise NotImplementedError("tagged images (utils/viz) are not ported "
-                                  "yet (ROADMAP 1.15)")
 
 
 def eval_mesh(args):
@@ -184,9 +189,19 @@ def _report(kept, path, cfg):
             for b in np.asarray(kept)]
 
 
+def _tag(args, img, kept, path: str) -> None:
+    """Write ``img`` tagged with the detections ``kept`` (JAX CLI's
+    ``get_tagged_img`` / ``get_grid_tagged_img``) to ``path``."""
+    from keras_object_detection_torch.utils.viz import (get_grid_tagged_img,
+                                                        get_tagged_img,
+                                                        write_image)
+
+    draw = get_grid_tagged_img if args.grid_overlay else get_tagged_img
+    write_image(path, draw(img.copy(), kept.cpu().numpy(), args.names))
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
-    check_flags(args)
 
     import numpy as np
 
@@ -229,14 +244,20 @@ def main(argv=None) -> None:
                                          staged=True)
         print(f"staged model->decode->NMS: p50 {staged['p50_ms']:.2f} ms "
               f"(each stage synchronised)")
-        dets = _report(model.predict_single(img), args.image, cfg)
+        kept = model.predict_single(img)
+        dets = _report(kept, args.image, cfg)
         print(json.dumps({"image": os.path.basename(args.image),
                           "latency_ms": lat, "detections": dets}))
+        if args.names:
+            _tag(args, img, kept, args.output)
+            print(f"wrote {args.output}")
 
     if args.image_dir:
         paths = sorted(glob.glob(os.path.join(args.image_dir, "*.jpg")))
         if not paths:
             raise SystemExit(f"error: no *.jpg under {args.image_dir}")
+        if args.tag_dir:
+            os.makedirs(args.tag_dir, exist_ok=True)
         bs = cfg.data.batch_size
         detections = {}
         for start in range(0, len(paths), bs):
@@ -248,6 +269,9 @@ def main(argv=None) -> None:
             for i, path in enumerate(chunk):
                 detections[os.path.basename(path)] = _report(
                     boxes[i][valid[i]], path, cfg)
+                if args.tag_dir and args.names:
+                    _tag(args, imgs[i], boxes[i][valid[i]], os.path.join(
+                        args.tag_dir, os.path.basename(path)))
         with open(args.detections_json, "w") as f:
             json.dump(detections, f, indent=1)
         n_det = sum(len(v) for v in detections.values())

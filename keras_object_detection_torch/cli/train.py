@@ -35,12 +35,17 @@ Examples:
   python -m keras_object_detection_torch.cli.train --data-dir data/ \\
       --preset tiny --batch-size 4 --data-parallel 2 --device cpu
 
+  # a torch.profiler trace of the first epoch (a Chrome trace a rank)
+  python -m keras_object_detection_torch.cli.train --data-dir data/ \\
+      --preset tiny --epochs 2 --device cpu --profile-dir prof/
+
 Writes ``config.json`` beside the checkpoints (``cli.evaluate`` reads it),
 resumes from the latest checkpoint with ``--resume``, and evaluates the best
-checkpoint on ``--test-dir`` after the fit. A flag whose feature is not
-ported yet raises, naming its ROADMAP item. With ``--data-parallel N``
+checkpoint on ``--test-dir`` after the fit. With ``--data-parallel N``
 every rank trains on its row block of each global batch; rank 0 writes the
-config, logs and checkpoints.
+config, logs and checkpoints. Tensor parallelism has no flag, as in the JAX
+CLI: the mesh's model axis is ``config.mesh.model_parallel`` (1 in every
+preset), and ``--data-parallel N`` starts N times that many ranks.
 """
 
 from __future__ import annotations
@@ -48,9 +53,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-
-# flag -> the ROADMAP item that ports its feature
-UNPORTED_FLAGS = {"profile_dir": "1.15"}
 
 
 def parse_args(argv=None):
@@ -117,7 +119,8 @@ def parse_args(argv=None):
                         "--image-size); the crop samples down to it")
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint in --checkpoint-dir")
-    p.add_argument("--profile-dir")
+    p.add_argument("--profile-dir",
+                   help="capture a torch.profiler trace of the first epoch")
     p.add_argument("--multiscale", metavar="S1,S2,...",
                    help="multi-scale training: comma-separated input sizes "
                         "drawn per epoch (each a multiple of the backbone "
@@ -145,14 +148,6 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu to train on the CPU)")
     return p.parse_args(argv)
-
-
-def check_flags(args) -> None:
-    """Raise on a flag whose feature the port does not have yet."""
-    for name, item in UNPORTED_FLAGS.items():
-        if getattr(args, name) is not None:
-            raise NotImplementedError(f"--{name.replace('_', '-')} is not "
-                                      f"ported yet (ROADMAP {item})")
 
 
 def build_config(args):
@@ -210,7 +205,6 @@ def main(argv=None) -> None:
     import sys
 
     args = parse_args(argv)
-    check_flags(args)
     cfg = build_config(args)
 
     from keras_object_detection_torch.data import YoloDataset
@@ -222,7 +216,8 @@ def main(argv=None) -> None:
         check_batch_divides(cfg, args.data_parallel)
         rc = distributed.launch_local(
             "keras_object_detection_torch.cli.train",
-            sys.argv[1:] if argv is None else list(argv), args.data_parallel)
+            sys.argv[1:] if argv is None else list(argv),
+            args.data_parallel * cfg.mesh.model_parallel)
         if rc:
             raise SystemExit(f"error: a data-parallel rank exited with {rc}")
         return
@@ -268,9 +263,24 @@ def main(argv=None) -> None:
             if trainer.is_main:
                 print(f"resumed from epoch {start_epoch} (optimizer step "
                   f"{state.step})")
-    state = trainer.fit(train_ds, val_ds, state=state,
-                        early_stop_patience=args.early_stop_patience,
-                        start_epoch=start_epoch)
+    if args.profile_dir:
+        from keras_object_detection_torch.utils.profiling import trace
+
+        with trace(args.profile_dir):
+            state = trainer.fit(train_ds, val_ds, epochs=1, state=state,
+                                start_epoch=start_epoch)
+        remaining = cfg.train.epochs - 1
+        if remaining > 0:
+            # the epoch axis continues explicitly: inferring it from the
+            # optimizer step breaks where the batch or dataset size changed
+            state = trainer.fit(train_ds, val_ds, epochs=remaining,
+                                state=state,
+                                early_stop_patience=args.early_stop_patience,
+                                start_epoch=(start_epoch or 0) + 1)
+    else:
+        state = trainer.fit(train_ds, val_ds, state=state,
+                            early_stop_patience=args.early_stop_patience,
+                            start_epoch=start_epoch)
 
     if d.test_dir:
         best = trainer.ckpt.restore(state)

@@ -206,16 +206,16 @@ class DeviceCachedDataset:
     wrapped ``YoloDataset``'s shuffle stream, so batches are bit-equal to the
     host loader's.
 
-    ``mesh``: a process mesh of data parallelism, each rank gathering its
-    row block of each global batch. ``layout="replicated"``: every rank
-    holds the whole set. ``layout="sharded"`` (needs ``mesh``): rank r of
-    dp holds rows ``[r * n_rows / dp, (r + 1) * n_rows / dp)``, ``n_rows``
-    rounded up to a multiple of dp with more zero sentinel rows; the gather
-    has each rank fill the slots of the global batch whose rows it owns and
-    zero the rest, and one integer SUM reduce-scatter hands each rank its
-    block: exactly one owner contributes to a slot, so uint8 never widens
-    (JAX's ``shard_map`` + ``psum_scatter``). The memory check is per
-    device.
+    ``mesh``: a process mesh, each rank gathering the row block of its data
+    index of each global batch (a model axis replicates the rows).
+    ``layout="replicated"``: every rank holds the whole set.
+    ``layout="sharded"`` (needs ``mesh``): rank r of dp holds rows ``[r *
+    n_rows / dp, (r + 1) * n_rows / dp)``, ``n_rows`` rounded up to a
+    multiple of dp with more zero sentinel rows; the gather has each rank
+    fill the slots of the global batch whose rows it owns and zero the
+    rest, and one integer SUM reduce-scatter hands each rank its block:
+    exactly one owner contributes to a slot, so uint8 never widens (JAX's
+    ``shard_map`` + ``psum_scatter``). The memory check is per device.
     """
 
     def __init__(self, ds: YoloDataset, device: Device,
@@ -224,9 +224,11 @@ class DeviceCachedDataset:
             raise ValueError(f"unknown device_cache layout {layout!r}")
         if layout == "sharded" and mesh is None:
             raise ValueError("layout='sharded' requires a mesh")
-        self.group = None if mesh is None else mesh.group
+        # the data group: a model axis's ranks of one data row hold the
+        # same rows (replicated over the model axis, as in JAX)
+        self.group = None if mesh is None else mesh.data_group
         dp = 1 if mesh is None else mesh.data_parallel
-        if mesh is not None and self.group is None and dp > 1:
+        if mesh is not None and mesh.group is None and dp > 1:
             raise ValueError("the device cache of a data-parallel run takes "
                              "a process mesh (one process a device)")
         self.device = torch.device(device)
@@ -245,7 +247,7 @@ class DeviceCachedDataset:
                 + ("use cache_dir (disk) instead" if layout == "sharded"
                    or dp == 1 else "try device_cache_layout='sharded' or "
                    "cache_dir (disk)"))
-        rank = 0 if self.group is None else mesh.index
+        rank = 0 if mesh is None else mesh.index
         lo, hi = ((rank * n_rows // dp, (rank + 1) * n_rows // dp)
                   if layout == "sharded" else (0, n_rows))
         imgs = np.zeros((hi - lo, s, s, 3), np.uint8)

@@ -15,11 +15,13 @@ or ``"soft_linear"`` the top-K cut, then fast or soft NMS in plain torch.
 ``ServingModel`` is what the float, weight-only int8 and true int8 serving
 models (``export/``) share: the decode, TTA, NMS, ``predict*`` and
 ``benchmark_latency``, and mesh serving (JAX's ``_serving_jit`` over a
-mesh): with a device ``parallel.Mesh`` one process keeps a replica of the
-weights on each device of the data axis, each runs the whole forward ->
-decode -> cut -> NMS on its contiguous shard of the batch, and the outputs
-are concatenated in batch order on the first device. ``Evaluator(mesh=)``
-evaluates so too.
+mesh, a ``shard_map`` whose batch splits over the data axis and whose
+model axis replicates it): with a device ``parallel.Mesh`` one process
+keeps a whole replica of the weights on the first device of each data row
+(``Mesh.data_devices``: the model axis's other positions would compute the
+same rows), each runs the whole forward -> decode -> cut -> NMS on its
+contiguous shard of the batch, and the outputs are concatenated in batch
+order on the first device. ``Evaluator(mesh=)`` evaluates so too.
 """
 
 from __future__ import annotations
@@ -43,8 +45,7 @@ from keras_object_detection_torch.ops.cuda_nms import \
 from keras_object_detection_torch.ops.nms import (
     batched_fast_non_max_suppression, batched_soft_non_max_suppression,
     top_k_candidates)
-from keras_object_detection_torch.parallel.mesh import (check_data_parallel,
-                                                        map_shards, replicate)
+from keras_object_detection_torch.parallel.mesh import map_shards, replicate
 from keras_object_detection_torch.train.checkpoint import (CheckpointManager,
                                                            average_checkpoints)
 from keras_object_detection_torch.train.loop import (TrainState, _device,
@@ -102,11 +103,12 @@ class ServingModel:
     _replicas: Tuple["ServingModel", ...] = ()
 
     def _shard_over(self, mesh) -> None:
-        """Serve over ``mesh``'s devices: a replica of this model a
-        position (``parallel.mesh.replicate``; the first is this model)."""
+        """Serve over ``mesh``'s data rows: a replica of this model on each
+        row's first device (``parallel.mesh.replicate``; the first is this
+        model)."""
         if mesh is not None:
-            self._replicas = tuple(replicate(self, mesh.devices, self.device,
-                                             "device"))
+            self._replicas = tuple(replicate(self, mesh.data_devices,
+                                             self.device, "device"))
             self.mesh = mesh
 
     def _served(self, method: str, images_u8: Images):
@@ -242,11 +244,9 @@ class ServingModel:
 
 
 def check_serving_config(e: EvalConfig, mesh) -> None:
-    """Raise on what no serving model takes: a mesh with a model axis
-    (tensor parallelism, ROADMAP 1.15), a process mesh (serving is one
+    """Raise on what no serving model takes: a process mesh (serving is one
     process driving a device mesh) or an unknown TTA."""
     if mesh is not None:
-        check_data_parallel(mesh)
         if mesh.group is not None:
             raise ValueError("serving runs one process over a device mesh "
                              "(create_mesh(devices=...)), not a process "
@@ -335,9 +335,10 @@ class Evaluator:
 
     ``mesh``: a device ``parallel.Mesh``, as JAX's ``Evaluator(mesh=)``:
     the batch size must divide by its data axis; each batch is cut into one
-    contiguous shard a device, each evaluated by a replica of the state on
-    its device, the shards' losses summed and their grids concatenated in
-    batch order on ``device`` (default: the mesh's first) for the mAP."""
+    contiguous shard a data row, each evaluated by a replica of the state on
+    the row's first device (a model axis replicates the rows), the shards'
+    losses summed and their grids concatenated in batch order on
+    ``device`` (default: the mesh's first) for the mAP."""
 
     def __init__(self, config: Config, use_ema: Optional[bool] = None,
                  device: Optional[Union[str, torch.device]] = None, mesh=None):
@@ -356,10 +357,10 @@ class Evaluator:
 
     def _mesh_step(self, state: TrainState):
         """The eval step over the mesh: a replica of ``state``'s model and
-        EMA a position (``parallel.mesh.replicate``), each on its shard; the
+        EMA a data row (``parallel.mesh.replicate``), each on its shard; the
         shards' losses summed, their grids joined on ``device``."""
         replicas = replicate(dataclasses.replace(state, opt=None),
-                             self.mesh.devices, self.device)
+                             self.mesh.data_devices, self.device)
 
         def shard(rep, images, boxes, valid, weight):
             loss, y_true, y_pred = self._eval_step(rep, images, boxes, valid,

@@ -642,7 +642,8 @@ class Int8InferenceModel(ServingModel):
     ``"cuda"``; there the int8 convs take ``torch._int_mm`` or raise.
     ``mesh``: a device ``parallel.Mesh``: the layers are built (and
     calibrated) on ``device``, by default the mesh's first device, and
-    replicated on each device of the mesh, which serves shard by shard as
+    replicated on the first device of each data row of the mesh, which
+    serves shard by shard as
     ``InferenceModel(mesh=)`` does."""
 
     def __init__(self, config: Config, state_dict: Mapping[str, torch.Tensor],

@@ -7,6 +7,11 @@ them).
 Tensors run NCHW (in ``channels_last`` memory where the caller asks for it).
 Parameters and BN statistics are float32; the conv runs in the block's
 compute dtype, as flax's ``nn.Conv(dtype=...)`` casts its kernel and bias.
+
+``Conv2d``, ``Dense``, ``BatchNorm`` and ``ConvBlock`` take a column shard
+of tensor parallelism (``shard``, set by ``parallel.tensor.shard_state``):
+the layer then computes its shard of the output features (module docstring
+of ``parallel/tensor.py``).
 """
 
 from __future__ import annotations
@@ -22,10 +27,9 @@ from torch import nn
 from keras_object_detection_torch.config import check_bn_mode
 from keras_object_detection_torch.ops.bn import (_channel_sums, fused_bn_train,
                                                  per_channel)
-from keras_object_detection_torch.parallel.distributed import (all_reduce_,
-                                                               all_reduce_sum,
-                                                               rank_of,
-                                                               world_size)
+from keras_object_detection_torch.parallel.distributed import (
+    all_gather_dim, all_reduce_, all_reduce_sum, copy_in, gather_channels,
+    rank_of, world_size)
 
 
 def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -116,7 +120,14 @@ class BatchNorm(nn.Module):
     (``flax`` and ``flax@N`` through ``all_reduce_sum``, which carries the
     gradient), and ``flax@N`` takes the first N rows of the global batch,
     the ranks' row blocks in rank order. The running statistics then agree
-    on every rank."""
+    on every rank.
+
+    ``shard`` (a ``parallel.tensor.ColumnShard``, set by
+    ``ConvBlock.place``): the input holds this rank's channel shard of a
+    column-parallel conv. The parameters and running statistics stay whole
+    (replicated, as in JAX); the layer normalises with its slice of them,
+    and the running statistics take every rank's new slice, gathered over
+    the model group."""
 
     def __init__(self, features: int, eps: float = 1e-3, bn_mode: str = "flax",
                  momentum: float = 0.99):
@@ -131,6 +142,12 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
         self.updates_running_stats = True
         self.group = None
+        self.shard = None
+
+    def _slice(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (a per-channel vector), or its slice of this rank's
+        channel shard."""
+        return t if self.shard is None else self.shard.cut(t)
 
     def _global_stats(self, x: torch.Tensor):
         """``(mean, var)`` of the global batch over ``group``'s ranks (this
@@ -153,19 +170,21 @@ class BatchNorm(nn.Module):
         return s1, var
 
     def _normalize(self, x, mean, var):
-        mul = torch.rsqrt(var + self.eps) * self.weight
+        mul = torch.rsqrt(var + self.eps) * self._slice(self.weight)
         y = (x.float() - per_channel(mean, x)) * per_channel(mul, x)
-        y = y + per_channel(self.bias, x)
+        y = y + per_channel(self._slice(self.bias), x)
         return y.to(x.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
-            return self._normalize(x, self.running_mean, self.running_var)
+            return self._normalize(x, self._slice(self.running_mean),
+                                   self._slice(self.running_var))
+        weight, bias = self._slice(self.weight), self._slice(self.bias)
         if self.bn_mode == "fused":
-            y, mean, var = fused_bn_train(x, self.weight, self.bias, self.eps,
+            y, mean, var = fused_bn_train(x, weight, bias, self.eps,
                                           self.group)
         elif self.bn_mode == "mxu":
-            y, mean, var = MxuBNTrain.apply(x, self.weight, self.bias, self.eps,
+            y, mean, var = MxuBNTrain.apply(x, weight, bias, self.eps,
                                             self.group)
         else:
             mean, var = self._global_stats(x)
@@ -173,6 +192,9 @@ class BatchNorm(nn.Module):
         if not self.updates_running_stats:
             return y
         with torch.no_grad():
+            if self.shard is not None:
+                mean, var = all_gather_dim(
+                    torch.stack([mean, var]), 1, self.shard.group).unbind()
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1 - m) * var)
@@ -255,7 +277,13 @@ class Conv2d(nn.Module):
     generator, fan_in = (in_channels / groups) * k * k as flax's grouped
     kernel ``(k, k, in / groups, out)`` counts it, and zero bias. The conv
     runs in the input's dtype, as flax's ``nn.Conv(dtype=...)`` casts its
-    kernel and bias. ``groups`` is flax's ``feature_group_count``."""
+    kernel and bias. ``groups`` is flax's ``feature_group_count``.
+
+    ``shard`` (tensor parallelism): ``weight`` is this rank's shard of the
+    output channels; the conv takes its whole input through ``copy_in``,
+    adds its slice of the whole bias and, with ``gather`` (a ``ConvBlock``
+    clears it to gather after its BatchNorm and activation), gathers the
+    ranks' channels."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  generator: torch.Generator, bias: bool = True,
@@ -267,17 +295,25 @@ class Conv2d(nn.Module):
         self.weight = nn.Parameter(lecun_normal_(weight, weight[0].numel(),
                                                  generator))
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
+        self.shard = None
+        self.gather = True
 
     def forward(self, x: torch.Tensor, stride: int = 1,
                 padding: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+        bias = self.bias
+        if self.shard is not None:
+            x = copy_in(x, self.shard.group)
+            bias = None if bias is None else self.shard.cut(bias)
         # the bias is added after the conv's output is rounded to x.dtype,
         # as flax does; a bias fused into the conv rounds once, and in
         # bfloat16 that drifts from the JAX forward by ~3x more
         y = F.conv2d(x, self.weight.to(x.dtype), None, stride, padding,
                      groups=self.groups)
-        if self.bias is None:
-            return y
-        return y + self.bias.to(x.dtype)[:, None, None]
+        if bias is not None:
+            y = y + bias.to(x.dtype)[:, None, None]
+        if self.shard is not None and self.gather:
+            y = gather_channels(y, 1, self.shard.group)
+        return y
 
 
 def conv_same(conv: Conv2d, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
@@ -296,7 +332,8 @@ class Dense(nn.Module):
     """flax's ``nn.Dense``: ``(out, in)`` weight drawn as flax's default
     ``lecun_normal`` (fan_in = in) from an explicit generator and zero bias.
     Input and weight are cast to ``dtype`` and the bias is added after the
-    product is rounded to it, as ``Conv2d`` does."""
+    product is rounded to it, as ``Conv2d`` does. ``shard`` (tensor
+    parallelism): as ``Conv2d``'s, the output features gathered at once."""
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype = torch.float32, *,
@@ -306,10 +343,16 @@ class Dense(nn.Module):
         weight = torch.empty(out_features, in_features)
         self.weight = nn.Parameter(lecun_normal_(weight, in_features, generator))
         self.bias = nn.Parameter(torch.zeros(out_features))
+        self.shard = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.dtype)
-        return F.linear(x, self.weight.to(self.dtype)) + self.bias.to(self.dtype)
+        x, bias = x.to(self.dtype), self.bias
+        if self.shard is not None:
+            x, bias = copy_in(x, self.shard.group), self.shard.cut(bias)
+        y = F.linear(x, self.weight.to(self.dtype)) + bias.to(self.dtype)
+        if self.shard is not None:
+            y = gather_channels(y, -1, self.shard.group)
+        return y
 
 
 class Dropout(nn.Module):
@@ -355,7 +398,9 @@ class ConvBlock(nn.Module):
     """Zero padding -> Conv (with bias) -> BatchNorm -> ReLU / LeakyReLU(0.1).
 
     ``padding`` is an int (symmetric, the reference's ``ZeroPadding2D``) or
-    ``"SAME"`` (XLA's rule, see ``same_padding``)."""
+    ``"SAME"`` (XLA's rule, see ``same_padding``). A block whose conv is
+    column-parallel (``place``) runs the BatchNorm and activation on its
+    channel shard and gathers the channels after them."""
 
     def __init__(self, in_channels: int, filters: int, kernel_size: int,
                  strides: int = 1, padding: Union[int, str] = 0,
@@ -374,6 +419,14 @@ class ConvBlock(nn.Module):
         self.dtype = dtype
         self.conv = Conv2d(in_channels, filters, kernel_size, generator)
         self.bn = BatchNorm(filters, bn_mode=bn_mode)
+        self.shard = None
+
+    def place(self, shard) -> None:
+        """Run column-parallel on ``shard`` (the conv's weight already cut):
+        the conv and BatchNorm on the channel shard, one gather after the
+        activation."""
+        self.shard = self.conv.shard = self.bn.shard = shard
+        self.conv.gather = False
 
     def forward(self, x: torch.Tensor,
                 strides: Optional[int] = None) -> torch.Tensor:
@@ -386,9 +439,10 @@ class ConvBlock(nn.Module):
         else:
             x = self.conv(x, strides, (self.padding, self.padding))
         x = self.bn(x)
-        if self.activation == "leaky_relu":
-            return F.leaky_relu(x, 0.1)
-        return F.relu(x)
+        x = F.leaky_relu(x, 0.1) if self.activation == "leaky_relu" else F.relu(x)
+        if self.shard is not None:
+            x = gather_channels(x, 1, self.shard.group)
+        return x
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:

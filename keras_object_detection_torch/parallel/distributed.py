@@ -1,6 +1,6 @@
-"""The process group and the collectives of data parallelism (counterpart of
-``keras_object_detection_tpu/parallel/distributed.py``, with the
-``torch.distributed`` calls the JAX package's XLA inserts from its
+"""The process group and the collectives of data and tensor parallelism
+(counterpart of ``keras_object_detection_tpu/parallel/distributed.py``, with
+the ``torch.distributed`` calls the JAX package's XLA inserts from its
 shardings).
 
 One process drives one device; the processes of a run form a process group:
@@ -17,8 +17,17 @@ and ``gloo`` on the CPU.
 The helpers below take a group (``None``: no process group) and add no
 collective where the group has one process, so a one-rank run is the
 single-device program. ``ALL_REDUCES`` / ``ALL_REDUCE_BYTES`` count the
-reductions issued and the bytes each rank contributes, ``GATHERS`` the
-all-gathers.
+reductions issued and the bytes each rank contributes, ``GATHERS`` /
+``GATHER_BYTES`` the all-gathers.
+
+A column-parallel layer (``parallel/tensor.py``) adds the two autograd
+operations XLA writes for a kernel sharded on its output features:
+``gather_channels`` (forward: the ranks' channel shards all-gathered over
+the model group; backward: this rank's channel slice of the gradient) and
+``copy_in`` (forward: the identity; backward: the input gradient summed
+over the model group). bfloat16 travels as a float16 view of its bits,
+which a gather moves unchanged (gloo's CUDA path refuses an int16 tensor,
+"Invalid scalar type").
 """
 
 from __future__ import annotations
@@ -36,11 +45,12 @@ import torch.distributed as dist
 ALL_REDUCES = 0
 ALL_REDUCE_BYTES = 0
 GATHERS = 0
+GATHER_BYTES = 0
 
 
 def reset_counts() -> None:
-    global ALL_REDUCES, ALL_REDUCE_BYTES, GATHERS
-    ALL_REDUCES = ALL_REDUCE_BYTES = GATHERS = 0
+    global ALL_REDUCES, ALL_REDUCE_BYTES, GATHERS, GATHER_BYTES
+    ALL_REDUCES = ALL_REDUCE_BYTES = GATHERS = GATHER_BYTES = 0
 
 
 def _local_rank() -> int:
@@ -210,20 +220,111 @@ def all_reduce_flat_(tensors: Sequence[torch.Tensor], group) -> None:
             offset += t.numel()
 
 
-def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
-    """The ranks' ``t`` (equal shapes) concatenated along dimension 0 in
-    rank order: the global batch from each rank's row block. Booleans
-    travel as uint8 (NCCL has no boolean type)."""
-    global GATHERS
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the bits a collective moves: bfloat16 as a float16 view
+    (for gathers only, which move bits), booleans as uint8 (NCCL has no
+    boolean type)."""
+    t = t.contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.float16)
+    return t.to(torch.uint8) if t.dtype == torch.bool else t
+
+
+def _unwire(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    if dtype == torch.bfloat16:
+        return t.view(torch.bfloat16)
+    return t.to(torch.bool) if dtype == torch.bool else t
+
+
+def all_gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' ``t`` (equal shapes) concatenated along ``dim`` in rank
+    order. Any other ``dim`` than 0 is moved last for the gather, which for
+    the channels of a ``channels_last`` NCHW tensor is its memory order (no
+    copy), and the result keeps that layout."""
+    global GATHERS, GATHER_BYTES
     world = world_size(group)
     if world == 1:
         return t
-    src = t.to(torch.uint8) if t.dtype == torch.bool else t.contiguous()
+    last = dim % t.dim() != 0
+    src = _wire(t.movedim(dim, -1) if last else t)
     parts: List[torch.Tensor] = [torch.empty_like(src) for _ in range(world)]
     dist.all_gather(parts, src, group=group)
     GATHERS += 1
-    out = torch.cat(parts)
-    return out.to(torch.bool) if t.dtype == torch.bool else out
+    GATHER_BYTES += src.numel() * src.element_size()
+    out = _unwire(torch.cat(parts, dim=-1 if last else 0), t.dtype)
+    return out.movedim(-1, dim) if last else out
+
+
+def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' ``t`` (equal shapes) concatenated along dimension 0 in
+    rank order: the global batch from each rank's row block."""
+    return all_gather_dim(t, 0, group)
+
+
+def sum_over(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over ``group``'s ranks in rank order, the same bits on
+    every rank in any dtype (bfloat16 is summed in bfloat16, as a
+    reduction in that type rounds): the ranks' tensors gathered, then
+    added. Counted as a reduction."""
+    global ALL_REDUCES, ALL_REDUCE_BYTES
+    world = world_size(group)
+    if world == 1:
+        return t
+    src = _wire(t)
+    parts: List[torch.Tensor] = [torch.empty_like(src) for _ in range(world)]
+    dist.all_gather(parts, src, group=group)
+    ALL_REDUCES += 1
+    ALL_REDUCE_BYTES += src.numel() * src.element_size()
+    out = _unwire(parts[0], t.dtype).clone()
+    for p in parts[1:]:
+        out += _unwire(p, t.dtype)
+    return out
+
+
+class GatherChannels(torch.autograd.Function):
+    """A column-parallel layer's output: the ranks' shards along ``dim``
+    gathered over the model group. Every rank computes the same function
+    of the gathered tensor, so each holds its whole gradient; the gradient
+    of this rank's shard is its slice."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.rank, ctx.n, ctx.group = dim, rank_of(group), \
+            t.shape[dim], group
+        return all_gather_dim(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
+
+
+class CopyIn(torch.autograd.Function):
+    """A column-parallel layer's input: the identity; each rank's shard of
+    output features gives a part of the input's gradient, so the backward
+    sums the parts over the model group (``sum_over``)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return sum_over(grad, ctx.group), None
+
+
+def gather_channels(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``GatherChannels``: ``t`` itself where the group has one process."""
+    if world_size(group) == 1:
+        return t
+    return GatherChannels.apply(t, dim, group)
+
+
+def copy_in(t: torch.Tensor, group) -> torch.Tensor:
+    """``CopyIn``: ``t`` itself where the group has one process."""
+    if world_size(group) == 1:
+        return t
+    return CopyIn.apply(t, group)
 
 
 def reduce_scatter_rows(t: torch.Tensor, group) -> torch.Tensor:

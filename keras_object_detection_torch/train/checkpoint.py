@@ -22,8 +22,10 @@ JAX package configures it (checked against orbax itself):
 step updates the state in place; the file is written by a background
 thread, as orbax saves asynchronously (``wait`` joins it). ``restore``
 returns a new state that shares no tensor with the template or the model
-being trained. A manager that is not the ``writer`` (a data-parallel rank
-other than 0) keeps the same books and writes nothing; every rank reads.
+being trained. A manager that is not the ``writer`` (a rank other than 0)
+keeps the same books and writes nothing; every rank reads. A checkpoint
+holds whole tensors whatever the mesh that wrote it, and any mesh restores
+it.
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from keras_object_detection_torch.parallel import tensor
+
 STATE_NAME = "state.pt"
 METRICS_NAME = "metrics.json"
 MONITOR = "val_loss"  # lower is better
@@ -46,28 +50,49 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to("cpu", copy=True)
 
 
+def _by_name(model, fn, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """``fn`` (``tensor.full_tensors`` or ``cut_tensors``) on a list of
+    per-parameter tensors (optimizer moments, in parameter order)."""
+    if not tensors:
+        return tensors
+    names = [n for n, _ in model.named_parameters()]
+    named = fn(model, dict(zip(names, tensors)))
+    return [named[n] for n in names]
+
+
 def state_to_host(state) -> Dict[str, Any]:
-    """A ``TrainState`` as a dict of CPU tensor copies."""
-    opt = state.opt
+    """A ``TrainState`` as a dict of CPU tensor copies, whole: a state
+    placed on a model axis is gathered over the model group first (every
+    rank of the group takes part), as orbax writes JAX's global arrays."""
+    opt, model = state.opt, state.model
+
+    def host_list(ts):
+        return [_host(t) for t in _by_name(model, tensor.full_tensors, ts)]
+
     return {
         "step": int(state.step),
-        "model": {k: _host(v) for k, v in state.model.state_dict().items()},
+        "model": {k: _host(v) for k, v in tensor.full_tensors(
+            model, model.state_dict()).items()},
         "opt": {"name": opt.name, "lr": _host(opt.lr), "count": int(opt.count),
-                "mu": [_host(t) for t in opt.mu],
-                "nu": [_host(t) for t in opt.nu],
-                "trace": [_host(t) for t in opt.trace],
+                "mu": host_list(opt.mu), "nu": host_list(opt.nu),
+                "trace": host_list(opt.trace),
                 "weight_decay": opt.weight_decay},
         "ema": (None if state.ema is None
-                else {k: _host(v) for k, v in state.ema.items()}),
+                else {k: _host(v) for k, v in tensor.full_tensors(
+                    model, state.ema).items()}),
     }
 
 
 def state_from_host(template, payload: Dict[str, Any]):
     """A copy of ``template`` (a ``TrainState``) holding ``payload``'s
-    values on the template's devices. A checkpoint without an EMA keeps the
+    whole-tensor values on the template's devices, each tensor cut to the
+    template's shard where the template is placed on a model axis (so any
+    mesh restores any checkpoint). A checkpoint without an EMA keeps the
     template's."""
     state = copy.deepcopy(template)
-    state.model.load_state_dict(payload["model"], strict=True)
+    model = state.model
+    model.load_state_dict(tensor.cut_tensors(model, payload["model"]),
+                          strict=True)
     opt, saved = state.opt, payload["opt"]
     trace = saved.get("trace", [])  # checkpoints written before sgdw: none
     if (saved["name"] != opt.name or len(saved["mu"]) != len(opt.mu)
@@ -76,14 +101,16 @@ def state_from_host(template, payload: Dict[str, Any]):
                          f"the template's {opt.name!r}")
     with torch.no_grad():
         opt.lr.copy_(saved["lr"])
-        for dst, src in zip(opt.mu + opt.nu + opt.trace,
-                            saved["mu"] + saved["nu"] + trace):
+        for dst, src in zip(opt.mu + opt.nu + opt.trace, [
+                t for ts in (saved["mu"], saved["nu"], trace)
+                for t in _by_name(model, tensor.cut_tensors, ts)]):
             dst.copy_(src)
     opt.count = saved["count"]
     opt.weight_decay = saved.get("weight_decay", opt.weight_decay)
     if payload["ema"] is not None:
-        dev = next(state.model.parameters()).device
-        state.ema = {k: v.to(dev, copy=True) for k, v in payload["ema"].items()}
+        dev = next(model.parameters()).device
+        state.ema = {k: v.to(dev, copy=True) for k, v in tensor.cut_tensors(
+            model, payload["ema"]).items()}
     state.step = payload["step"]
     return state
 
@@ -148,10 +175,14 @@ class CheckpointManager:
         dropped = ranked[:max(cut, 0)]
         for s in dropped:
             del self._metrics[s]
+        # the host copy is taken before the next step changes the state; a
+        # state on a model axis is gathered by every rank
+        payload = None
+        if step not in dropped and (self.writer or
+                                    tensor.placement(state.model)):
+            payload = state_to_host(state)
         if not self.writer:
             return True
-        # the host copy is taken before the next step changes the state
-        payload = None if step in dropped else state_to_host(state)
         self._pending.append(self._pool.submit(
             self._write, step, payload, {"step": step, MONITOR: value},
             [s for s in dropped if s != step]))

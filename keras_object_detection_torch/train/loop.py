@@ -40,6 +40,16 @@ rank taking its rows, mosaic and mixup see the gathered global batch, the
 gradients and metrics are summed over the ranks (every loss is a sum, so no
 averaging), evaluation gathers the predictions in global row order, and rank
 0 alone writes the logs and checkpoints.
+
+Tensor parallelism (a mesh with a model axis, ``parallel/tensor.py``)
+places the large kernels' output features on the model axis as JAX's
+``state_sharding`` does (``Trainer.init_state``). The collectives of the
+step above then run over the **data group** (the ranks of one model
+index), the gradients of sharded and replicated parameters alike; the
+column-parallel layers gather over the model group; the replicated 1-D
+parameters of sharded channels sum their slices' gradients over the model
+group (``tensor.reduce_partial_grads``); the loss runs on the gathered
+head output on every model rank.
 """
 
 from __future__ import annotations
@@ -72,10 +82,8 @@ from keras_object_detection_torch.models.yolo import (YoloV1,
 from keras_object_detection_torch.ops.map import (COCO_IOU_THRESHOLDS,
                                                   MeanAveragePrecision)
 from keras_object_detection_torch.ops.yolo_loss import fused_yolo_v1_loss
-from keras_object_detection_torch.parallel import distributed
-from keras_object_detection_torch.parallel.mesh import (check_data_parallel,
-                                                        create_mesh,
-                                                        shard_rows)
+from keras_object_detection_torch.parallel import distributed, tensor
+from keras_object_detection_torch.parallel.mesh import create_mesh, shard_rows
 from keras_object_detection_torch.train import optim
 from keras_object_detection_torch.train.checkpoint import CheckpointManager
 from keras_object_detection_torch.train.metrics_logger import MetricLogger
@@ -363,7 +371,10 @@ def make_train_step(config: Config, image_size: Optional[int] = None,
     mixup run on the gathered global (micro)batch; BatchNorm takes the
     global statistics; the gradients (after the microbatches, in one flat
     all-reduce, frozen parameters skipped) and the metrics are summed over
-    the ranks. One rank, or no group, adds no collective."""
+    the ranks. One rank, or no group, adds no collective. With tensor
+    parallelism ``group`` is the mesh's data group, and a model placed on
+    the model axis (``parallel.tensor.shard_state``) first sums its partial
+    gradients over the model group."""
     check_ported(config, training=True)
     g, d, t = config.grid, config.data, config.train
     accum = max(t.grad_accum_steps or 1, 1)
@@ -480,6 +491,7 @@ def make_train_step(config: Config, image_size: Optional[int] = None,
                                     valid[rows], draws[i].to(dev))
                 metrics = {k: metrics[k] + v if k in metrics else v
                            for k, v in terms.items()}
+        tensor.reduce_partial_grads(model)
         if world > 1:
             # every loss is a sum over the batch: sum, never average
             distributed.all_reduce_flat_(
@@ -692,13 +704,17 @@ class Trainer:
     ``device`` says otherwise.
 
     ``mesh``: a ``parallel.Mesh``; by default ``create_mesh`` of
-    ``config.mesh``, over the process group's ranks once one is started
+    ``config.mesh`` (its ``data_parallel`` and ``model_parallel``), over
+    the process group's ranks once one is started
     (``parallel.distributed.maybe_initialize``), else over this process's
     device alone. Over a process group every rank builds the same Trainer
-    and state (same seed, so the same weights) and steps on its row block
-    of each global batch; the batch must divide by the data axis and by
-    ``grad_accum_steps`` times it (JAX's checks). Rank 0 alone writes the
-    logs and checkpoints; every rank restores them."""
+    and state (same seed, so the same weights) and steps on the row block
+    of its data index of each global batch; the batch must divide by the
+    data axis and by ``grad_accum_steps`` times it (JAX's checks). With a
+    model axis ``init_state`` places the state on it (``state_sharding``'s
+    rule, as JAX's ``init_state`` does); ``fit`` takes a state placed by
+    ``parallel.tensor.shard_state`` at any threshold. Rank 0 alone writes
+    the logs and whole-tensor checkpoints; every rank restores them."""
 
     def __init__(self, config: Config,
                  device: Optional[Union[str, torch.device]] = None,
@@ -711,8 +727,7 @@ class Trainer:
                                m.data_axis, m.model_axis,
                                devices=None if torch.distributed.is_initialized()
                                else [self.device])
-        check_data_parallel(mesh)
-        if mesh.group is None and mesh.data_parallel > 1:
+        if mesh.group is None and mesh.data_parallel * mesh.model_parallel > 1:
             raise ValueError("training over several devices runs one process "
                              "a device: start the ranks with torchrun or "
                              "cli.train --data-parallel N")
@@ -721,8 +736,10 @@ class Trainer:
         validate_multiscale(config)
         self.config = config
         self.mesh = mesh
-        self.group = mesh.group
-        self.is_main = distributed.is_main(self.group)
+        # the step's, evaluation's and device cache's collectives: over the
+        # data group; logs, checkpoints and the last barrier: the whole mesh
+        self.group = mesh.data_group
+        self.is_main = distributed.is_main(mesh.group)
         self._block = (None if dp == 1 else
                        shard_rows(config.data.batch_size, dp)[mesh.index])
         self._train_steps = {None: make_train_step(config, group=self.group)}
@@ -733,10 +750,13 @@ class Trainer:
         self.map_metric = _map_metric(config)
 
     def init_state(self, seed: Optional[int] = None) -> TrainState:
+        """The seeded state, its large kernels (and their moments and EMA)
+        placed on a model axis, as JAX's ``init_state`` does."""
         seed = self.config.train.seed if seed is None else seed
-        return create_train_state(self.config,
-                                  torch.Generator().manual_seed(seed),
-                                  self.device)
+        state = create_train_state(self.config,
+                                   torch.Generator().manual_seed(seed),
+                                   self.device)
+        return tensor.shard_state(state, self.mesh)
 
     def _validate(self, state: TrainState, val_ds: YoloDataset,
                   dev_val: Optional[DeviceCachedDataset], with_map: bool,
@@ -978,7 +998,7 @@ class Trainer:
         if epochs > 0 and last_save != epoch:
             self.ckpt.save(epoch, state, {"val_loss": float(last_monitor)})
         self.ckpt.wait()
-        distributed.barrier(self.group)
+        distributed.barrier(self.mesh.group)
         return state
 
     def evaluate(self, state: TrainState, ds: YoloDataset) -> Dict[str, float]:

@@ -181,16 +181,68 @@ def test_the_jax_clis_config_loads_in_the_port(flags, tmp_path, monkeypatch):
     assert shared == json.loads(ours.to_json())
 
 
-@pytest.mark.parametrize("cli,argv,match", [
-    (cli_train, ["--profile-dir", "p"], "ROADMAP 1.15"),
-    (cli_evaluate, ["--tag-dir", "t"], "ROADMAP 1.15"),
-    (cli_evaluate, ["--image", "a.jpg", "--names", "n"], "ROADMAP 1.15"),
-])
-def test_unported_flags_raise(cli, argv, match, tmp_path):
-    base = (["--data-dir", str(tmp_path)] if cli is cli_train
-            else ["--checkpoint-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(base + argv + ["--device", "cpu"])
+# the flags the port refused before its profiling and tagged images were
+# ported (the test keeps its name): what the JAX CLIs do with them
+@pytest.mark.parametrize("case", ["profile_dir", "tag_dir", "image_names"])
+def test_unported_flags_raise(trained, case, tmp_path, capsys):
+    data, ckpt, train_argv = trained
+    if case == "profile_dir":
+        # a trace of the first epoch, then the second epoch untraced
+        from keras_object_detection_torch.utils.profiling import traced_events
+
+        prof = str(tmp_path / "prof")
+        cli_train.main(["--data-dir", data, "--preset", "tiny", "--backbone",
+                        "darknet_micro", "--image-size", "56", "--epochs",
+                        "2", "--device", "cpu", "--checkpoint-dir",
+                        str(tmp_path / "c"), "--log-dir", str(tmp_path / "l"),
+                        "--profile-dir", prof])
+        out = capsys.readouterr().out
+        assert "epoch 1/1:" in out and "epoch 2/2:" in out
+        names = {str(e.get("name", "")) for e in traced_events(prof)}
+        assert "aten::conv2d" in names
+        return
+    if not os.path.exists(os.path.join(ckpt, "config.json")):
+        cli_train.main(train_argv)
+    names = tmp_path / "names.txt"
+    names.write_text("cat\ndog\nbird\n")
+    base = ["--checkpoint-dir", ckpt, "--device", "cpu", "--names",
+            str(names), "--grid-overlay"]
+    if case == "tag_dir":
+        tags = tmp_path / "tags"
+        cli_evaluate.main(base + ["--image-dir", data, "--tag-dir", str(tags),
+                                  "--detections-json",
+                                  str(tmp_path / "det.json")])
+        with open(tmp_path / "det.json") as f:
+            detections = json.load(f)
+        jpgs = sorted(p for p in os.listdir(data) if p.endswith(".jpg"))
+        assert sorted(os.listdir(tags)) == jpgs
+        written = {name: tags / name for name in jpgs}
+    else:
+        out = tmp_path / "tagged.jpg"
+        cli_evaluate.main(base + ["--image", os.path.join(data, "img000.jpg"),
+                                  "--latency-runs", "1", "--output",
+                                  str(out)])
+        printed = capsys.readouterr().out
+        assert f"wrote {out}" in printed
+        detections = {"img000.jpg": json.loads(next(
+            x for x in printed.splitlines() if x.startswith("{")))[
+                "detections"]}
+        written = {"img000.jpg": out}
+    # the one-epoch model keeps nothing at conf 0.4: each file is the
+    # model's input with the lattice, as JAX's get_grid_tagged_img draws it
+    import cv2
+    import numpy as np
+
+    from keras_object_detection_tpu.utils.viz import get_grid_tagged_img
+    from keras_object_detection_torch.data.reader import load_example
+
+    for name, path in written.items():
+        assert detections[name] == []
+        img = load_example(os.path.join(data, name), 224, 20)[0]
+        want = str(tmp_path / f"want_{name}")
+        cv2.imwrite(want, cv2.cvtColor(get_grid_tagged_img(
+            img, np.zeros((0, 6)), str(names)), cv2.COLOR_RGB2BGR))
+        assert np.array_equal(cv2.imread(str(path)), cv2.imread(want))
 
 
 def _evaluation(out):

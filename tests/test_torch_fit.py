@@ -273,17 +273,24 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(tmp_path):
             make()
 
 
-# data_parallel > 1 is ported (tests/test_torch_parallel_fit.py); the
-# model axis, tensor parallelism, is what stays in ROADMAP 1.15
+# the trainer switches the port refused before they were ported: the
+# model axis (tensor parallelism, tests/test_torch_tensor_parallel.py) is
+# read from the config as JAX's Trainer reads it; in one process JAX's
+# create_mesh raises its mesh-size error, as it does on one device
 @pytest.mark.parametrize("section,override,match", [
-    ("mesh", {"model_parallel": 2}, "ROADMAP 1.15"),
+    ("mesh", {"model_parallel": 2}, "mesh 0x2 != 1 devices"),
 ])
 def test_unported_trainer_switches_raise(tmp_path, section, override, match):
+    from keras_object_detection_tpu.parallel.mesh import \
+        create_mesh as jcreate_mesh
+
     cfg = _port(_jcfg(str(tmp_path)))
     cfg = dataclasses.replace(cfg, **{section: dataclasses.replace(
-        getattr(cfg, section), **override)})
-    with pytest.raises(NotImplementedError, match=match):
+        getattr(cfg, section), data_parallel=-1, **override)})
+    with pytest.raises(ValueError, match=match):
         Trainer(cfg, device="cpu", use_tensorboard=False)
+    with pytest.raises(ValueError, match=match):
+        jcreate_mesh(-1, 2, devices=jax.devices()[:1])
 
 
 def test_train_step_after_eval_step_trains_in_training_mode(tmp_path, six):

@@ -317,4 +317,3 @@ def test_train_cli_fpn_configs_match_jax(flags, tmp_path, monkeypatch):
         ours.to_json())
     assert ours.model.head == "fpn" and len(ours.grid.anchors) == 9
     assert json.loads(ours.to_json())["model"]["backbone"] == "darknet53"
-    cli_train.check_flags(cli_train.parse_args(argv))  # nothing unported

@@ -384,12 +384,15 @@ def test_int8_model_options_and_guards():
                                 bias_correct=True), "exclusive")]:
         with pytest.raises(ValueError, match=match):
             T.Int8InferenceModel(tcfg, sd, device="cpu", **kwargs)
-    # a data-axis mesh serves (tests/test_torch_sharded_serving.py); a
-    # model axis, tensor parallelism, stays in ROADMAP 1.15
+    # a mesh with a model axis serves as JAX's shard_map does: the model
+    # axis replicates the data axis's rows, served once a data row
+    # (tests/test_torch_tensor_parallel.py holds it against JAX's)
     from keras_object_detection_torch.parallel import Mesh
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.15"):
-        T.Int8InferenceModel(tcfg, sd, device="cpu",
-                             mesh=Mesh(1, 2, (torch.device("cpu"),) * 2))
+    meshed = T.Int8InferenceModel(tcfg, sd, device="cpu",
+                                  mesh=Mesh(1, 2, (torch.device("cpu"),) * 2))
+    assert len(meshed._replicas) == 1
+    assert torch.equal(meshed.predict_raw(calib), T.Int8InferenceModel(
+        tcfg, sd, device="cpu").predict_raw(calib))
     for head in ("gap_dense", "flatten_dense"):
         dense = dataclasses.replace(tcfg, model=dataclasses.replace(
             tcfg.model, head=head))

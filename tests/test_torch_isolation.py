@@ -9,8 +9,10 @@ device cache), takes a step with each IoU box loss and sgdw, takes a
 YOLOv2 anchor + passthrough step and a YOLOv3 FPN step and serves each,
 serves soft and fast NMS and the staged latency, runs the error analysis,
 serves int8 (dynamic, calibrated, bias-corrected, QAT, weight-only, on the
-FPN plan too) and picks a serving model, and the four command lines answer
-``--help``;
+FPN plan too) and picks a serving model, exports and reloads a
+``torch.export`` program, writes and parses a profiler trace, draws a
+tagged image, imports the tensor-parallel placement and the dry run, and
+the six command lines answer ``--help``;
 h5py is never imported (only reading a Keras file needs it)."""
 
 import pathlib
@@ -195,7 +197,28 @@ rows, valid = Int8InferenceModel(fc, create_train_state(fc, device="cpu")
                                  .model.state_dict(), device="cpu").predict(
     images[:, :56, :56])
 assert rows.shape == (2, 512, 6)
-for cli in ("train", "evaluate", "kmeans_anchors", "serving_map"):
+# export, profiling, viz, tensor parallelism
+import os, tempfile
+from keras_object_detection_torch.export import export_program, load_program
+from keras_object_detection_torch.utils import profiling, viz
+import keras_object_detection_torch.parallel.tensor
+import keras_object_detection_torch.parallel.dryrun
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "model.pt2")
+    export_program(tc, sd, path, device="cpu")
+    assert load_program(path)(torch.zeros(1, 56, 56, 3)).shape == (1, 7, 7, 13)
+    with profiling.trace(tmp):
+        torch.ones(4).sum()
+    assert profiling.traced_events(tmp)
+    names = os.path.join(tmp, "names.txt")
+    with open(names, "w") as f:
+        f.write("a\\nb\\nc\\n")
+    tagged = viz.get_grid_tagged_img(np.zeros((56, 56, 3), np.uint8),
+                                     np.array([[1, 0.9, .5, .5, .2, .2]]),
+                                     names)
+    assert tagged.any()
+for cli in ("train", "evaluate", "kmeans_anchors", "serving_map", "export",
+            "ptq_delta"):
     proc = subprocess.run([sys.executable, "-c", "import sys; "
                            f"sys.modules.update(dict.fromkeys({BLOCKED!r})); "
                            f"from keras_object_detection_torch.cli.{{cli}} "

@@ -126,17 +126,25 @@ def test_default_device_is_the_gpu():
             InferenceModel(cfg, sd)
 
 
-# a mesh over the data axis serves (tests/test_torch_sharded_serving.py);
-# a model axis, tensor parallelism, stays in ROADMAP 1.15
-@pytest.mark.parametrize("eval_override,kwargs,match", [
-    ({}, {"mesh": Mesh(1, 2, (torch.device("cpu"),) * 2)}, "ROADMAP 1.15"),
+# the serving options the port refused before its tensor parallelism was
+# ported: a mesh with a model axis serves as JAX's shard_map does, the
+# model axis replicating the data axis's rows (one data row here: the
+# rows of one device; tests/test_torch_tensor_parallel.py holds a (2, 2)
+# mesh against JAX's)
+@pytest.mark.parametrize("eval_override,kwargs", [
+    ({}, {"mesh": Mesh(1, 2, (torch.device("cpu"),) * 2)}),
 ])
-def test_unported_serving_options_raise(eval_override, kwargs, match):
+def test_unported_serving_options_raise(eval_override, kwargs):
+    from keras_object_detection_torch.models import build_model
+
     cfg = tconfig.tiny_cpu_config()
     cfg = dataclasses.replace(cfg, eval=dataclasses.replace(cfg.eval,
                                                             **eval_override))
-    with pytest.raises(NotImplementedError, match=match):
-        InferenceModel(cfg, {}, device="cpu", **kwargs)
+    sd = build_model(cfg, torch.Generator().manual_seed(0)).state_dict()
+    meshed = InferenceModel(cfg, sd, device="cpu", **kwargs)
+    x = np.random.RandomState(0).randint(0, 256, (2, 224, 224, 3), np.uint8)
+    assert torch.equal(meshed.predict_decoded(x),
+                       InferenceModel(cfg, sd, device="cpu").predict_decoded(x))
 
 
 # the serving options the port refused before its serving extras were

@@ -195,11 +195,19 @@ def test_mesh_shardings_cut_and_copy_as_jax_s():
 
 
 def test_serving_refuses_a_process_mesh_and_a_model_axis():
+    """A process mesh still raises; a model axis, which the port refused
+    before its tensor parallelism, builds JAX's (1, 2) mesh, whose one data
+    row serves every row (tests/test_torch_tensor_parallel.py)."""
+    from keras_object_detection_torch.parallel import batch_sharding
+
     cfg = tconfig.tiny_cpu_config()
     with pytest.raises(ValueError, match="device mesh"):
         InferenceModel(cfg, {}, device="cpu", mesh=Mesh(2, group=object()))
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.15"):
-        create_mesh(data_parallel=1, model_parallel=2, devices=["cpu"] * 2)
+    mesh = create_mesh(data_parallel=1, model_parallel=2, devices=["cpu"] * 2)
+    assert mesh.shape == {"data": 1, "model": 2}
+    assert mesh.data_devices == (torch.device("cpu"),)
+    assert [b.tolist() for b in batch_sharding(mesh)(torch.arange(4))] == [
+        [0, 1, 2, 3]]
     with pytest.raises(ValueError, match="mesh 4x1 != 2 devices"):
         create_mesh(data_parallel=4, devices=["cpu"] * 2)
 
