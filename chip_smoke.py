@@ -86,6 +86,31 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
              val loss and mAP; epoch wall, images/s, val images/s, mAP and
              checkpoint times; the final weights' loss on a val batch in
              eval mode beside the same weights' train-mode loss;
+9b. learn  - the end-to-end learning run through the user's command,
+             cli/run_synth_benchmark.py (build_config, bn_mode "fused" put
+             in with dataclasses.replace, run): tools/make_synthetic_
+             dataset.py writes 1000 train and 100 val images at 224²
+             (seed 3) under build/learn_data/; darknet_tiny with the conv
+             head, batch 32, adam at a constant 1e-3, EMA 0.999, the set on
+             the card, the fused loss, LEARN_EPOCHS epochs, mAP from the
+             second epoch every 10th and where the val loss improved, then
+             the final and the best checkpoint's evaluation; deterministic
+             cuDNN, so that a run repeats. The untrained state is evaluated
+             first, then one step of it on the run's first batch, outside
+             the counted run, holds K2-K5 to their plain versions at the
+             run's shapes (K2 and K3 at each BatchNorm, K4 and K5 at 32x49
+             rows). Checks: (i) the best val mAP >= 0.10
+             and >= 0.10 above the untrained state's; (ii) the last epoch's
+             train loss <= half the first's; (iii) the launches exact (K2
+             and K3 once a BatchNorm a step, K4 and K5 once a step, K1
+             twice a mAP update); (iv) the Evaluator on the restored best
+             checkpoint gives its epoch's logged mAP (rel 1e-6), and K1's
+             rows there equal the plain NMS of the same inputs; (v)
+             cli/visualize_dataset.py's round trip of 16 val images
+             through K1 gives back each image's labels (classes and
+             count exact, boxes within 2^-22 of the labels and of the
+             CPU's round trip), K1's rows equal to the plain NMS of the
+             same rows on the card; the mAP curve, images/s and seconds;
 10. variants - the v1 transfer family at full width (448², C=20, bf16,
              batch 64, nadam, both kernel switches on), each configuration
              voc_full_config with the model fields of VARIANTS replaced:
@@ -2079,6 +2104,287 @@ def phase_fit(dev, train: dict) -> dict:
     return out
 
 
+LEARN_TRAIN, LEARN_VAL, LEARN_SEED = 1000, 100, 3
+# the plain path's val mAP first reaches 0.10 at epoch 46-55 and 0.28 at
+# 100 on the H100; a loss spike (adam at a constant 1e-3) sets a run back
+# some 25 epochs, as one at epoch 35 left the kernel path at 0.12 by 70.
+# Under deterministic cuDNN the kernel path repeats: 0.10 at epoch 43,
+# best 0.3553 at 97, a spike at 58 (PERF.md, section 6)
+LEARN_EPOCHS = 100
+LEARN_MAP_BAR = 0.10  # (i): the best val mAP, and its gain over untrained
+LEARN_VIZ_IMAGES = 16
+LEARN_DIR = os.path.join(os.path.dirname(FIT_DIR), "learn_data")
+
+
+def learn_data() -> str:
+    """tools/make_synthetic_dataset.py (numpy and cv2) in a subprocess:
+    LEARN_TRAIN / LEARN_VAL images at 224² under build/learn_data/."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    shutil.rmtree(LEARN_DIR, ignore_errors=True)
+    subprocess.run([sys.executable, os.path.join(root, "tools",
+                                                 "make_synthetic_dataset.py"),
+                    "--out", LEARN_DIR, "--train", str(LEARN_TRAIN),
+                    "--val", str(LEARN_VAL), "--image-size", "224",
+                    "--seed", str(LEARN_SEED)], check=True, timeout=600)
+    return LEARN_DIR
+
+
+def learn_config():
+    """(cfg, args) of the learning run as its command builds them, with
+    bn_mode "fused" put in beside the fused loss: K1-K5 all run."""
+    from keras_object_detection_torch.cli import run_synth_benchmark as synth
+
+    work = os.path.join(os.path.dirname(FIT_DIR), "learn_run")
+    shutil.rmtree(work, ignore_errors=True)
+    args = synth.parse_args(
+        ["--data", LEARN_DIR, "--workdir", work, "--epochs", str(LEARN_EPOCHS),
+         "--batch-size", "32", "--lr", "1e-3", "--schedule", "constant",
+         "--plateau", "", "--ema", "0.999", "--device-cache",
+         "--map-start", "1", "--map-every", "10", "--pallas-loss"])
+    cfg = synth.build_config(args)
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, bn_mode="fused")), args
+
+
+@contextlib.contextmanager
+def kept_nms_calls():
+    """The arguments of every K1 call made inside, in a list (the wrapper
+    is looked up at each call, so it can be wrapped)."""
+    from keras_object_detection_torch.ops import cuda_nms
+
+    calls, kernel = [], cuda_nms.cuda_batched_non_max_suppression
+
+    def keep(*args):
+        calls.append(args)
+        return kernel(*args)
+
+    with unittest.mock.patch.object(cuda_nms,
+                                    "cuda_batched_non_max_suppression", keep):
+        yield calls
+
+
+def nms_errors(calls: list, tag: str) -> dict:
+    """K1 on each kept call's arguments against the plain NMS on the card:
+    rows and valid flags must be equal."""
+    from keras_object_detection_torch.ops import cuda_nms
+    from keras_object_detection_torch.ops.nms import batched_non_max_suppression
+
+    err = 0.0
+    for args in calls:
+        rows, valid = cuda_nms.cuda_batched_non_max_suppression(*args)
+        want_rows, want_valid = batched_non_max_suppression(*args)
+        err = max(err, (rows - want_rows).abs().max().item())
+        if not (torch.equal(rows, want_rows) and torch.equal(valid, want_valid)):
+            raise SystemExit(f"[{tag}] K1 differs from the plain NMS at "
+                             f"{tuple(args[0].shape)}")
+    return {"calls": len(calls), "max_abs_err": err,
+            "shapes": sorted({tuple(a[0].shape) for a in calls})}
+
+
+def learn_step_kernels(cfg, state, batch, n_bn: int, smi: str) -> dict:
+    """K2-K5 on one step of the learning run's own inputs (its initial
+    state, its first train batch) against their plain versions
+    (kernel_errors): K2 and K3 at each BatchNorm, K4 and K5 at its loss
+    rows. The step trains ``state``."""
+    from keras_object_detection_torch.train import make_train_step
+
+    calls = capture_kernel_calls(make_train_step(cfg), state, batch, 1)
+    got = {k: len(v) for k, v in calls.items()}
+    want = {"k2": n_bn, "k3": n_bn, "k4": 1, "k5": 1}
+    if got != want:
+        raise SystemExit(f"the learning run's step called the kernels {got} "
+                         f"times, expected {want}")
+    errs = kernel_errors(calls)
+    del calls
+    log(f"[learn] the run's first step on {smi}, kernels against their "
+        f"plain versions on its own inputs: " + "; ".join(
+            f"{k.upper()} {v['calls']} calls at {v['shapes']}, max abs "
+            f"{v['max_abs_err']:.3e}, max rel {v['max_rel_err']:.3e}"
+            for k, v in errs.items()))
+    return errs
+
+
+def learn_round_trip(dev, smi: str) -> dict:
+    """(v): cli/visualize_dataset.py over LEARN_VIZ_IMAGES val images on
+    the card (K1 once an image): each image's labels come back, K1's rows
+    equal the plain NMS of the same decoded rows on the card, and the CPU's
+    round trip within one rounding (the card's division by S is a multiply
+    by 1/S)."""
+    from keras_object_detection_torch.cli import visualize_dataset
+    from keras_object_detection_torch.core.grid import decode_grid, encode_grid
+    from keras_object_detection_torch.ops import cuda_nms
+    from keras_object_detection_torch.ops.nms import batched_non_max_suppression
+
+    argv = ["--data-dir", os.path.join(LEARN_DIR, "val"), "--names",
+            os.path.join(LEARN_DIR, "synth.names"), "--image-size", "224",
+            "--num-classes", "20", "--limit", str(LEARN_VIZ_IMAGES),
+            "--out-dir", os.path.join(os.path.dirname(FIT_DIR), "learn_viz")]
+    before = cuda_nms.LAUNCHES
+    card_rts = visualize_dataset.main(argv)
+    launches = cuda_nms.LAUNCHES - before
+    cpu_rts = visualize_dataset.main(argv[:-2] + [
+        "--out-dir", os.path.join(os.path.dirname(FIT_DIR), "learn_viz_cpu"),
+        "--device", "cpu"])
+    worst = cpu_gap = 0.0
+    boxes = 0
+    for rt, cpu in zip(card_rts, cpu_rts):
+        labels = rt.boxes[rt.valid]
+        kept = rt.kept[np.lexsort((rt.kept[:, 3], rt.kept[:, 2]))]
+        want = labels[np.lexsort((labels[:, 1], labels[:, 0]))]
+        decoded = decode_grid(encode_grid(
+            torch.from_numpy(rt.boxes[None]).to(dev),
+            torch.from_numpy(rt.valid[None]).to(dev), 20), 20)
+        rows, keep = batched_non_max_suppression(decoded)
+        ok = (len(kept) == len(want) == len(cpu.kept)
+              and np.array_equal(kept[:, 0], want[:, 4])
+              and np.array_equal(kept[:, 1], np.ones(len(kept), np.float32))
+              and np.array_equal(rt.kept, rows[0][keep[0]].cpu().numpy())
+              and np.array_equal(rt.kept[:, :2], cpu.kept[:, :2]))
+        if ok and len(kept):
+            worst = max(worst, float(np.abs(kept[:, 2:] - want[:, :4]).max()))
+            cpu_gap = max(cpu_gap, float(np.abs(rt.kept - cpu.kept).max()))
+        if not ok or max(worst, cpu_gap) > 2.0 ** -22:
+            raise SystemExit(f"the round trip of {rt.path} on the card does "
+                             f"not give back its labels: {rt.kept} against "
+                             f"{labels} (the CPU's {cpu.kept})")
+        boxes += len(kept)
+    log(f"[learn] round trip of {len(card_rts)} val images on {smi}: {boxes} "
+        f"labels back, classes and confidences exact, boxes within "
+        f"{worst:.3e} of the labels and {cpu_gap:.3e} of the CPU's; K1's "
+        f"rows = the plain NMS's on the card; K1 launches {launches}")
+    if len(card_rts) != LEARN_VIZ_IMAGES or launches != LEARN_VIZ_IMAGES:
+        raise SystemExit(f"the round trip launched K1 {launches} times for "
+                         f"{len(card_rts)} images")
+    return {"images": len(card_rts), "labels": boxes, "max_abs_err": worst,
+            "cpu_max_abs_diff": cpu_gap, "launches": launches}
+
+
+def phase_learn(dev) -> dict:
+    """The learning run (see the module docstring, phase 9b), with
+    deterministic cuDNN so that a run repeats."""
+    with deterministic_cudnn():
+        return learn_run(dev)
+
+
+def learn_run(dev) -> dict:
+    from keras_object_detection_torch.cli import run_synth_benchmark as synth
+    from keras_object_detection_torch.data import YoloDataset
+    from keras_object_detection_torch.eval import Evaluator
+    from keras_object_detection_torch.models.layers import BatchNorm
+    from keras_object_detection_torch.ops import cuda_nms
+    from keras_object_detection_torch.train import create_train_state
+    from keras_object_detection_torch.train.checkpoint import \
+        CheckpointManager
+
+    smi = card()
+    t_phase = t0 = time.perf_counter()
+    learn_data()
+    log(f"[learn] tools/make_synthetic_dataset.py wrote {LEARN_TRAIN} train "
+        f"and {LEARN_VAL} val images (224², seed {LEARN_SEED}) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    cfg, args = learn_config()
+    d, size = cfg.data, cfg.model.image_size
+    val_ds = YoloDataset(d.val_dir, size, d.batch_size,
+                         max_boxes=d.max_boxes_per_image, cache_in_memory=True)
+    train_ds = YoloDataset(d.train_dir, size, d.batch_size,
+                           max_boxes=d.max_boxes_per_image, shuffle=True,
+                           seed=cfg.train.seed)
+    steps = LEARN_EPOCHS * len(train_ds)
+
+    # the untrained state: the run's own initial weights (its seed); then
+    # one step of it on the run's first batch holds K2-K5 to their plain
+    # versions at the run's shapes, outside the counted run
+    state = create_train_state(
+        cfg, torch.Generator().manual_seed(cfg.train.seed), dev)
+    n_bn = sum(isinstance(m, BatchNorm) for m in state.model.modules())
+    untrained = Evaluator(cfg).evaluate(state, val_ds)
+    log(f"[learn] darknet_tiny + conv head at 224², batch 32, adam 1e-3, EMA "
+        f"0.999, {LEARN_EPOCHS} epochs ({steps} steps, {n_bn} BatchNorms), "
+        f"deterministic cuDNN; untrained val mAP {untrained['mAP']:.6f}, "
+        f"loss {untrained['loss']:.6g}")
+    batch = tuple(torch.as_tensor(x).to(dev) for x in next(train_ds.epoch()))
+    step_errors = learn_step_kernels(cfg, state, batch, n_bn, smi)
+    del state, batch
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    cuda_nms.LAUNCHES = 0
+    t0 = time.perf_counter()
+    results = synth.run(cfg, args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(kernel_counts(), nms=cuda_nms.LAUNCHES)
+    with open(os.path.join(cfg.train.log_dir, "train.jsonl")) as f:
+        logs = [json.loads(line) for line in f]
+    curve = [(r["step"] + 1, r["val_mAP"]) for r in logs if "val_mAP" in r]
+    log(f"[learn] kernel path on {smi}: run took {seconds:.1f} s; mAP curve "
+        f"(epoch, val mAP): {[(e, round(m, 4)) for e, m in curve]}; final "
+        f"{results['val_mAP']:.6f}, best checkpoint (epoch "
+        f"{results['best_ckpt_epoch'] + 1}) {results['best_ckpt_val_mAP']:.6f};"
+        f" fit {results['images_per_s_train']} images/s over the run, "
+        f"steady state {results.get('steady_state_images_per_s')} images/s "
+        f"({results.get('epoch_decomposition_p50_s')} s a non-mAP epoch)")
+    log(f"[learn] train loss: epoch 1 {logs[0]['total']:.6g}, epoch "
+        f"{len(logs)} {logs[-1]['total']:.6g}")
+
+    # (iii) K1 twice a mAP update: the mAP epochs' and the command's two
+    # evaluations' (final state, best checkpoint) val batches
+    updates = (len(curve) + 2) * len(val_ds)
+    check_fit_launches("learn", counts, steps, updates, bn=n_bn, loss=1)
+    # (i) and (ii)
+    best = max([m for _, m in curve] + [results["val_mAP"],
+                                        results["best_ckpt_val_mAP"]])
+    gain = best - untrained["mAP"]
+    log(f"[learn] (i) best val mAP {best:.6f}, {gain:+.6f} over the untrained "
+        f"state (bars {LEARN_MAP_BAR} and +{LEARN_MAP_BAR}); (ii) last / first "
+        f"train loss {logs[-1]['total'] / logs[0]['total']:.4f} (bar 0.5)")
+    if best < LEARN_MAP_BAR or gain < LEARN_MAP_BAR:
+        raise SystemExit(f"the kernel path did not learn: best val mAP "
+                         f"{best:.6f}, untrained {untrained['mAP']:.6f}")
+    if not logs[-1]["total"] <= 0.5 * logs[0]["total"]:
+        raise SystemExit("the kernel path's train loss did not halve")
+
+    # (iv) the best checkpoint, restored by hand, through the Evaluator;
+    # its K1 calls, at the run's val shapes, held to the plain NMS
+    manager = CheckpointManager(cfg.train.checkpoint_dir)
+    best_step = manager.best_step
+    best_state = manager.restore(create_train_state(cfg, device=dev))
+    manager.close()
+    logged = [r for r in logs if r["step"] == best_step][-1]
+    with kept_nms_calls() as nms_calls:
+        result = Evaluator(cfg).evaluate(best_state, val_ds)
+    del best_state
+    nms_err = nms_errors(nms_calls, "learn")
+    del nms_calls
+    log(f"[learn] K1 on the best checkpoint's {nms_err['calls']} val-batch "
+        f"calls at {nms_err['shapes']} = the plain NMS on the card (max abs "
+        f"{nms_err['max_abs_err']:.3e})")
+    # an epoch without a mAP (the first; the policy starts at the second)
+    # is held to the command's evaluation of the checkpoint instead
+    want = logged.get("val_mAP", results["best_ckpt_val_mAP"])
+    rel = abs(result["mAP"] - want) / max(want, 1e-12)
+    rel_loss = abs(result["loss"] - logged["val_loss"]) / logged["val_loss"]
+    log(f"[learn] (iv) Evaluator on the best checkpoint (epoch "
+        f"{best_step + 1}): mAP {result['mAP']!r} vs "
+        f"{'logged' if 'val_mAP' in logged else 'the command' + chr(39) + 's'}"
+        f" {want!r} (rel {rel:.3e}; the command's "
+        f"{results['best_ckpt_val_mAP']!r}); loss {result['loss']!r} vs "
+        f"logged {logged['val_loss']!r} (rel {rel_loss:.3e})")
+    if rel > 1e-6 or rel_loss > 1e-6:
+        raise SystemExit("the Evaluator does not reproduce the best "
+                         "checkpoint's logged epoch")
+    viz = learn_round_trip(dev, smi)
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    log(f"[learn] phase took {phase_s:.1f} s on {smi}")
+    return {"counts": counts, "untrained_mAP": untrained["mAP"],
+            "best_mAP": best, "curve": curve, "results": results,
+            "seconds": seconds, "phase_s": phase_s, "round_trip": viz,
+            "steps": steps, "map_updates": updates,
+            "errors": dict(step_errors, k1=nms_err)}
+
+
 def serve_variant(cfg, state_dict, dev, runs: tuple = (10, 5),
                   stages: bool = False) -> dict:
     """Serving at batch 1 and 32 through InferenceModel: K1 launches of the
@@ -2302,7 +2608,7 @@ def kernel_errors(calls: dict) -> dict:
                 rel_err = max(rel_err, bn_rel_err(got, want))
             elif not torch.equal(got, want):
                 raise SystemExit("K5 differs from its plain version on the "
-                                 "recipe step's rows")
+                                 "step's rows")
         out[name] = {"calls": len(calls[name]), "max_abs_err": abs_err,
                      "max_rel_err": rel_err,
                      "shapes": sorted({tuple(a[0].shape) for a in calls[name]})}
@@ -2311,7 +2617,7 @@ def kernel_errors(calls: dict) -> dict:
            if v["max_rel_err"] > limits[k]}
     if bad:
         raise SystemExit(f"kernels disagree with their plain versions on the "
-                         f"recipe step's inputs: {bad} (limits {limits})")
+                         f"step's inputs: {bad} (limits {limits})")
     return out
 
 
@@ -4741,6 +5047,7 @@ def main() -> int:
     phase_train_check(dev)
     train = phase_train(dev, args.profile)
     fit = phase_fit(dev, train)
+    learn = phase_learn(dev)
     variants = phase_variants(dev)
     recipe = phase_recipe(dev)
     yolov2 = phase_yolov2(dev, args.profile)
@@ -4765,6 +5072,10 @@ def main() -> int:
         **{f"launches_int8_{t}": int8[t]["k1_launches"] for t in INT8_PHASE},
         "launches_fit": fit["counts"]["nms"],
         "launches_fit_device_cache": fit["device_cache_counts"]["nms"],
+        "launches_learn": learn["counts"]["nms"],
+        "launches_learn_map_updates": learn["map_updates"],
+        "launches_learn_round_trip": learn["round_trip"]["launches"],
+        "learn_err": learn["errors"]["k1"],
         "max_abs_err": nms["max_abs_err"],
         "shape": [32, 49, 6], "ms": nt["32x49"]["new"]["ms"],
         "call_ms": nt["32x49"]["new"]["call_ms"],
@@ -4838,6 +5149,9 @@ def main() -> int:
             "checked": True, "launches": counts[name],
             "launches_fit": fit["counts"][name],
             "launches_fit_device_cache": fit["device_cache_counts"][name],
+            "launches_learn": learn["counts"][name],
+            "launches_learn_steps": learn["steps"],
+            "learn_err": learn["errors"]["k4" if key == "forward" else "k5"],
             "max_abs_err": loss[f"{key}_err"], "shape": [3136, 30],
             "ms": lt["new"]["ms"], "call_ms": lt["new"]["call_ms"],
             "cuda_launches_per_call": lt["new"]["cuda_launches"],
@@ -4869,6 +5183,9 @@ def main() -> int:
             "checked": True, "launches": counts[name],
             "launches_fit": fit["counts"][name],
             "launches_fit_device_cache": fit["device_cache_counts"][name],
+            "launches_learn": learn["counts"][name],
+            "launches_learn_steps": learn["steps"],
+            "learn_err": learn["errors"][k],
             "max_abs_err": bn["max_abs"][key], "max_rel_err": bn["max_rel"][key],
             "shape": "the step's 25 BatchNorm inputs, bf16, batch 64",
             "ms": tot[k], "plain_ms": tot[p], "bound_ms": tot[b_],

@@ -1223,3 +1223,74 @@ def test_int8_serving_on_the_gpu_goes_through_the_route_and_k1(cuda):
         torch.backends.cudnn.allow_tf32 = tf32
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
                                atol=1e-4)
+
+
+@pytest.fixture
+def synth_set(tmp_path):
+    """tools/make_synthetic_dataset.py's 20-class set at 56²: 16 train and
+    8 val images (cv2, as on the card's machine)."""
+    import os
+    import subprocess
+    import sys
+
+    pytest.importorskip("cv2")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = str(tmp_path / "synth")
+    subprocess.run([sys.executable, os.path.join(root, "tools",
+                                                 "make_synthetic_dataset.py"),
+                    "--out", out, "--train", "16", "--val", "8",
+                    "--image-size", "56", "--seed", "0"], check=True)
+    return out
+
+
+def test_learning_run_on_the_gpu_goes_through_the_loss_kernels(cuda, synth_set,
+                                                               tmp_path):
+    """cli.run_synth_benchmark for 2 epochs on the card with --pallas-loss
+    and the set on the card: K4 and K5 once a step, K1 twice a mAP update
+    (the second epoch's, the final and the best checkpoint's evaluation),
+    finite results with the JAX tool's keys."""
+    import json
+
+    from keras_object_detection_torch.cli import run_synth_benchmark as synth
+
+    work = str(tmp_path / "run")
+    before, nms_before = _counts(), cuda_nms.LAUNCHES
+    got = synth.main(["--data", synth_set, "--workdir", work, "--backbone",
+                      "darknet_micro", "--image-size", "56", "--batch-size",
+                      "4", "--epochs", "2", "--map-start", "1",
+                      "--map-every", "1", "--ema", "0.99", "--device-cache",
+                      "--pallas-loss"])
+    torch.cuda.synchronize()
+    steps, val_batches = 2 * 4, 2
+    assert [a - b for a, b in zip(_counts(), before)] == [0, 0, steps, steps]
+    assert cuda_nms.LAUNCHES - nms_before == 2 * 3 * val_batches
+    assert np.isfinite(got["val_loss"]) and 0.0 <= got["val_mAP"] <= 1.0
+    assert got["val_mAP_peak_epoch"] == 1 and got["train_images"] == 16
+    with open(f"{work}/results.json") as f:
+        assert json.load(f) == got
+
+
+def test_round_trip_on_the_gpu_goes_through_k1(cuda, synth_set, tmp_path):
+    """cli.visualize_dataset on the card: K1 once an image, its rows the
+    plain NMS's of the same decoded rows, each image's labels back; the
+    CPU's round trip within one rounding (the card divides by S as a
+    multiply by 1/S)."""
+    from keras_object_detection_torch.cli import visualize_dataset
+    from keras_object_detection_torch.core.grid import decode_grid, encode_grid
+
+    argv = ["--data-dir", f"{synth_set}/val", "--names",
+            f"{synth_set}/synth.names", "--image-size", "56",
+            "--num-classes", "20", "--out-dir", str(tmp_path / "v")]
+    before = cuda_nms.LAUNCHES
+    card = visualize_dataset.main(argv)
+    assert cuda_nms.LAUNCHES - before == len(card) == 8
+    cpu = visualize_dataset.main([*argv, "--device", "cpu"])
+    for a, b in zip(card, cpu):
+        decoded = decode_grid(encode_grid(
+            torch.from_numpy(a.boxes[None]).to(cuda),
+            torch.from_numpy(a.valid[None]).to(cuda), 20), 20)
+        rows, keep = batched_non_max_suppression(decoded)
+        np.testing.assert_array_equal(a.kept, rows[0][keep[0]].cpu().numpy())
+        np.testing.assert_array_equal(a.kept[:, :2], b.kept[:, :2])
+        np.testing.assert_allclose(a.kept, b.kept, rtol=0, atol=2 ** -22)
+        assert sorted(a.kept[:, 0]) == sorted(a.boxes[a.valid][:, 4])

@@ -11,8 +11,9 @@ serves soft and fast NMS and the staged latency, runs the error analysis,
 serves int8 (dynamic, calibrated, bias-corrected, QAT, weight-only, on the
 FPN plan too) and picks a serving model, exports and reloads a
 ``torch.export`` program, writes and parses a profiler trace, draws a
-tagged image, imports the tensor-parallel placement and the dry run, and
-the six command lines answer ``--help``;
+tagged image, imports the tensor-parallel placement and the dry run,
+summarises a learning run's log, and the nine command lines answer
+``--help``;
 h5py is never imported (only reading a Keras file needs it)."""
 
 import pathlib
@@ -217,14 +218,29 @@ with tempfile.TemporaryDirectory() as tmp:
                                      np.array([[1, 0.9, .5, .5, .2, .2]]),
                                      names)
     assert tagged.any()
+# the command lines answer --help (each imported here, with JAX blocked)
+import contextlib, importlib, io, json
 for cli in ("train", "evaluate", "kmeans_anchors", "serving_map", "export",
-            "ptq_delta"):
-    proc = subprocess.run([sys.executable, "-c", "import sys; "
-                           f"sys.modules.update(dict.fromkeys({BLOCKED!r})); "
-                           f"from keras_object_detection_torch.cli.{{cli}} "
-                           "import main; main(['--help'])"],
-                          capture_output=True, text=True)
-    assert proc.returncode == 0 and "usage:" in proc.stdout, proc.stderr
+            "ptq_delta", "run_synth_benchmark", "darknet_weights",
+            "visualize_dataset"):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        try:
+            importlib.import_module(
+                f"keras_object_detection_torch.cli.{{cli}}").main(["--help"])
+        except SystemExit as e:
+            assert e.code == 0, (cli, e.code)
+    assert "usage:" in out.getvalue(), cli
+# the learning run's summary of a training log
+from keras_object_detection_torch.cli.run_synth_benchmark import summarize_log
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "train.jsonl")
+    with open(path, "w") as f:
+        for e in range(3):
+            f.write(json.dumps({{"step": e, "epoch_time_s": 1.0 + e,
+                                "val_mAP": 0.1 * e}}) + "\\n")
+    assert summarize_log(path, 8) == {{"val_mAP_peak": 0.2,
+                                      "val_mAP_peak_epoch": 2}}
 leaked = [m for m in sys.modules
           if m.split(".")[0] in {BLOCKED!r} + ("h5py",)
           and sys.modules[m] is not None]
