@@ -22,7 +22,10 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
              replay; the graph-node floor (one add on a 1-element tensor);
              device times and per-call times at 1x49, 32x49 (three
              densities), 8x512 and 2x1024, with --parent in turns with the
-             other checkout's kernel (parent, new, new, parent);
+             other checkout's kernel (parent, new, new, parent); before
+             and after those timings' CUDA graphs, 10 profiler traces of
+             8 K1 calls at 32x512, each taken once, counting those that
+             held no device event;
 3. check   - the small CPU-runnable model on the GPU against the same model
              on the CPU (float32, TF32 off), to 1e-4;
 4. serve   - the flagship voc_full_config (Darknet-24, 448², C=20, bf16)
@@ -263,9 +266,30 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
              steps: op_breakdown's K2/K3/K4/K5 counts equal to the launch
              counters (50/50/2/2); (f) parallel/dryrun.py over 4 ranks (the
              flagship on (2, 2)); one JSON line "tensor_parallel".
+19. measure - the port's three measurement tools (cli/, files under
+             build/measure/): (a) train_step_breakdown of the flagship's
+             kernel path at batch 64 with --scan 4 and of YOLOv3 (fused
+             BatchNorm) at batch 32: the port's kernels a step by kernel
+             name in the trace and in the counters, flagship K2/K3 25 and
+             K4/K5 1 (the bare step and the chunk), YOLOv3 K2/K3 72 and
+             K4/K5 0, device time at most the wall p50; (b)
+             serving_device_time of random flagship weights at batch 1 and
+             32, K1's launches counted, and K1 alone on the tool's 32x512
+             boxes bit-equal to the plain NMS and timed as a CUDA graph
+             (the profiler may lose every device event of a trace of K1
+             alone late in the process: 10 traces taken once each count
+             the lost ones here, as phase nms counts them early); (c)
+             tp_comm_analysis of the
+             flagship (JAX's config) over dp8 and dp4 x tp2, 8 gloo ranks
+             on the card: every rank of a data row issues the same
+             collectives, one gradient bucket of 278,613,368 B (dp8) and
+             144,133,496 B (dp4 x tp2), 39 sharded leaves, printed beside
+             JAX's record (benchmarks/tp_comm_analysis.json, read as data);
+             one JSON line "measure".
 
 Then one JSON line describing each kernel (K1's launches add the hard-mode
-serving of phase 14 and the int8 serving of phase 15 to phase 4's), one line
+serving of phase 14, the int8 serving of phase 15 and phase 19's serving
+to phase 4's; launches_measure is phase 19's), one line
 with the card's name and power limit from nvidia-smi, and as the last line
 {"ok": true, "device": {...}}. Float32 results are compared with TF32 off
 (torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32).
@@ -290,6 +314,8 @@ import unittest.mock
 
 import numpy as np
 import torch
+
+START = time.perf_counter()  # the script's clock, for phase measure's log
 
 # H100 SXM published peaks (NVIDIA data sheet) for bound_ms
 HBM_BYTES_PER_S = 3.35e12
@@ -555,6 +581,30 @@ def node_floor_ms() -> float:
     return graph_ms(lambda: one.add_(1.0))
 
 
+def trace_loss(boxes: torch.Tensor, traces: int) -> dict:
+    """``traces`` back-to-back ``profiling`` traces of 8 K1 calls on
+    ``boxes``, each taken once: how many held no device event at all
+    (lost), how many held some but not K1's 8 (partial), and the host's
+    launch records in the lost ones (their launches were made)."""
+    from keras_object_detection_torch.ops import cuda_nms
+    from keras_object_detection_torch.utils import profiling
+
+    def run():
+        cuda_nms.cuda_batched_non_max_suppression(boxes, 0.5, 0.25)
+
+    lost, partial, launches = 0, 0, []
+    for _ in range(traces):
+        events, seen, counted, _ = profiling.checked_trace(run, 8, tries=1)
+        held = profiling.trace_contents(events)
+        if held["device_events"] == 0:
+            lost += 1
+            launches.append(held["launch_records"])
+        elif seen != counted:
+            partial += 1
+    return {"traces": traces, "lost": lost, "partial": partial,
+            "launch_records_of_lost": launches}
+
+
 def phase_nms(dev, parent: str = "") -> dict:
     """The NMS kernel against its plain version on every case of NMS_CASES;
     graph replay; the graph-node floor; then times at every shape of
@@ -589,6 +639,15 @@ def phase_nms(dev, parent: str = "") -> dict:
     log(f"[nms] graph-node floor (one add on a 1-element tensor, replayed): "
         f"{floor:.5f} ms")
 
+    # the profiler's record of K1 alone on serving_device_time's 32 x 512
+    # boxes, before and after the timing below captures cluster launches
+    # (8x512, 2x1024) in CUDA graphs; phase measure repeats it late in the
+    # process
+    from keras_object_detection_torch.cli.serving_device_time import \
+        draw_inputs
+    boxes = torch.from_numpy(draw_inputs(MEASURE_SERVING["batches"], 448,
+                                         20)[1]).to(dev)
+    losses = {"before_graphs": trace_loss(boxes, TRACE_LOSS_TRACES)}
     modules = {"new": cuda_nms}
     if parent:
         modules["parent"] = parent_module(parent, "cuda_nms", "nms")
@@ -624,8 +683,11 @@ def phase_nms(dev, parent: str = "") -> dict:
             f"{shape['threads']} threads, {shape['smem_bytes']} B shared; plain "
             f"{p_ms:.3f} ms, bound {bound:.3e} ms ({bound_by}; {bound_n2:.3e} "
             f"counting N^2 rank compares)")
+    losses["after_graphs"] = trace_loss(boxes, TRACE_LOSS_TRACES)
+    log(f"[nms] traces of 8 K1 calls at 32x512 that held no device event "
+        f"(each taken once): {json.dumps(losses)}")
     return {"max_abs_err": max_err, "timing": timing, "floor_ms": floor,
-            "calls": calls}
+            "calls": calls, "trace_loss": losses}
 
 
 def phase_check(dev) -> None:
@@ -4870,65 +4932,44 @@ def tp_export(dev) -> dict:
             "grid_scale": scale, "shape": list(got.shape)}
 
 
-def tp_kernel_of(name: str):
-    """The port's kernel a trace's kernel name is, or None."""
-    if "bn_stats_kernel" in name:
-        return "bn_grad_stats" if ", true," in name else "bn_stats"
-    if "loss_forward_kernel" in name:
-        return "yolo_loss_forward"
-    if "loss_backward_kernel" in name:
-        return "yolo_loss_backward"
-    return None
-
-
 def tp_profile(dev) -> dict:
     """(e) utils/profiling.trace of two flagship kernel-path steps (batch
-    64, one process): op_breakdown's counts of K2, K3, K4 and K5 equal to
-    their launch counters (50, 50, 2, 2); retried where the profiler lost
-    its device events, as phase launches does."""
+    64, one process): the trace's K2, K3, K4 and K5 (traced_port_kernels)
+    equal to their launch counters (50, 50, 2, 2); retaken where the
+    profiler lost its device events (profiling.checked_trace)."""
     from keras_object_detection_torch.train import (create_train_state,
                                                     make_train_step)
     from keras_object_detection_torch.utils import profiling
 
     cfg = train_config(True)
-    state = create_train_state(cfg, torch.Generator().manual_seed(0), dev)
+    box = {"state": create_train_state(
+        cfg, torch.Generator().manual_seed(0), dev)}
     batch = synthetic_batch(cfg.data.batch_size, cfg.model.image_size,
                             cfg.data.max_boxes_per_image, dev)
     step = make_train_step(cfg)
-    state, _ = step(state, *batch, 1)
-    for attempt in range(3):
-        trace_dir = os.path.join(TP_DIR, f"trace{attempt}")
-        shutil.rmtree(trace_dir, ignore_errors=True)
-        reset_kernel_counts()
-        with profiling.trace(trace_dir):
-            for _ in range(2):
-                state, _ = step(state, *batch, 1)
-        launched = kernel_counts()
-        breakdown = profiling.op_breakdown(profiling.traced_events(trace_dir),
-                                           top_k=None)
-        traced = {k: 0 for k in launched}
-        for op in breakdown["top_ops"]:
-            kind = tp_kernel_of(op["name"])
-            if kind is not None:
-                traced[kind] += op["count"]
-        if traced == launched:
-            break
-    lanes = profiling.device_lane_ms(profiling.traced_events(trace_dir))
+
+    def one():
+        box["state"], _ = step(box["state"], *batch, 1)
+
+    one()
+    events, traced, launched, tries = profiling.checked_trace(one, 2)
+    breakdown = profiling.op_breakdown(events, top_k=None)
+    lanes = profiling.device_lane_ms(events)
     log(f"[tensor_parallel] (e) profiling.trace of 2 flagship steps: "
-        f"op_breakdown counts {traced} against the launch counters "
-        f"{launched} (attempt {attempt + 1}); device busy "
+        f"traced {traced} against the launch counters "
+        f"{launched} ({tries} trace(s)); device busy "
         f"{breakdown['total_ms']:.3f} ms over {len(lanes)} lanes; top "
         f"categories " + ", ".join(f"{k} {v:.3f}" for k, v in list(
             breakdown["categories"].items())[:5]))
-    want = {"bn_stats": 50, "bn_grad_stats": 50, "yolo_loss_forward": 2,
-            "yolo_loss_backward": 2}
+    want = {"nms": 0, "bn_stats": 50, "bn_grad_stats": 50,
+            "yolo_loss_forward": 2, "yolo_loss_backward": 2}
     if traced != launched or launched != want:
         raise SystemExit(f"[tensor_parallel] (e) traced {traced}, launched "
                          f"{launched}, expected {want}")
     return {"traced": traced, "launched": launched,
             "device_busy_ms": breakdown["total_ms"],
             "categories_ms": dict(list(breakdown["categories"].items())[:10]),
-            "attempts": attempt + 1}
+            "attempts": tries}
 
 
 def phase_tensor_parallel(dev) -> dict:
@@ -5006,6 +5047,231 @@ def phase_tensor_parallel(dev) -> dict:
     return out
 
 
+MEASURE_DIR = os.path.join("build", "measure")
+MEASURE_SERVING = dict(batches=(1, 32), runs=15, pipeline_k=32,
+                       trace_calls=8)
+TRACE_LOSS_TRACES = 10  # traces of K1 alone in phases nms and measure
+# the JAX package's records of the same measurements (read as data)
+JAX_RECORDS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "benchmarks")
+
+
+def measure_config(tag: str, cfg) -> str:
+    """A run directory holding ``cfg`` as config.json, as the tools'
+    ``--checkpoint`` reads it."""
+    path = os.path.join(MEASURE_DIR, tag)
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+    return path
+
+
+def jax_record(name: str) -> dict:
+    with open(os.path.join(JAX_RECORDS, name)) as f:
+        return json.load(f)
+
+
+def measure_breakdown(tag: str, cfg, want: dict, scan: int = 0) -> dict:
+    """(a) cli/train_step_breakdown.py on ``cfg``: the port's kernels a
+    step in the trace and in the counters equal to ``want`` (the bare step
+    and the --scan chunk), device time at most the wall p50."""
+    from keras_object_detection_torch.cli import train_step_breakdown
+
+    argv = ["--checkpoint", measure_config(tag, cfg), "--steps", "4",
+            "--timed-steps", "10",
+            "--out", os.path.join(MEASURE_DIR, f"train_step_{tag}.json")]
+    res = train_step_breakdown.main(argv + (["--scan", str(scan)]
+                                            if scan else []))
+    recs = {"bare": res, **({"scan": res["scan_dispatch"]} if scan else {})}
+    for name, rec in recs.items():
+        k = rec["port_kernels_per_step"]
+        wall = (res["wall_p50_ms"] if name == "bare"
+                else rec["wall_p50_ms_per_step"])
+        dev_ms = rec["device_ms_per_step"]
+        log(f"[measure] (a) {tag} {name}: wall p50 {wall:.3f} ms a step, "
+            f"device {'null' if dev_ms is None else f'{dev_ms:.3f}'} ms a "
+            f"step; kernels a "
+            f"step traced {k['traced']}, counted {k['counted']}; "
+            f"{rec['trace_note'][:160]}")
+        if k["traced"] != want or k["counted"] != want:
+            raise SystemExit(f"[measure] (a) {tag} {name}: kernels a step "
+                             f"{k}, expected {want}")
+        if rec["device_ms_per_step"] is None or not (
+                0 < rec["device_ms_per_step"] <= wall):
+            raise SystemExit(f"[measure] (a) {tag} {name}: device "
+                             f"{rec['device_ms_per_step']} ms against wall "
+                             f"{wall} ms")
+    top = list(res["categories_ms_per_step"].items())[:8]
+    log(f"[measure] (a) {tag}: idle "
+        f"{(1 - res['device_ms_per_step'] / res['wall_p50_ms']) * 100:.1f} %"
+        f" of the wall p50; top categories " + ", ".join(
+            f"{c} {ms:.3f}" for c, ms in top)
+        + (f"; the chunk of {scan} against the bare step's device time "
+           f"{res['scan_dispatch']['vs_bare_step_device']:.4f}" if scan
+           else ""))
+    return res
+
+
+def measure_serving() -> dict:
+    """(b) cli/serving_device_time.py on random flagship weights at batch 1
+    and 32, K1's launches counted."""
+    from keras_object_detection_torch.cli import serving_device_time as sdt
+    from keras_object_detection_torch.ops import cuda_nms
+
+    m = MEASURE_SERVING
+    before = cuda_nms.LAUNCHES
+    res = sdt.main(["--batches", ",".join(map(str, m["batches"])),
+                    "--runs", str(m["runs"]), "--pipeline-k",
+                    str(m["pipeline_k"]), "--trace-calls",
+                    str(m["trace_calls"]), "--out",
+                    os.path.join(MEASURE_DIR, "serving_device_time.json")])
+    launched = cuda_nms.LAUNCHES - before
+    # a predict call launches K1 once: per batch a warm-up, the runs, the
+    # pipelined calls, the traced calls of each trace taken and the FLOP
+    # count; the NMS alone the same but the FLOP count
+    rows = res["fused_serving"] + [res["pallas_nms"]]
+    want = sum(1 + m["runs"] + m["pipeline_k"]
+               + m["trace_calls"] * row["traces"] for row in rows) + len(
+        res["fused_serving"])
+    # in a long process the profiler has lost every K1 event of the
+    # standalone calls' traces (K1 alone, no torch kernel about it);
+    # measure_k1_alone times K1 on those boxes as a CUDA graph instead
+    nms = res["pallas_nms"]
+    if any(row["trace_device_ms"] is None for row in res["fused_serving"]) \
+            or (nms["trace_device_ms"] is None and nms["traces"] < 3):
+        raise SystemExit("[measure] (b) a trace holds no device time: "
+                         + "; ".join(row["trace_note"] for row in rows))
+    jax_rec = jax_record("serving_device_time.json")
+    for row, jrow in zip(res["fused_serving"], jax_rec["fused_serving"]):
+        log(f"[measure] (b) batch {row['batch']}: serial p50 "
+            f"{row['serial_p50_ms']:.3f} ms (min {row['serial_min_ms']:.3f}),"
+            f" pipelined {row['pipelined_per_call_ms']:.3f} ms a call, trace "
+            f"device {row['trace_device_ms']:.4f} ms a call, "
+            f"{row['cost_analysis_gflops']:.2f} GFLOP (JAX's record, a TPU, "
+            f"quoted as work only: {jrow['cost_analysis_gflops']} GFLOP); "
+            f"{row['traces']} trace(s)")
+        if not 0 < row["trace_device_ms"] <= row["serial_p50_ms"]:
+            raise SystemExit(f"[measure] (b) batch {row['batch']}: trace "
+                             f"device {row['trace_device_ms']} ms")
+    log(f"[measure] (b) K1 alone at 32x512: serial p50 "
+        f"{nms['serial_p50_ms']:.4f} ms, pipelined "
+        f"{nms['pipelined_per_call_ms']:.4f}, trace device "
+        f"{nms['trace_device_ms']} ms a call ({nms['traces']} trace(s): "
+        f"{nms['trace_note']}); K1 launches in the run "
+        f"{launched} (expected {want})")
+    if launched != want:
+        raise SystemExit(f"[measure] (b) K1 launched {launched} times, "
+                         f"expected {want}")
+    res["k1_launches"] = launched
+    return res
+
+
+def measure_k1_alone(dev) -> dict:
+    """(b) K1 on the tool's standalone 32 x 512 boxes (JAX's, drawn after
+    the serving images) against its plain version: bit-equal; its device
+    time as a CUDA graph (graph_ms)."""
+    from keras_object_detection_torch.cli import serving_device_time as sdt
+    from keras_object_detection_torch.ops import cuda_nms
+    from keras_object_detection_torch.ops.nms import batched_non_max_suppression
+
+    _, boxes = sdt.draw_inputs(MEASURE_SERVING["batches"], 448, 20)
+    boxes = torch.from_numpy(boxes).to(dev)
+    got = cuda_nms.cuda_batched_non_max_suppression(boxes, sdt.NMS_IOU,
+                                                    sdt.NMS_CONF)
+    plain = batched_non_max_suppression(boxes, sdt.NMS_IOU, sdt.NMS_CONF)
+    equal = all(torch.equal(a, b) for a, b in zip(got, plain))
+    err = (got[0] - plain[0]).abs().max().item()
+    ms = graph_ms(lambda: cuda_nms.cuda_batched_non_max_suppression(
+        boxes, sdt.NMS_IOU, sdt.NMS_CONF))
+    log(f"[measure] (b) K1 alone on the tool's 32x512 boxes (IoU "
+        f"{sdt.NMS_IOU}, confidence {sdt.NMS_CONF}): bit-equal to the plain "
+        f"NMS {equal}, kept {int(got[1].sum())}, max_abs_err {err}; "
+        f"{ms:.5f} ms device (CUDA graph)")
+    if not equal:
+        raise SystemExit("[measure] (b) K1 disagrees with its plain version")
+    return {"max_abs_err": err, "graph_ms": ms}
+
+
+def measure_collectives() -> dict:
+    """(c) cli/tp_comm_analysis.py: the flagship (JAX's config: flax
+    BatchNorm, the plain loss, global batch 32 at 448²) over dp8 and dp4 x
+    tp2, 8 gloo ranks on the card: ranks agree, the gradient bucket, the
+    sharded leaves, beside JAX's record."""
+    from keras_object_detection_torch.cli import tp_comm_analysis
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    doc = tp_comm_analysis.main(["--out", os.path.join(
+        MEASURE_DIR, "tp_comm_analysis.json")])
+    wall = time.perf_counter() - t0
+    jax_rec = jax_record("tp_comm_analysis.json")
+    buckets = {"dp8": 69_653_342 * 4,
+               "dp4_tp2": (69_653_342 - TP_SHARDED_VALUES // 2) * 4}
+    for name, rec in doc["configs"].items():
+        jrec = jax_rec["configs"][name]
+        log(f"[measure] (c) {name}: {rec['total_collective_ops']} "
+            f"collectives, {rec['total_collective_bytes_per_device']:,} B a "
+            f"rank ({json.dumps(rec['collectives'])}; JAX's record "
+            f"{jrec['total_collective_ops']}, "
+            f"{jrec['total_collective_bytes_per_device']:,} B: "
+            f"{json.dumps(jrec['collectives'])}); sharded leaves "
+            f"{rec['tp_sharded_leaves']} (JAX {jrec['tp_sharded_leaves']}); "
+            f"counted step {rec['counted_step_ms']:.1f} ms over gloo; "
+            f"ranks agree {rec['ranks_agree']}")
+        if (rec["tp_sharded_leaves"] != TP_SHARDED_LEAVES
+                or rec["all_reduce_sizes"].get(str(buckets[name])) != 1
+                or not rec["ranks_agree"]):
+            raise SystemExit(f"[measure] (c) {name}: leaves "
+                             f"{rec['tp_sharded_leaves']}, all-reduce sizes "
+                             f"{rec['all_reduce_sizes']}, ranks agree "
+                             f"{rec['ranks_agree']}; expected "
+                             f"{TP_SHARDED_LEAVES} and one gradient bucket of "
+                             f"{buckets[name]} B")
+    log(f"[measure] (c) delta {doc['delta']} (JAX's {jax_rec['delta']}); "
+        f"{wall:.1f} s")
+    doc["wall_s"] = wall
+    return doc
+
+
+def phase_measure(dev) -> dict:
+    """The port's three measurement tools (module docstring, phase 19)."""
+    t0 = time.perf_counter()
+    shutil.rmtree(MEASURE_DIR, ignore_errors=True)
+    os.makedirs(MEASURE_DIR, exist_ok=True)
+    out = {"card": card()}
+    from keras_object_detection_torch.ops import cuda_nms
+    from keras_object_detection_torch.utils.profiling import \
+        port_kernel_launches
+
+    reset_kernel_counts()  # the main path: counts at 0 just before
+    cuda_nms.LAUNCHES = 0
+    out["flagship"] = measure_breakdown(
+        "flagship", train_config(True), dict(FLAGSHIP_BN_LAUNCHES, nms=0),
+        scan=4)
+    out["yolov3"] = measure_breakdown(
+        "yolov3", yolov3_config(True),
+        {"nms": 0, "bn_stats": 72, "bn_grad_stats": 72,
+         "yolo_loss_forward": 0, "yolo_loss_backward": 0})
+    torch.cuda.empty_cache()
+    out["serving"] = measure_serving()
+    out["launches"] = port_kernel_launches()  # ... read just after
+    out["serving"]["k1_alone"] = measure_k1_alone(dev)
+    from keras_object_detection_torch.cli.serving_device_time import \
+        draw_inputs
+    out["serving"]["trace_loss"] = trace_loss(torch.from_numpy(draw_inputs(
+        MEASURE_SERVING["batches"], 448, 20)[1]).to(dev), TRACE_LOSS_TRACES)
+    log(f"[measure] (b) traces of 8 K1 calls at 32x512 that held no device "
+        f"event (each taken once), {time.perf_counter() - START:.0f} s into "
+        f"the script: {json.dumps(out['serving']['trace_loss'])}")
+    torch.cuda.empty_cache()
+    out["collectives"] = measure_collectives()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[measure] launches in the phase {out['launches']}; phase wall "
+        f"{out['wall_s']:.1f} s")
+    print(json.dumps({"measure": out}))
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", default="",
@@ -5057,6 +5323,7 @@ def main() -> int:
     phase_launches(loss, nms, bn)
     parallel = phase_parallel(dev)
     tp = phase_tensor_parallel(dev)
+    measure = phase_measure(dev)
     counts = train["kernels"]["counts"]
     no_library = ("no single PyTorch call computes this function")
     nt = nms["timing"]
@@ -5121,6 +5388,12 @@ def main() -> int:
     k1["launches_tensor_parallel_mesh"] = {k: v["k1_launches"] for k, v in
                                            tp["serving"].items()}
     k1["launches"] += sum(k1["launches_tensor_parallel_mesh"].values())
+    k1["launches_measure"] = measure["launches"]["nms"]
+    k1["launches"] += k1["launches_measure"]
+    k1["measure_err"] = measure["serving"]["k1_alone"]["max_abs_err"]
+    k1["ms_measure_32x512"] = measure["serving"]["k1_alone"]["graph_ms"]
+    k1["trace_loss"] = {"nms": nms["trace_loss"],
+                        "measure": measure["serving"]["trace_loss"]}
     kernels = [k1]
 
     def parallel_entry(name: str) -> dict:
@@ -5132,7 +5405,8 @@ def main() -> int:
                     r["counts"][name] for r in tp["flagship"]],
                 "launches_tensor_parallel_steps": TP_STEPS,
                 "launches_tensor_parallel_profiled": tp["profile"]["launched"][
-                    name]}
+                    name],
+                "launches_measure": measure["launches"][name]}
 
     def tp_shapes(key: str) -> list:
         return [{k: row[k] for k in ("shape", "calls", "ms", "bound_ms",

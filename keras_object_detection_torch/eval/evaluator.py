@@ -53,6 +53,7 @@ from keras_object_detection_torch.train.loop import (TrainState, _device,
                                                      create_train_state,
                                                      make_eval_step,
                                                      run_dataset_eval)
+from keras_object_detection_torch.utils.profiling import call_latency
 
 Images = Union[np.ndarray, torch.Tensor]
 
@@ -222,24 +223,9 @@ class ServingModel:
                              "diagnostic; construct the model with mesh=None")
         x = self._images(images_u8)
         run: Callable = self._staged if staged else self.predict
-        run(x)  # warm-up: kernel build, cuDNN plans
-        self._sync()
-        times = []
-        for _ in range(runs):
-            t0 = time.perf_counter()
-            run(x)
-            self._sync()
-            times.append((time.perf_counter() - t0) * 1000)
-        times.sort()
-        out = {"p50_ms": times[len(times) // 2], "min_ms": times[0],
-               "mean_ms": sum(times) / len(times), "batch": int(x.shape[0])}
-        if pipeline_k:
-            t0 = time.perf_counter()
-            for _ in range(pipeline_k):
-                run(x)
-            self._sync()
-            out["pipelined_per_call_ms"] = (
-                (time.perf_counter() - t0) * 1000 / pipeline_k)
+        # the warm-up call builds the kernels and cuDNN plans
+        out = call_latency(lambda: run(x), self._sync, runs, pipeline_k)
+        out["batch"] = int(x.shape[0])
         return out
 
 

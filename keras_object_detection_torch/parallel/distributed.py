@@ -18,7 +18,7 @@ The helpers below take a group (``None``: no process group) and add no
 collective where the group has one process, so a one-rank run is the
 single-device program. ``ALL_REDUCES`` / ``ALL_REDUCE_BYTES`` count the
 reductions issued and the bytes each rank contributes, ``GATHERS`` /
-``GATHER_BYTES`` the all-gathers.
+``GATHER_BYTES`` the all-gathers; ``recording()`` lists each collective.
 
 A column-parallel layer (``parallel/tensor.py``) adds the two autograd
 operations XLA writes for a kernel sharded on its output features:
@@ -32,12 +32,13 @@ which a gather moves unchanged (gloo's CUDA path refuses an int16 tensor,
 
 from __future__ import annotations
 
+import contextlib
 import os
 import socket
 import subprocess
 import sys
 import time
-from typing import List, Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -46,11 +47,42 @@ ALL_REDUCES = 0
 ALL_REDUCE_BYTES = 0
 GATHERS = 0
 GATHER_BYTES = 0
+_RECORD: Optional[list] = None  # the list ``recording`` fills, or None
 
 
 def reset_counts() -> None:
     global ALL_REDUCES, ALL_REDUCE_BYTES, GATHERS, GATHER_BYTES
     ALL_REDUCES = ALL_REDUCE_BYTES = GATHERS = GATHER_BYTES = 0
+
+
+def _count(kind: str, t: torch.Tensor, world: int) -> None:
+    """Count one collective of ``kind`` to which this rank contributes
+    ``t``: an ``"all-gather"`` in ``GATHERS``, a reduction (``"all-reduce"``
+    or ``"reduce-scatter"``) in ``ALL_REDUCES``."""
+    global ALL_REDUCES, ALL_REDUCE_BYTES, GATHERS, GATHER_BYTES
+    nbytes = t.numel() * t.element_size()
+    if kind == "all-gather":
+        GATHERS += 1
+        GATHER_BYTES += nbytes
+    else:
+        ALL_REDUCES += 1
+        ALL_REDUCE_BYTES += nbytes
+    if _RECORD is not None:
+        _RECORD.append((kind, nbytes, world))
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[list]:
+    """The collectives this process issues inside the block, in order, as
+    ``(kind, bytes this rank contributes, ranks in the group)``; kind
+    ``"all-reduce"`` (``all_reduce_``, ``sum_over``), ``"all-gather"`` or
+    ``"reduce-scatter"``. Not nested."""
+    global _RECORD
+    _RECORD = []
+    try:
+        yield _RECORD
+    finally:
+        _RECORD = None
 
 
 def _local_rank() -> int:
@@ -172,11 +204,9 @@ def barrier(group) -> None:
 
 def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     """``t`` summed over ``group`` in place; returns ``t``."""
-    global ALL_REDUCES, ALL_REDUCE_BYTES
     if world_size(group) > 1:
         dist.all_reduce(t, dist.ReduceOp.SUM, group=group)
-        ALL_REDUCES += 1
-        ALL_REDUCE_BYTES += t.numel() * t.element_size()
+        _count("all-reduce", t, world_size(group))
     return t
 
 
@@ -241,7 +271,6 @@ def all_gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     order. Any other ``dim`` than 0 is moved last for the gather, which for
     the channels of a ``channels_last`` NCHW tensor is its memory order (no
     copy), and the result keeps that layout."""
-    global GATHERS, GATHER_BYTES
     world = world_size(group)
     if world == 1:
         return t
@@ -249,8 +278,7 @@ def all_gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     src = _wire(t.movedim(dim, -1) if last else t)
     parts: List[torch.Tensor] = [torch.empty_like(src) for _ in range(world)]
     dist.all_gather(parts, src, group=group)
-    GATHERS += 1
-    GATHER_BYTES += src.numel() * src.element_size()
+    _count("all-gather", src, world)
     out = _unwire(torch.cat(parts, dim=-1 if last else 0), t.dtype)
     return out.movedim(-1, dim) if last else out
 
@@ -266,15 +294,13 @@ def sum_over(t: torch.Tensor, group) -> torch.Tensor:
     every rank in any dtype (bfloat16 is summed in bfloat16, as a
     reduction in that type rounds): the ranks' tensors gathered, then
     added. Counted as a reduction."""
-    global ALL_REDUCES, ALL_REDUCE_BYTES
     world = world_size(group)
     if world == 1:
         return t
     src = _wire(t)
     parts: List[torch.Tensor] = [torch.empty_like(src) for _ in range(world)]
     dist.all_gather(parts, src, group=group)
-    ALL_REDUCES += 1
-    ALL_REDUCE_BYTES += src.numel() * src.element_size()
+    _count("all-reduce", src, world)
     out = _unwire(parts[0], t.dtype).clone()
     for p in parts[1:]:
         out += _unwire(p, t.dtype)
@@ -331,7 +357,6 @@ def reduce_scatter_rows(t: torch.Tensor, group) -> torch.Tensor:
     """``t`` summed over ``group`` and cut into ``world`` row blocks along
     dimension 0; returns this rank's block (one ``reduce_scatter_tensor``,
     gloo's too)."""
-    global ALL_REDUCES, ALL_REDUCE_BYTES
     world = world_size(group)
     if world == 1:
         return t
@@ -339,6 +364,5 @@ def reduce_scatter_rows(t: torch.Tensor, group) -> torch.Tensor:
                       dtype=t.dtype, device=t.device)
     dist.reduce_scatter_tensor(out, t.contiguous(), dist.ReduceOp.SUM,
                                group=group)
-    ALL_REDUCES += 1
-    ALL_REDUCE_BYTES += t.numel() * t.element_size()
+    _count("reduce-scatter", t, world)
     return out

@@ -51,12 +51,10 @@ def fpn_config(batch: int):
         eval=EvalConfig(conf_threshold=0.1))
 
 
-def sharded_leaves(state, mesh) -> int:
-    """The leaves of ``state``'s parameters and optimizer moments that
-    ``state_sharding`` places on the model axis (the count JAX's dry run
-    asserts)."""
-    from keras_object_detection_torch.parallel.mesh import state_sharding
-
+def state_tree(state) -> dict:
+    """``state``'s parameters, optimizer moments and EMA copy as JAX's
+    train state holds them: ``{"params" | "mu" | "nu" | "trace" | "ema":
+    {parameter name: tensor}}`` (the moments a state's optimizer keeps)."""
     opt = state.opt
     names = [n for n, _ in state.model.named_parameters()]
     tree = {"params": dict(state.model.named_parameters()),
@@ -64,7 +62,15 @@ def sharded_leaves(state, mesh) -> int:
                (("mu", opt.mu), ("nu", opt.nu), ("trace", opt.trace)) if v}}
     if state.ema is not None:
         tree["ema"] = state.ema
-    specs = state_sharding(mesh, tree, mesh.model_axis)
+    return tree
+
+
+def sharded_leaves(state, mesh) -> int:
+    """The leaves of ``state_tree(state)`` that ``state_sharding`` places
+    on the model axis (the count JAX's dry run asserts)."""
+    from keras_object_detection_torch.parallel.mesh import state_sharding
+
+    specs = state_sharding(mesh, state_tree(state), mesh.model_axis)
     return sum(1 for sub in specs.values() for spec in sub.values() if spec)
 
 

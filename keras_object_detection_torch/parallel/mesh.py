@@ -235,7 +235,9 @@ def replicated_sharding(mesh: Mesh) -> Callable[[torch.Tensor], Any]:
     return lambda x: [x.to(d, copy=True) for d in mesh.devices]
 
 
-def _sharded(x, tp: int, min_elements: int) -> bool:
+def column_shardable(x, tp: int, min_elements: int) -> bool:
+    """``state_sharding``'s rule for one leaf on a model axis of ``tp``
+    positions (module docstring there)."""
     return (isinstance(x, torch.Tensor) and x.dim() >= 2
             and x.numel() >= min_elements and x.shape[0] % tp == 0)
 
@@ -263,7 +265,7 @@ def state_sharding(mesh: Mesh, tree, model_axis: str = "model",
             return {k: rule(v) for k, v in x.items()}
         if isinstance(x, (list, tuple)):
             return type(x)(rule(v) for v in x)
-        if tp > 1 and _sharded(x, tp, min_elements):
+        if tp > 1 and column_shardable(x, tp, min_elements):
             return (model_axis,) + (None,) * (x.dim() - 1)
         return ()
 

@@ -282,6 +282,23 @@ def sample_step_draws(config: Config, model: YoloV1, batch: int, seed: int,
     return out
 
 
+def stage_chunk(config: Config, model: YoloV1, chunk: Sequence[np.ndarray],
+                seed: int, step: int, device
+                ) -> Tuple[torch.Tensor, List[List[StepDraws]]]:
+    """A chunk of ``steps_per_dispatch`` steps on ``device`` in one copy
+    (``stage``): the steps' batch row indices (``chunk``, one array a
+    step) as a ``(K, batch)`` tensor, and each step's draws, the
+    ``sample_step_draws`` of steps ``step`` ... ``step + K - 1`` (those the
+    steps would draw themselves)."""
+    draws = [sample_step_draws(config, model, len(chunk[0]), seed, step + i)
+             for i in range(len(chunk))]
+    staged = iter(stage([torch.from_numpy(np.stack(chunk))]
+                        + [t for s in draws for x in s for t in x.tensors()],
+                        device))
+    idx_rows = next(staged)
+    return idx_rows, [[x.replaced(staged) for x in s] for s in draws]
+
+
 def multiscale_grid(config: Config, size: int) -> int:
     """The target grid S of a multiscale training resolution ``size``: the
     conv head's true output grid there (its stride ``max(feat // grid,
@@ -854,17 +871,10 @@ class Trainer:
         rows = list(dev_train.epoch_indices())
         k = len(rows) if spd == -1 else spd
         for c in range(0, len(rows), max(k, 1)):
-            chunk = rows[c:c + k]
             # read state.step here: the previous chunk's steps have run
-            draws = [sample_step_draws(self.config, state.model,
-                                       dev_train.batch_size, seed,
-                                       state.step + i)
-                     for i in range(len(chunk))]
-            staged = iter(stage([torch.from_numpy(np.stack(chunk))]
-                                + [t for step in draws for x in step
-                                   for t in x.tensors()], self.device))
-            idx_rows = next(staged)
-            draws = [[x.replaced(staged) for x in step] for step in draws]
+            idx_rows, draws = stage_chunk(self.config, state.model,
+                                          rows[c:c + k], seed, state.step,
+                                          self.device)
             for idx, step_draws in zip(idx_rows, draws):
                 yield (*dev_train.gather(idx), step_draws)
 

@@ -14,7 +14,14 @@
   kernels, copies and sets (``cat`` ``kernel``, ``gpu_memcpy``,
   ``gpu_memset``), one lane a stream; the JAX package's trace layout (a
   device process, its "XLA Ops" lane) is read as JAX reads it, so the same
-  events give the same numbers.
+  events give the same numbers;
+- ``port_kernel`` / ``traced_port_kernels`` / ``port_kernel_launches``:
+  the port's hand-written kernels (K1–K5) in a trace, by kernel name, and
+  in their wrappers' launch counters;
+- ``checked_trace`` / ``device_busy_ms`` / ``trace_contents``: a trace
+  retaken where its port kernels differ from the counters, its busiest
+  device lane's time, and its device events beside the host's launches;
+- ``call_latency``: serial and pipelined host time of a call.
 
 ``tools/torch_trace_summary.py`` attributes the device time of a trace to
 the CPU ops that launched it; this module keeps JAX's interface.
@@ -176,6 +183,123 @@ def kernel_category(name: str) -> str:
     head = name.strip().replace("(anonymous namespace)::", "")
     head = re.split(r"[<(]", head.removeprefix("void "), maxsplit=1)[0]
     return head.split("::")[-1].strip() or "other"
+
+
+# the port's hand-written kernels: each wrapper's launch counter
+PORT_KERNELS = {"nms": ("cuda_nms", "LAUNCHES"),
+                "bn_stats": ("bn", "STATS_LAUNCHES"),
+                "bn_grad_stats": ("bn", "GRAD_STATS_LAUNCHES"),
+                "yolo_loss_forward": ("yolo_loss", "FORWARD_LAUNCHES"),
+                "yolo_loss_backward": ("yolo_loss", "BACKWARD_LAUNCHES")}
+
+
+def port_kernel(name: str) -> Optional[str]:
+    """The port's kernel (a key of ``PORT_KERNELS``) that a GPU event of
+    this name is, or None: ``ops/csrc/nms.cu``'s ``nms_kernel`` (K1),
+    ``bn_stats.cu``'s ``bn_stats_kernel`` with ``GRAD`` false (K2) or true
+    (K3), ``yolo_loss.cu``'s ``loss_forward_kernel`` (K4) and
+    ``loss_backward_kernel`` (K5)."""
+    cat = kernel_category(name)
+    if cat == "bn_stats_kernel":
+        return "bn_grad_stats" if ", true," in name else "bn_stats"
+    return {"nms_kernel": "nms", "loss_forward_kernel": "yolo_loss_forward",
+            "loss_backward_kernel": "yolo_loss_backward"}.get(cat)
+
+
+def port_kernel_launches() -> Dict[str, int]:
+    """The launch counters of the port's kernel wrappers (each adds one
+    where it launches its kernel), by ``PORT_KERNELS`` name."""
+    import importlib
+
+    return {k: getattr(importlib.import_module(
+        f"keras_object_detection_torch.ops.{module}"), attr)
+        for k, (module, attr) in PORT_KERNELS.items()}
+
+
+def traced_port_kernels(events: List[dict]) -> Dict[str, int]:
+    """How many GPU events of each of the port's kernels a trace holds."""
+    out = dict.fromkeys(PORT_KERNELS, 0)
+    for e, _ in _device_events(events):
+        kind = port_kernel(str(e.get("name", "")))
+        if kind is not None:
+            out[kind] += 1
+    return out
+
+
+def checked_trace(run, calls: int, tries: int = 3
+                  ) -> Tuple[List[dict], Dict, Dict, int]:
+    """``(events, port kernels traced, port kernels counted, traces
+    taken)`` of a ``trace`` of ``calls`` calls of ``run``. Where the
+    trace's port kernels differ from their wrappers' launch counters over
+    the same calls (the profiler lost device events) the trace is taken
+    again, up to ``tries`` times; the caller reads ``traced != counted``
+    as a failed trace."""
+    import tempfile
+
+    for attempt in range(1, tries + 1):
+        before = port_kernel_launches()
+        with tempfile.TemporaryDirectory() as td:
+            with trace(td):
+                for _ in range(calls):
+                    run()
+            events = traced_events(td)
+        counted = {k: v - before[k] for k, v in port_kernel_launches().items()}
+        seen = traced_port_kernels(events)
+        if seen == counted:
+            break
+    return events, seen, counted, attempt
+
+
+def trace_contents(events: List[dict]) -> Dict[str, int]:
+    """What a trace holds of the device: its device events (``_device_events``)
+    and the host's kernel launch records (the CUDA runtime's ``*Launch*``
+    calls), so that a trace whose device events were lost shows the
+    launches that it should have."""
+    launches = sum(1 for e in events if e.get("ph") == "X"
+                   and e.get("cat") == "cuda_runtime"
+                   and "Launch" in str(e.get("name", "")))
+    return {"device_events": sum(1 for _ in _device_events(events)),
+            "launch_records": launches}
+
+
+def call_latency(run, sync, runs: int, pipeline_k: int = 0
+                 ) -> Dict[str, float]:
+    """Host milliseconds of calls of ``run``: one warm-up call, then
+    ``runs`` calls each ended by ``sync()`` (``p50_ms`` / ``min_ms`` /
+    ``mean_ms``) and, with ``pipeline_k``, that many calls issued back to
+    back and one ``sync()`` (``pipelined_per_call_ms``)."""
+    run()
+    sync()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        run()
+        sync()
+        times.append((time.perf_counter() - t0) * 1000)
+    times.sort()
+    out = {"p50_ms": times[len(times) // 2], "min_ms": times[0],
+           "mean_ms": sum(times) / len(times)}
+    if pipeline_k:
+        t0 = time.perf_counter()
+        for _ in range(pipeline_k):
+            run()
+        sync()
+        out["pipelined_per_call_ms"] = (
+            (time.perf_counter() - t0) * 1000 / pipeline_k)
+    return out
+
+
+def device_busy_ms(events: List[dict]) -> Tuple[Optional[float], str]:
+    """``(ms, note)``: the busiest device lane's summed event time (a GPU
+    stream's kernels, copies and sets run one after another on it, so the
+    sum is its busy time), or None where the trace has no device lane."""
+    lanes = device_lane_ms(events)
+    if not lanes:
+        return None, "no device lane events in trace"
+    key = max(lanes, key=lanes.get)
+    return lanes[key], (f"device lane {key!r}; all lanes ms: "
+                        + json.dumps(dict(sorted(lanes.items(),
+                                                 key=lambda kv: -kv[1])[:6])))
 
 
 def op_category(name: str) -> str:

@@ -12,8 +12,8 @@ serves int8 (dynamic, calibrated, bias-corrected, QAT, weight-only, on the
 FPN plan too) and picks a serving model, exports and reloads a
 ``torch.export`` program, writes and parses a profiler trace, draws a
 tagged image, imports the tensor-parallel placement and the dry run,
-summarises a learning run's log, and the nine command lines answer
-``--help``;
+summarises a learning run's log, and the twelve command lines (the
+three measurement tools among them) answer ``--help``;
 h5py is never imported (only reading a Keras file needs it)."""
 
 import pathlib
@@ -222,7 +222,8 @@ with tempfile.TemporaryDirectory() as tmp:
 import contextlib, importlib, io, json
 for cli in ("train", "evaluate", "kmeans_anchors", "serving_map", "export",
             "ptq_delta", "run_synth_benchmark", "darknet_weights",
-            "visualize_dataset"):
+            "visualize_dataset", "train_step_breakdown",
+            "serving_device_time", "tp_comm_analysis"):
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         try:

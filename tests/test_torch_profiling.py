@@ -70,6 +70,14 @@ def test_torch_trace_breakdown():
     counts = {op["name"]: op["count"] for op in bd["top_ops"]}
     assert counts[events[2]["name"]] == 2 and counts[events[4]["name"]] == 1
     assert len(prof.op_breakdown(events, top_k=2)["top_ops"]) == 2
+    # the port's kernels by name: K2 and K3 by bn_stats_kernel's GRAD
+    assert prof.traced_port_kernels(events) == {
+        "nms": 0, "bn_stats": 2, "bn_grad_stats": 1, "yolo_loss_forward": 1,
+        "yolo_loss_backward": 0}
+    assert prof.port_kernel("void nms_kernel<32, true>(float const*)") == "nms"
+    assert prof.port_kernel("void loss_backward_kernel<2>(float const*)") == (
+        "yolo_loss_backward")
+    assert prof.port_kernel("sm90_xmma_fprop_bf16") is None
 
 
 def test_live_cpu_trace(tmp_path):
@@ -97,3 +105,59 @@ def test_device_memory_stats_and_step_timer():
         mine.tick(torch.tensor(1.0))
     s = mine.summary()
     assert s["steps"] == 6 and s["p50_ms"] > 0 and s["images_per_s"] > 0
+
+
+def test_checked_trace_retakes_a_trace_that_lost_the_kernels(monkeypatch):
+    calls = []
+
+    def run():
+        calls.append(1)
+        torch.ones(4).sum().item()
+
+    # on the CPU no kernel runs and none is traced: one trace
+    events, seen, counted, tries = prof.checked_trace(run, 2)
+    assert tries == 1 and len(calls) == 2
+    assert seen == counted == dict.fromkeys(prof.PORT_KERNELS, 0)
+    assert any(e.get("name") == "aten::sum" for e in events)
+    # a trace whose kernels differ from the counters is taken again, up to
+    # three times, and the difference is returned
+    lost = dict.fromkeys(prof.PORT_KERNELS, 0)
+    lost["nms"] = 1
+    monkeypatch.setattr(prof, "traced_port_kernels", lambda events: lost)
+    calls.clear()
+    _, seen, counted, tries = prof.checked_trace(run, 2)
+    assert tries == 3 and len(calls) == 6 and seen != counted
+
+
+def test_device_busy_ms_is_the_busiest_lane():
+    busy, note = prof.device_busy_ms(torch_events())
+    assert busy == pytest.approx(0.095)
+    assert note.startswith("device lane '0/stream 7'")
+    assert prof.device_busy_ms(torch_events()[:2]) == (
+        None, "no device lane events in trace")
+
+
+@pytest.mark.parametrize("pipeline_k", [0, 3])
+def test_call_latency_counts_its_calls(pipeline_k):
+    log = []
+    got = prof.call_latency(lambda: log.append("run"),
+                            lambda: log.append("sync"), 4, pipeline_k)
+    # a warm-up call and its sync, 4 synchronised calls, then the
+    # pipelined calls and one sync
+    want = ["run", "sync"] * 5 + (["run"] * pipeline_k + ["sync"]
+                                  if pipeline_k else [])
+    assert log == want
+    assert set(got) == {"p50_ms", "min_ms", "mean_ms"} | (
+        {"pipelined_per_call_ms"} if pipeline_k else set())
+    assert 0 <= got["min_ms"] <= got["p50_ms"]
+
+
+def test_trace_contents_counts_device_events_and_launches():
+    launch = {"ph": "X", "cat": "cuda_runtime", "pid": 4242, "tid": 1,
+              "name": "cudaLaunchKernelExC", "dur": 3.0, "ts": 0}
+    sync = dict(launch, name="cudaDeviceSynchronize")
+    assert prof.trace_contents(torch_events() + [launch, sync]) == {
+        "device_events": 5, "launch_records": 1}
+    # a trace that lost its device events keeps the host's launches
+    assert prof.trace_contents(torch_events()[:2] + [launch] * 8) == {
+        "device_events": 0, "launch_records": 8}
