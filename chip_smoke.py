@@ -266,19 +266,36 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
              steps: op_breakdown's K2/K3/K4/K5 counts equal to the launch
              counters (50/50/2/2); (f) parallel/dryrun.py over 4 ranks (the
              flagship on (2, 2)); one JSON line "tensor_parallel".
-19. measure - the port's three measurement tools (cli/, files under
-             build/measure/): (a) train_step_breakdown of the flagship's
-             kernel path at batch 64 with --scan 4 and of YOLOv3 (fused
-             BatchNorm) at batch 32: the port's kernels a step by kernel
-             name in the trace and in the counters, flagship K2/K3 25 and
-             K4/K5 1 (the bare step and the chunk), YOLOv3 K2/K3 72 and
-             K4/K5 0, device time at most the wall p50; (b)
-             serving_device_time of random flagship weights at batch 1 and
-             32, K1's launches counted, and K1 alone on the tool's 32x512
-             boxes bit-equal to the plain NMS and timed as a CUDA graph
-             (the profiler may lose every device event of a trace of K1
-             alone late in the process: 10 traces taken once each count
-             the lost ones here, as phase nms counts them early); (c)
+19. surface - the public names the JAX package has beside the batched
+             paths: YoloV1Loss() on the card at the flagship's (64, 7, 7, 30)
+             grids, both noobj modes, against K4's total (1e-6 relative, as
+             phase 5) and the CPU's (SURFACE_LOSS_RTOL), launching no
+             kernel of the port; one image of 32x512 rows through soft
+             (gaussian, linear) and fast NMS bit-equal to that row of the
+             batched twins, and through K1 (auto_batched_non_max_suppression
+             on boxes[None], exactly one launch) bit-equal to the plain
+             one-image non_max_suppression; one JSON line "surface".
+20. measure - the port's three measurement tools (cli/, files under
+             build/measure/); the two that read traces run as child
+             processes through their `python -m` entry points, as a user
+             runs them (young processes: the profiler drops a trace's
+             device events the more often the older its process, PERF.md
+             §6 "fault 3.5"), each reporting its run's launches
+             (port_kernel_launches): (a) train_step_breakdown of the
+             flagship's kernel path at batch 64 with --scan 4 and of
+             YOLOv3 (fused BatchNorm) at batch 32: the port's kernels a
+             step by kernel name in the trace and in the counters,
+             flagship K2/K3 25 and K4/K5 1 (the bare step and the chunk),
+             YOLOv3 K2/K3 72 and K4/K5 0, device time at most the wall
+             p50; (b) serving_device_time of random flagship weights at
+             batch 1 and 32 and K1 alone at the tool's 32x512 boxes: every
+             row's trace device time (none null), K1's launches counted;
+             K1 alone bit-equal to the plain NMS and timed as a CUDA graph
+             in this process; 10 traces of 8 K1 calls on those boxes,
+             each taken once, first thing in a young child (`python -m
+             chip_smoke --trace-loss OUT`): none may lose its device
+             events, and none may keep fewer than K1's 8 (a trace cut
+             short fails the phase as a lost one does); (c)
              tp_comm_analysis of the
              flagship (JAX's config) over dp8 and dp4 x tp2, 8 gloo ranks
              on the card: every rank of a data row issues the same
@@ -288,8 +305,8 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
              one JSON line "measure".
 
 Then one JSON line describing each kernel (K1's launches add the hard-mode
-serving of phase 14, the int8 serving of phase 15 and phase 19's serving
-to phase 4's; launches_measure is phase 19's), one line
+serving of phase 14, the int8 serving of phase 15 and phase 20's serving
+to phase 4's; launches_measure is phase 20's), one line
 with the card's name and power limit from nvidia-smi, and as the last line
 {"ok": true, "device": {...}}. Float32 results are compared with TF32 off
 (torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32).
@@ -582,27 +599,23 @@ def node_floor_ms() -> float:
 
 
 def trace_loss(boxes: torch.Tensor, traces: int) -> dict:
-    """``traces`` back-to-back ``profiling`` traces of 8 K1 calls on
+    """``traces`` back-to-back ``profiling.trace``s of 8 K1 calls on
     ``boxes``, each taken once: how many held no device event at all
-    (lost), how many held some but not K1's 8 (partial), and the host's
-    launch records in the lost ones (their launches were made)."""
+    (lost), and how many held some but not K1's 8 (partial)."""
     from keras_object_detection_torch.ops import cuda_nms
     from keras_object_detection_torch.utils import profiling
 
     def run():
         cuda_nms.cuda_batched_non_max_suppression(boxes, 0.5, 0.25)
 
-    lost, partial, launches = 0, 0, []
+    lost = partial = 0
     for _ in range(traces):
         events, seen, counted, _ = profiling.checked_trace(run, 8, tries=1)
-        held = profiling.trace_contents(events)
-        if held["device_events"] == 0:
+        if profiling.trace_contents(events)["device_events"] == 0:
             lost += 1
-            launches.append(held["launch_records"])
         elif seen != counted:
             partial += 1
-    return {"traces": traces, "lost": lost, "partial": partial,
-            "launch_records_of_lost": launches}
+    return {"traces": traces, "lost": lost, "partial": partial}
 
 
 def phase_nms(dev, parent: str = "") -> dict:
@@ -684,8 +697,9 @@ def phase_nms(dev, parent: str = "") -> dict:
             f"{p_ms:.3f} ms, bound {bound:.3e} ms ({bound_by}; {bound_n2:.3e} "
             f"counting N^2 rank compares)")
     losses["after_graphs"] = trace_loss(boxes, TRACE_LOSS_TRACES)
-    log(f"[nms] traces of 8 K1 calls at 32x512 that held no device event "
-        f"(each taken once): {json.dumps(losses)}")
+    log(f"[nms] traces of 8 K1 calls at 32x512, each taken once, that held "
+        f"no device event (lost) or not K1's 8 (partial): "
+        f"{json.dumps(losses)}")
     return {"max_abs_err": max_err, "timing": timing, "floor_ms": floor,
             "calls": calls, "trace_loss": losses}
 
@@ -5047,6 +5061,86 @@ def phase_tensor_parallel(dev) -> dict:
     return out
 
 
+SURFACE_IMAGE = 7  # the image of phase surface's 32 x 512 rows held alone
+SURFACE_LOSS_RTOL = 1e-5  # YoloV1Loss, card against CPU: sums in other orders
+
+
+def phase_surface(dev) -> dict:
+    """The public names the JAX package has beside the batched paths
+    (module docstring, phase 19): ``YoloV1Loss`` on the card against K4's
+    total and the CPU; one image's soft, fast and hard NMS against the
+    batched twins, K1 and the plain NMS."""
+    from keras_object_detection_torch import ops
+    from keras_object_detection_torch.losses import YoloV1Loss
+    from keras_object_detection_torch.ops import nms as plain_nms
+    from keras_object_detection_torch.ops.yolo_loss import fused_yolo_v1_loss
+    from keras_object_detection_torch.utils.profiling import (
+        launches_since, port_kernel_launches)
+
+    t0 = time.perf_counter()
+    out = {"card": card(), "loss": {}}
+    t_np, p_np = loss_rows(11, 64 * 49, 20, 2)
+    t, p = (torch.from_numpy(a).reshape(64, 7, 7, 30) for a in (t_np, p_np))
+    tc, pc = t.to(dev), p.to(dev)
+    for mode in ("selected", "all"):
+        loss = YoloV1Loss(noobj_mode=mode)
+        before = port_kernel_launches()
+        got = loss(tc, pc).item()
+        launched = launches_since(before)
+        k4 = fused_yolo_v1_loss(tc, pc, 20, 2, noobj_mode=mode).item()
+        cpu = loss(t, p).item()
+        row = {"card": got, "k4": k4, "cpu": cpu,
+               "rel_k4": abs(got - k4) / abs(k4),
+               "rel_cpu": abs(got - cpu) / abs(cpu)}
+        out["loss"][mode] = row
+        log(f"[surface] YoloV1Loss(noobj_mode={mode!r}) at (64, 7, 7, 30) on "
+            f"the card {got!r}: K4's total {k4!r} (rel {row['rel_k4']:.3e}), "
+            f"the CPU's {cpu!r} (rel {row['rel_cpu']:.3e}); port kernels "
+            f"launched by it {launched}")
+        if any(launched.values()):
+            raise SystemExit("[surface] YoloV1Loss launched a kernel of the "
+                             f"port: {launched}")
+        if row["rel_k4"] > 1e-6 or row["rel_cpu"] > SURFACE_LOSS_RTOL:
+            raise SystemExit(f"[surface] YoloV1Loss disagrees: {row}")
+
+    x = torch.from_numpy(nms_rows(16, 32, 512)).to(dev)
+    i = SURFACE_IMAGE
+    one = {"soft_gaussian": plain_nms.soft_non_max_suppression(x[i]),
+           "soft_linear": plain_nms.soft_non_max_suppression(
+               x[i], method="linear"),
+           "fast": ops.fast_non_max_suppression(x[i])}
+    batched = {"soft_gaussian": plain_nms.batched_soft_non_max_suppression(x),
+               "soft_linear": plain_nms.batched_soft_non_max_suppression(
+                   x, method="linear"),
+               "fast": ops.batched_fast_non_max_suppression(x)}
+    before = port_kernel_launches()
+    k1 = ops.auto_batched_non_max_suppression(x[i][None])
+    launched = launches_since(before)
+    one["hard"] = ops.non_max_suppression(x[i])
+    out["nms"] = {}
+    for mode, (rows, valid) in one.items():
+        twin = (k1[0][0], k1[1][0]) if mode == "hard" else (
+            batched[mode][0][i], batched[mode][1][i])
+        equal = torch.equal(rows, twin[0]) and torch.equal(valid, twin[1])
+        out["nms"][mode] = {"kept": int(valid.sum()), "bit_equal": equal}
+        log(f"[surface] image {i} of 32x512, {mode}: one image "
+            f"{'==' if equal else '!='} "
+            + ("K1 on boxes[None]" if mode == "hard"
+               else f"row {i} of the batched twin")
+            + f", kept {int(valid.sum())}")
+        if not equal or not valid.any():
+            raise SystemExit(f"[surface] {mode} NMS of one image: "
+                             f"{out['nms'][mode]}")
+    out["launches"] = launched
+    log(f"[surface] port kernels launched by K1's one-image call {launched}")
+    if launched != dict(dict.fromkeys(launched, 0), nms=1):
+        raise SystemExit(f"[surface] expected one K1 launch, got {launched}")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[surface] phase wall {out['wall_s']:.1f} s")
+    print(json.dumps({"surface": out}))
+    return out
+
+
 MEASURE_DIR = os.path.join("build", "measure")
 MEASURE_SERVING = dict(batches=(1, 32), runs=15, pipeline_k=32,
                        trace_calls=8)
@@ -5071,17 +5165,46 @@ def jax_record(name: str) -> dict:
         return json.load(f)
 
 
-def measure_breakdown(tag: str, cfg, want: dict, scan: int = 0) -> dict:
-    """(a) cli/train_step_breakdown.py on ``cfg``: the port's kernels a
-    step in the trace and in the counters equal to ``want`` (the bare step
-    and the --scan chunk), device time at most the wall p50."""
-    from keras_object_detection_torch.cli import train_step_breakdown
+def run_child(argv: list, out: str) -> dict:
+    """``python -m *argv`` in a child process from the repository's root
+    (for a tool: as a user runs it), its output in ``out``'s ``.log``; the
+    JSON it wrote to ``out`` read back. The child is a young process: the
+    profiler loses a trace's device events the more often the longer its
+    process has run (PERF.md §6, fault 3.5), so every trace phase measure
+    reads is taken in one."""
+    log_path = os.path.splitext(out)[0] + ".log"
+    with open(log_path, "w") as f:
+        rc = subprocess.run([sys.executable, "-m", *argv],
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=f, stderr=subprocess.STDOUT,
+                            timeout=900).returncode
+    if rc:
+        with open(log_path) as f:
+            print(f.read()[-4000:], flush=True)
+        raise SystemExit(f"[measure] {argv[0]} exited {rc}")
+    with open(out) as f:
+        return json.load(f)
 
-    argv = ["--checkpoint", measure_config(tag, cfg), "--steps", "4",
-            "--timed-steps", "10",
-            "--out", os.path.join(MEASURE_DIR, f"train_step_{tag}.json")]
-    res = train_step_breakdown.main(argv + (["--scan", str(scan)]
-                                            if scan else []))
+
+def run_tool(module: str, argv: list, out_name: str) -> dict:
+    """The port's measurement tool ``cli/<module>.py`` through its ``python
+    -m`` entry point (``run_child``), its ``--out`` MEASURE_DIR/<out_name>.
+    """
+    out = os.path.abspath(os.path.join(MEASURE_DIR, out_name))
+    return run_child([f"keras_object_detection_torch.cli.{module}", *argv,
+                      "--out", out], out)
+
+
+def measure_breakdown(tag: str, cfg, want: dict, scan: int = 0) -> dict:
+    """(a) cli/train_step_breakdown.py on ``cfg``, in a child process: the
+    port's kernels a step in the trace and in the counters equal to
+    ``want`` (the bare step and the --scan chunk), device time at most the
+    wall p50."""
+    res = run_tool("train_step_breakdown", [
+        "--checkpoint", os.path.abspath(measure_config(tag, cfg)),
+        "--steps", "4", "--timed-steps", "10",
+        *(["--scan", str(scan)] if scan else [])],
+        f"train_step_{tag}.json")
     recs = {"bare": res, **({"scan": res["scan_dispatch"]} if scan else {})}
     for name, rec in recs.items():
         k = rec["port_kernels_per_step"]
@@ -5108,24 +5231,20 @@ def measure_breakdown(tag: str, cfg, want: dict, scan: int = 0) -> dict:
             f"{c} {ms:.3f}" for c, ms in top)
         + (f"; the chunk of {scan} against the bare step's device time "
            f"{res['scan_dispatch']['vs_bare_step_device']:.4f}" if scan
-           else ""))
+           else "") + f"; launches in the run {res['port_kernel_launches']}")
     return res
 
 
 def measure_serving() -> dict:
     """(b) cli/serving_device_time.py on random flagship weights at batch 1
-    and 32, K1's launches counted."""
-    from keras_object_detection_torch.cli import serving_device_time as sdt
-    from keras_object_detection_torch.ops import cuda_nms
-
+    and 32, in a child process: every row's trace holds its device time,
+    K1's launches counted."""
     m = MEASURE_SERVING
-    before = cuda_nms.LAUNCHES
-    res = sdt.main(["--batches", ",".join(map(str, m["batches"])),
-                    "--runs", str(m["runs"]), "--pipeline-k",
-                    str(m["pipeline_k"]), "--trace-calls",
-                    str(m["trace_calls"]), "--out",
-                    os.path.join(MEASURE_DIR, "serving_device_time.json")])
-    launched = cuda_nms.LAUNCHES - before
+    res = run_tool("serving_device_time", [
+        "--batches", ",".join(map(str, m["batches"])), "--runs",
+        str(m["runs"]), "--pipeline-k", str(m["pipeline_k"]),
+        "--trace-calls", str(m["trace_calls"])], "serving_device_time.json")
+    launched = res["port_kernel_launches"]["nms"]
     # a predict call launches K1 once: per batch a warm-up, the runs, the
     # pipelined calls, the traced calls of each trace taken and the FLOP
     # count; the NMS alone the same but the FLOP count
@@ -5133,12 +5252,7 @@ def measure_serving() -> dict:
     want = sum(1 + m["runs"] + m["pipeline_k"]
                + m["trace_calls"] * row["traces"] for row in rows) + len(
         res["fused_serving"])
-    # in a long process the profiler has lost every K1 event of the
-    # standalone calls' traces (K1 alone, no torch kernel about it);
-    # measure_k1_alone times K1 on those boxes as a CUDA graph instead
-    nms = res["pallas_nms"]
-    if any(row["trace_device_ms"] is None for row in res["fused_serving"]) \
-            or (nms["trace_device_ms"] is None and nms["traces"] < 3):
+    if any(row["trace_device_ms"] is None for row in rows):
         raise SystemExit("[measure] (b) a trace holds no device time: "
                          + "; ".join(row["trace_note"] for row in rows))
     jax_rec = jax_record("serving_device_time.json")
@@ -5153,16 +5267,16 @@ def measure_serving() -> dict:
         if not 0 < row["trace_device_ms"] <= row["serial_p50_ms"]:
             raise SystemExit(f"[measure] (b) batch {row['batch']}: trace "
                              f"device {row['trace_device_ms']} ms")
+    nms = res["pallas_nms"]
     log(f"[measure] (b) K1 alone at 32x512: serial p50 "
         f"{nms['serial_p50_ms']:.4f} ms, pipelined "
         f"{nms['pipelined_per_call_ms']:.4f}, trace device "
-        f"{nms['trace_device_ms']} ms a call ({nms['traces']} trace(s): "
-        f"{nms['trace_note']}); K1 launches in the run "
-        f"{launched} (expected {want})")
+        f"{nms['trace_device_ms']:.5f} ms a call ({nms['traces']} trace(s): "
+        f"{nms['trace_note']}); launches in the run "
+        f"{res['port_kernel_launches']} (K1 expected {want})")
     if launched != want:
         raise SystemExit(f"[measure] (b) K1 launched {launched} times, "
                          f"expected {want}")
-    res["k1_launches"] = launched
     return res
 
 
@@ -5233,18 +5347,33 @@ def measure_collectives() -> dict:
     return doc
 
 
+def trace_loss_child(out: str) -> int:
+    """``python -m chip_smoke --trace-loss OUT``, phase measure's child:
+    first thing in a young process, ``trace_loss`` on
+    ``serving_device_time.draw_inputs``' 32 x 512 boxes (the tool's K1
+    alone), written to OUT with the process's age."""
+    from keras_object_detection_torch.cli.serving_device_time import \
+        draw_inputs
+
+    boxes = torch.from_numpy(draw_inputs(MEASURE_SERVING["batches"], 448,
+                                         20)[1]).to("cuda")
+    res = trace_loss(boxes, TRACE_LOSS_TRACES)
+    res["process_s"] = time.perf_counter() - START
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
 def phase_measure(dev) -> dict:
-    """The port's three measurement tools (module docstring, phase 19)."""
+    """The port's three measurement tools (module docstring, phase 20)."""
+    from keras_object_detection_torch.utils.profiling import PORT_KERNELS
+
     t0 = time.perf_counter()
     shutil.rmtree(MEASURE_DIR, ignore_errors=True)
     os.makedirs(MEASURE_DIR, exist_ok=True)
     out = {"card": card()}
-    from keras_object_detection_torch.ops import cuda_nms
-    from keras_object_detection_torch.utils.profiling import \
-        port_kernel_launches
-
-    reset_kernel_counts()  # the main path: counts at 0 just before
-    cuda_nms.LAUNCHES = 0
+    # the main path: each tool's child process counts from 0 and reports
+    # its run's launches (port_kernel_launches)
     out["flagship"] = measure_breakdown(
         "flagship", train_config(True), dict(FLAGSHIP_BN_LAUNCHES, nms=0),
         scan=4)
@@ -5252,17 +5381,20 @@ def phase_measure(dev) -> dict:
         "yolov3", yolov3_config(True),
         {"nms": 0, "bn_stats": 72, "bn_grad_stats": 72,
          "yolo_loss_forward": 0, "yolo_loss_backward": 0})
-    torch.cuda.empty_cache()
     out["serving"] = measure_serving()
-    out["launches"] = port_kernel_launches()  # ... read just after
+    out["launches"] = {k: sum(out[t]["port_kernel_launches"][k] for t in (
+        "flagship", "yolov3", "serving")) for k in PORT_KERNELS}
     out["serving"]["k1_alone"] = measure_k1_alone(dev)
-    from keras_object_detection_torch.cli.serving_device_time import \
-        draw_inputs
-    out["serving"]["trace_loss"] = trace_loss(torch.from_numpy(draw_inputs(
-        MEASURE_SERVING["batches"], 448, 20)[1]).to(dev), TRACE_LOSS_TRACES)
-    log(f"[measure] (b) traces of 8 K1 calls at 32x512 that held no device "
-        f"event (each taken once), {time.perf_counter() - START:.0f} s into "
-        f"the script: {json.dumps(out['serving']['trace_loss'])}")
+    path = os.path.abspath(os.path.join(MEASURE_DIR, "trace_loss.json"))
+    loss = run_child(["chip_smoke", "--trace-loss", path], path)
+    out["serving"]["trace_loss"] = loss
+    log(f"[measure] (b) 10 traces of 8 K1 calls at 32x512, each taken once, "
+        f"in a child process {loss['process_s']:.1f} s old: "
+        f"{json.dumps(loss)}")
+    if loss["lost"] or loss["partial"]:
+        raise SystemExit(f"[measure] (b) of {loss['traces']} traces, "
+                         f"{loss['lost']} held no device event and "
+                         f"{loss['partial']} not K1's 8")
     torch.cuda.empty_cache()
     out["collectives"] = measure_collectives()
     out["wall_s"] = time.perf_counter() - t0
@@ -5286,6 +5418,8 @@ def main() -> int:
                         help=argparse.SUPPRESS)  # a rank of phase parallel
     parser.add_argument("--tp-rank", default="",
                         help=argparse.SUPPRESS)  # of phase tensor_parallel
+    parser.add_argument("--trace-loss", default="",
+                        help=argparse.SUPPRESS)  # phase measure's child
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5297,6 +5431,8 @@ def main() -> int:
         return parallel_rank(args.parallel_rank)
     if args.tp_rank:
         return tp_rank(args.tp_rank)
+    if args.trace_loss:
+        return trace_loss_child(args.trace_loss)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5323,6 +5459,7 @@ def main() -> int:
     phase_launches(loss, nms, bn)
     parallel = phase_parallel(dev)
     tp = phase_tensor_parallel(dev)
+    phase_surface(dev)
     measure = phase_measure(dev)
     counts = train["kernels"]["counts"]
     no_library = ("no single PyTorch call computes this function")

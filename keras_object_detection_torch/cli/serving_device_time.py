@@ -21,7 +21,9 @@ u8 images:
 
 Each row adds ``traces``: how many traces ``checked_trace`` took (the
 profiler now and then loses every device event of a trace while it keeps
-the host's launch records).
+the host's launch records, more often the longer the process has run).
+The record adds ``port_kernel_launches``: each of the port's hand-written
+kernels' launches over the whole run, from the wrappers' counters.
 ``cost_analysis_gflops`` (JAX: XLA's cost analysis of the program) is
 ``torch.utils.flop_counter.FlopCounterMode`` over one call: it counts the
 FLOPs of convolutions and matrix products only. ``pallas_nms`` (JAX's key,
@@ -216,12 +218,16 @@ def main(argv=None) -> dict:
 
     from keras_object_detection_torch.cli.train_step_breakdown import write
     from keras_object_detection_torch.train.loop import _device
+    from keras_object_detection_torch.utils.profiling import (
+        launches_since, port_kernel_launches)
 
     device = _device(args.device, "serving")
     cfg, model, src = load_model(args.checkpoint, device)
+    before = port_kernel_launches()
     results = measure(cfg, model, src,
                       [int(x) for x in args.batches.split(",")], args.runs,
                       args.pipeline_k, args.trace_calls)
+    results["port_kernel_launches"] = launches_since(before)
     write(results, args.out)
     return results
 

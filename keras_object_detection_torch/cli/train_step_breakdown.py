@@ -14,9 +14,10 @@ reported beside the bare step as JAX reports its ``lax.scan`` program.
 
 Inputs are JAX's: ``RandomState(0)`` u8 images, two fixed boxes an image,
 weights drawn from seed 0, the step's draws from seed 1. The JSON keeps
-JAX's keys, plus ``trace_note`` and ``port_kernels_per_step`` (each of the
+JAX's keys, plus ``trace_note``, ``port_kernels_per_step`` (each of the
 port's hand-written kernels a step, from the trace and from the wrappers'
-launch counters). Where the trace has no GPU lane (on the CPU), or its
+launch counters) and ``port_kernel_launches`` (each one's launches over
+the whole run, from the counters). Where the trace has no GPU lane (on the CPU), or its
 port kernels still differ from the counters after three traces (the
 profiler lost device events), the device fields are null and
 ``trace_note`` says why. A category is a kernel's function name only: a
@@ -281,11 +282,15 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
 
     from keras_object_detection_torch.train.loop import _device
+    from keras_object_detection_torch.utils.profiling import (
+        launches_since, port_kernel_launches)
 
     device = _device(args.device, "the breakdown")
     cfg, src = load_config(args.checkpoint, args.preset, args.batch)
+    before = port_kernel_launches()
     result = measure(cfg, src, device, args.steps, args.timed_steps,
                      args.scan)
+    result["port_kernel_launches"] = launches_since(before)
     print(json.dumps({k: result[k] for k in (
         "wall_p50_ms", "device_ms_per_step", "images_per_s_device",
         "categories_ms_per_step", "scan_dispatch") if k in result},

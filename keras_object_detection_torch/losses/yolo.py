@@ -1,6 +1,7 @@
 """The four-term YOLOv1 loss in torch autograd (counterpart of
 ``keras_object_detection_tpu/losses/yolo.py`` ``yolo_v1_loss_terms``), the
-plain default path of the train step (``TrainConfig.use_pallas_loss=False``).
+plain default path of the train step (``TrainConfig.use_pallas_loss=False``),
+with its scalar ``yolo_v1_loss`` and the callable ``YoloV1Loss``.
 
 The reference's quirks are kept: the responsible slot is the argmax of the
 quirk IoU against the truth (ties to slot 0), the wh term is
@@ -158,3 +159,41 @@ def yolo_v1_loss_terms(
     return {"box_loss": box_loss, "object_loss": object_loss,
             "no_object_loss": no_object_loss, "class_loss": class_loss,
             "total": total}
+
+
+def yolo_v1_loss(
+    y_true: torch.Tensor,
+    y_pred: torch.Tensor,
+    num_classes: int,
+    num_boxes: int = 2,
+    lambda_coord: float = 5.0,
+    lambda_noobj: float = 0.5,
+    noobj_mode: str = "selected",
+) -> torch.Tensor:
+    """The scalar YOLOv1 loss: ``yolo_v1_loss_terms(...)["total"]``
+    (counterpart of JAX's ``yolo_v1_loss``)."""
+    return yolo_v1_loss_terms(
+        y_true, y_pred, num_classes, num_boxes, lambda_coord, lambda_noobj,
+        noobj_mode)["total"]
+
+
+class YoloV1Loss:
+    """The loss bound to its settings, the reference's class surface:
+    ``loss = YoloV1Loss(num_classes=3); loss(y_true, y_pred)``. A plain
+    callable over ``yolo_v1_loss`` (counterpart of JAX's ``YoloV1Loss``),
+    with no parameters and no kernel switch."""
+
+    def __init__(self, num_classes: int = 20, num_boxes: int = 2,
+                 lambda_coord: float = 5.0, lambda_noobj: float = 0.5,
+                 noobj_mode: str = "selected"):
+        self.num_classes = num_classes
+        self.num_boxes = num_boxes
+        self.lambda_coord = lambda_coord
+        self.lambda_noobj = lambda_noobj
+        self.noobj_mode = noobj_mode
+
+    def __call__(self, y_true: torch.Tensor,
+                 y_pred: torch.Tensor) -> torch.Tensor:
+        return yolo_v1_loss(y_true, y_pred, self.num_classes, self.num_boxes,
+                            self.lambda_coord, self.lambda_noobj,
+                            self.noobj_mode)

@@ -2,7 +2,9 @@
 ``keras_object_detection_tpu/ops/nms.py`` ``non_max_suppression``,
 ``batched_non_max_suppression`` and ``top_k_candidates``), and the opt-in
 serving variants soft NMS and fast NMS (``batched_soft_non_max_suppression``
-and ``batched_fast_non_max_suppression``, ``EvalConfig.nms_mode``).
+and ``batched_fast_non_max_suppression``, ``EvalConfig.nms_mode``; one
+image's ``soft_non_max_suppression`` and ``fast_non_max_suppression`` are
+row 0 of the batched ones).
 
 This is the reference the CUDA kernel (``ops/cuda_nms.py``) is held to, and
 what the serving path runs on a CPU tensor. Semantics:
@@ -135,6 +137,20 @@ def batched_soft_non_max_suppression(
     return torch.where(valid[..., None], out, 0.0), valid
 
 
+def soft_non_max_suppression(
+    boxes: torch.Tensor,
+    iou_threshold: float = 0.5,
+    conf_threshold: float = 0.4,
+    sigma: float = 0.5,
+    method: str = "gaussian",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Soft NMS of one image: ``(N, 6) -> ((N, 6), (N,) bool)``, rows in
+    selection order carrying their decayed confidences."""
+    out, valid = batched_soft_non_max_suppression(
+        boxes[None], iou_threshold, conf_threshold, sigma, method)
+    return out[0], valid[0]
+
+
 def batched_fast_non_max_suppression(
     boxes: torch.Tensor,
     iou_threshold: float = 0.5,
@@ -158,3 +174,15 @@ def batched_fast_non_max_suppression(
     keep = alive & ~suppressed_by.any(dim=1)
     compact = torch.sort((~keep).to(torch.uint8), dim=-1, stable=True).indices
     return _gather_rows(sb, compact), torch.gather(keep, 1, compact)
+
+
+def fast_non_max_suppression(
+    boxes: torch.Tensor,
+    iou_threshold: float = 0.5,
+    conf_threshold: float = 0.4,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fast NMS of one image: ``(N, 6) -> ((N, 6), (N,) bool)``, with
+    ``non_max_suppression``'s I/O."""
+    out, valid = batched_fast_non_max_suppression(boxes[None], iou_threshold,
+                                                  conf_threshold)
+    return out[0], valid[0]

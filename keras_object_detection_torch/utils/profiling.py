@@ -2,8 +2,8 @@
 ``keras_object_detection_tpu/utils/profiling.py``):
 
 - ``trace(logdir)``: a ``torch.profiler`` trace of everything inside the
-  context (CPU and, where there is a GPU, CUDA activities), written as a
-  Chrome trace into ``logdir``;
+  context (CPU and, where there is a GPU, CUDA activities, with a margin
+  of host time on both sides), written as a Chrome trace into ``logdir``;
 - ``StepTimer``: steady-state step timing, each measured window ended by a
   value readback (a true device synchronisation);
 - ``device_memory_stats()``: ``torch.cuda.memory_stats`` of the current
@@ -15,9 +15,9 @@
   ``gpu_memset``), one lane a stream; the JAX package's trace layout (a
   device process, its "XLA Ops" lane) is read as JAX reads it, so the same
   events give the same numbers;
-- ``port_kernel`` / ``traced_port_kernels`` / ``port_kernel_launches``:
-  the port's hand-written kernels (K1–K5) in a trace, by kernel name, and
-  in their wrappers' launch counters;
+- ``port_kernel`` / ``traced_port_kernels`` / ``port_kernel_launches`` /
+  ``launches_since``: the port's hand-written kernels (K1–K5) in a trace,
+  by kernel name, and in their wrappers' launch counters;
 - ``checked_trace`` / ``device_busy_ms`` / ``trace_contents``: a trace
   retaken where its port kernels differ from the counters, its busiest
   device lane's time, and its device events beside the host's launches;
@@ -43,12 +43,21 @@ import torch
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
+# seconds of host time the capture window opens before the traced work and
+# stays open after it: the profiler keeps only the GPU records whose
+# timestamps, as CUPTI converts them to the host's clock, fall inside the
+# window, and that conversion can be off by a millisecond or more (PERF.md
+# §6, fault 3.5)
+TRACE_MARGIN_S = 0.05
+
+
 @contextlib.contextmanager
 def trace(logdir: str) -> Iterator[None]:
     """Capture a ``torch.profiler`` trace of everything inside the context
     into ``logdir/trace_<pid>.json`` (CUDA activities too where a GPU is
     available). Pending device work is synchronised at both ends, so the
-    trace holds the context's kernels."""
+    trace holds the context's kernels; the window opens ``TRACE_MARGIN_S``
+    before the context's work and closes as long after it."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -57,11 +66,13 @@ def trace(logdir: str) -> Iterator[None]:
         torch.cuda.synchronize()
     os.makedirs(logdir, exist_ok=True)
     with profile(activities=activities) as prof:
+        time.sleep(TRACE_MARGIN_S)
         try:
             yield
         finally:
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
+            time.sleep(TRACE_MARGIN_S)
     prof.export_chrome_trace(os.path.join(logdir, f"trace_{os.getpid()}.json"))
 
 
@@ -216,6 +227,12 @@ def port_kernel_launches() -> Dict[str, int]:
         for k, (module, attr) in PORT_KERNELS.items()}
 
 
+def launches_since(before: Dict[str, int]) -> Dict[str, int]:
+    """The port's kernel launches since ``before`` (a
+    ``port_kernel_launches()`` reading)."""
+    return {k: v - before[k] for k, v in port_kernel_launches().items()}
+
+
 def traced_port_kernels(events: List[dict]) -> Dict[str, int]:
     """How many GPU events of each of the port's kernels a trace holds."""
     out = dict.fromkeys(PORT_KERNELS, 0)
@@ -243,7 +260,7 @@ def checked_trace(run, calls: int, tries: int = 3
                 for _ in range(calls):
                     run()
             events = traced_events(td)
-        counted = {k: v - before[k] for k, v in port_kernel_launches().items()}
+        counted = launches_since(before)
         seen = traced_port_kernels(events)
         if seen == counted:
             break

@@ -23,6 +23,16 @@ from test_torch_data import write_dataset
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads: the suite runs several workers on the same
+    cores, and these small tensors gain nothing from more."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def trained(tmp_path_factory):
     """A one-epoch tiny-preset run on 5 images: (data dir, checkpoint dir,

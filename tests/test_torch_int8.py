@@ -37,6 +37,17 @@ from keras_object_detection_torch.ops import int8_conv
 from test_torch_model import randomized_variables
 from test_torch_serving import near_boundary
 
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads: the suite runs several workers on the same
+    cores, and these small tensors gain nothing from more."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 ANCHORS5 = ((0.14, 0.14), (0.19, 0.2), (0.26, 0.26), (0.35, 0.35),
             (0.41, 0.47))
 ANCHORS6 = ((0.08, 0.1), (0.12, 0.18), (0.2, 0.15), (0.3, 0.4), (0.5, 0.45),

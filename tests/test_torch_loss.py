@@ -3,6 +3,9 @@
 - ``losses.yolo.yolo_v1_loss_terms`` (torch autograd) against
   ``yolo_v1_loss_terms``: values to rtol 1e-6, gradients against
   ``jax.grad`` at generic points, and the executed-reference goldens.
+- ``losses.yolo.yolo_v1_loss`` and ``YoloV1Loss`` (the scalar and the
+  callable over the terms) against JAX's: the same signatures and
+  defaults, values to rtol 1e-6 and gradients against ``jax.grad``.
 - ``ops.yolo_loss.fused_yolo_v1_loss`` on the CPU (the kernels' plain
   versions) against ``pallas_yolo_v1_loss(interpret=True)``: the forward to
   1e-6 and the backward to 1e-6 against ``jax.grad`` of it, which runs
@@ -18,17 +21,22 @@ autograd of the plain loss passes the whole gradient at a clip bound and
 splits a tie in half. ``test_plain_autograd_tie_convention`` pins the last.
 """
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from keras_object_detection_tpu.losses import yolo as jyolo
 from keras_object_detection_tpu.losses.yolo import \
     yolo_v1_loss_terms as jterms
 from keras_object_detection_tpu.ops import pallas_loss
 from keras_object_detection_tpu.ops.pallas_loss import pallas_yolo_v1_loss
-from keras_object_detection_torch.losses.yolo import yolo_v1_loss_terms
+from keras_object_detection_torch.losses.yolo import (YoloV1Loss,
+                                                      yolo_v1_loss,
+                                                      yolo_v1_loss_terms)
 from keras_object_detection_torch.ops import yolo_loss
 from keras_object_detection_torch.ops.yolo_loss import (
     fused_yolo_v1_loss, yolo_v1_loss_backward_plain, yolo_v1_loss_forward_plain)
@@ -101,6 +109,37 @@ def test_plain_gradient_matches_jax_grad(noobj_mode, seed):
     yolo_v1_loss_terms(_t(y_true), p, 3, 2, noobj_mode=noobj_mode)["total"].backward()
     np.testing.assert_allclose(p.grad.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-6)
+
+
+def test_scalar_and_callable_signatures_match_jax():
+    for ours, theirs in ((yolo_v1_loss, jyolo.yolo_v1_loss),
+                         (YoloV1Loss.__init__, jyolo.YoloV1Loss.__init__),
+                         (YoloV1Loss.__call__, jyolo.YoloV1Loss.__call__)):
+        got = [(p.name, p.default)
+               for p in inspect.signature(ours).parameters.values()]
+        want = [(p.name, p.default)
+                for p in inspect.signature(theirs).parameters.values()]
+        assert got == want
+
+
+@pytest.mark.parametrize("noobj_mode", ["selected", "all"])
+@pytest.mark.parametrize("c,b", [(3, 2), (5, 3)])
+def test_scalar_and_callable_match_jax(noobj_mode, c, b):
+    y_true, y_pred = random_case(100 + c * 10 + b, c=c, b=b)
+    jt, jp = jnp.asarray(y_true), jnp.asarray(y_pred)
+    kw = dict(lambda_coord=4.0, lambda_noobj=0.25, noobj_mode=noobj_mode)
+    want = jyolo.yolo_v1_loss(jt, jp, c, b, **kw)
+    want_cls = jyolo.YoloV1Loss(num_classes=c, num_boxes=b, **kw)(jt, jp)
+    want_grad = jax.grad(lambda p: jyolo.YoloV1Loss(
+        num_classes=c, num_boxes=b, **kw)(jt, p))(jp)
+    got = yolo_v1_loss(_t(y_true), _t(y_pred), c, b, **kw)
+    p = _t(y_pred).requires_grad_(True)
+    got_cls = YoloV1Loss(num_classes=c, num_boxes=b, **kw)(_t(y_true), p)
+    got_cls.backward()
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    np.testing.assert_allclose(float(got_cls), float(want_cls), rtol=1e-6)
+    np.testing.assert_allclose(p.grad.numpy(), np.asarray(want_grad),
+                               rtol=1e-5, atol=1e-6)
 
 
 def test_plain_and_fused_match_reference_goldens(goldens):

@@ -126,7 +126,10 @@ def test_train_step_breakdown_record(kernel_run, tmp_path):
     assert json.loads(out.read_text()) == json.loads(json.dumps(got))
     want = jax_record("train_step_breakdown_flagship448.json")
     extras = {"trace_note", "port_kernels_per_step"}
-    assert set(got) == set(want) | extras | {"scan_dispatch"}
+    assert set(got) == set(want) | extras | {"scan_dispatch",
+                                             "port_kernel_launches"}
+    # the plain versions ran: no kernel of the port was launched
+    assert got["port_kernel_launches"] == dict.fromkeys(PORT_KERNELS, 0)
     assert set(got["model"]) == set(want["model"])
     # the JAX tool's scan_dispatch keys (tools/train_step_breakdown.py)
     assert set(got["scan_dispatch"]) == {
@@ -241,7 +244,8 @@ def test_serving_device_time_record(kernel_run, tmp_path):
                     "--device", "cpu", "--out", str(out)])
     assert json.loads(out.read_text()) == json.loads(json.dumps(got))
     want = jax_record("serving_device_time.json")
-    assert set(got) == set(want)
+    assert set(got) == set(want) | {"port_kernel_launches"}
+    assert got["port_kernel_launches"] == dict.fromkeys(PORT_KERNELS, 0)
     assert set(got["model"]) == set(want["model"])
     assert [r["batch"] for r in got["fused_serving"]] == [1, 2]
     for row in got["fused_serving"]:

@@ -3,8 +3,10 @@
 ``device_lane_ms`` / ``op_breakdown`` on ``tests/test_profiling.py``'s
 synthetic device plane, give JAX's numbers exactly; on a torch trace's
 layout (GPU kernels on stream lanes) they sum the kernels by function
-name; a live CPU ``trace`` is written and read back; ``StepTimer`` is
-JAX's."""
+name; a live CPU ``trace`` is written and read back, its window bracketed
+by the margin; ``StepTimer`` is JAX's."""
+
+import time
 
 import pytest
 import torch
@@ -93,6 +95,18 @@ def test_live_cpu_trace(tmp_path):
     assert prof.op_breakdown(events)["total_ms"] == 0.0
     with pytest.raises(RuntimeError, match="no trace"):
         prof.traced_events(str(tmp_path / "empty"))
+
+
+def test_trace_margin_brackets_the_work(tmp_path):
+    """The window opens ``TRACE_MARGIN_S`` before the work and closes as
+    long after it."""
+    t0 = time.perf_counter()
+    with prof.trace(str(tmp_path)):
+        torch.ones(4).sum().item()
+    assert time.perf_counter() - t0 >= 2 * prof.TRACE_MARGIN_S
+    assert "aten::sum" in {e.get("name")
+                           for e in prof.traced_events(str(tmp_path))}
+    assert prof.TRACE_MARGIN_S == 0.05
 
 
 def test_device_memory_stats_and_step_timer():

@@ -1,7 +1,8 @@
 """The port's serving extras against the JAX package on the CPU: soft NMS
-(gaussian and linear) and fast NMS (``ops/nms.py``) on the same rows, the
-``nms_mode`` serving of ``InferenceModel``, the staged latency variant, and
-the TIDE error analysis (``ops/error_analysis.py`` and
+(gaussian and linear) and fast NMS (``ops/nms.py``) on the same rows,
+batched and of one image, the ``nms_mode`` serving of ``InferenceModel``,
+the staged latency variant, and the TIDE error analysis
+(``ops/error_analysis.py`` and
 ``MeanAveragePrecision.result_error_analysis``).
 
 Tolerances: keep sets, their order, classes and boxes exact; soft NMS's
@@ -66,11 +67,38 @@ def _assert_rows(got, want, conf_rtol):
                                rtol=conf_rtol, atol=0)
 
 
+def _one_image(rows, iou_thr, conf_thr, mode):
+    """The last image of ``rows`` through the port's and JAX's one-image
+    soft or fast NMS; the port's is also row -1 of its batched twin, bit
+    for bit."""
+    method = mode.removesuffix(" one image")
+    x = torch.from_numpy(rows)
+    if method == "fast":
+        got = tnms.fast_non_max_suppression(x[-1], iou_thr, conf_thr)
+        batched = tnms.batched_fast_non_max_suppression(x, iou_thr, conf_thr)
+        want = jnms.fast_non_max_suppression(jnp.asarray(rows[-1]), iou_thr,
+                                             conf_thr)
+    else:
+        got = tnms.soft_non_max_suppression(x[-1], iou_thr, conf_thr, 0.5,
+                                            method)
+        batched = tnms.batched_soft_non_max_suppression(x, iou_thr, conf_thr,
+                                                        0.5, method)
+        want = jnms.soft_non_max_suppression(jnp.asarray(rows[-1]), iou_thr,
+                                             conf_thr, 0.5, method)
+    assert all(torch.equal(a, b[-1]) for a, b in zip(got, batched))
+    return got, want
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
-@pytest.mark.parametrize("mode", ["gaussian", "linear", "fast"])
+@pytest.mark.parametrize("mode", ["gaussian", "linear", "fast",
+                                  "gaussian one image", "linear one image",
+                                  "fast one image"])
 def test_soft_and_fast_nms_match_jax(case, mode):
     rows, iou_thr, conf_thr = CASES[case]()
-    if mode == "fast":
+    if mode.endswith(" one image"):
+        got, want = _one_image(rows, iou_thr, conf_thr, mode)
+        _assert_rows(got, want, 0.0 if mode.startswith("fast") else 1e-6)
+    elif mode == "fast":
         got = tnms.batched_fast_non_max_suppression(
             torch.from_numpy(rows), iou_thr, conf_thr)
         want = jnms.batched_fast_non_max_suppression(

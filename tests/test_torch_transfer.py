@@ -38,6 +38,16 @@ from test_torch_model import randomized_variables
 from test_torch_train import _batch, _jax_draws, _port_state
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads: the suite runs several workers on the same
+    cores, and these small tensors gain nothing from more."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _cfg(backbone, head, size, kernels, lr=1e-4, **model):
     return jconfig.Config(
         grid=jconfig.GridConfig(grid=2, num_boxes=2, num_classes=3),

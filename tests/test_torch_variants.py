@@ -27,6 +27,17 @@ from keras_object_detection_torch.models import build_model, flax_to_torch
 from keras_object_detection_torch.models import backbones, yolo
 from test_torch_model import randomized_variables
 
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads: the suite runs several workers on the same
+    cores, and these small tensors gain nothing from more."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
