@@ -53,7 +53,7 @@ from keras_object_detection_torch.train.loop import (TrainState, _device,
                                                      create_train_state,
                                                      make_eval_step,
                                                      run_dataset_eval)
-from keras_object_detection_torch.utils.profiling import call_latency
+from keras_object_detection_torch.utils.profiling import call_latency, span
 
 Images = Union[np.ndarray, torch.Tensor]
 
@@ -96,7 +96,11 @@ class ServingModel:
     survivor mask (``serving_nms``: N cut to ``max_candidates`` first where
     it is larger). With a mesh (``_shard_over``) each call's batch must
     divide by the data axis and is served shard by shard by the replicas,
-    one a device."""
+    one a device. The stages are host spans (``utils.profiling.span``):
+    ``serve.predict.forward`` (the copy to ``device`` and ``_forward``, both
+    passes with TTA), ``serve.predict.decode`` (with TTA's un-flip and
+    concatenation) and, in ``predict``, ``serve.predict.nms`` (``_nms``:
+    the top-k cut and the NMS)."""
 
     config: Config
     device: torch.device
@@ -161,13 +165,18 @@ class ServingModel:
         return self._served("_predict_decoded", images_u8)
 
     def _predict_decoded(self, images_u8: Images) -> torch.Tensor:
-        x = self._images(images_u8)
-        boxes = self._decode(self._forward(x))
-        if self._tta == "hflip":
-            # the mirror's detections, un-flipped, join the candidates: NMS
-            # merges 2*S*S rows
-            fb = _unflip(self._decode(self._forward(x.flip(2))))
-            boxes = torch.cat([boxes, fb], dim=1)
+        with span("serve.predict.forward"):
+            x = self._images(images_u8)
+            grids = [self._forward(x)]
+            if self._tta == "hflip":
+                grids.append(self._forward(x.flip(2)))
+        with span("serve.predict.decode"):
+            boxes = self._decode(grids[0])
+            if self._tta == "hflip":
+                # the mirror's detections, un-flipped, join the candidates:
+                # NMS merges 2*S*S rows
+                fb = _unflip(self._decode(grids[1]))
+                boxes = torch.cat([boxes, fb], dim=1)
         return boxes
 
     @torch.inference_mode()
@@ -175,7 +184,9 @@ class ServingModel:
         return self._served("_predict", images_u8)
 
     def _predict(self, images_u8: Images) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self._nms(self._predict_decoded(images_u8))
+        boxes = self._predict_decoded(images_u8)
+        with span("serve.predict.nms"):
+            return self._nms(boxes)
 
     def predict_single(self, image_u8: Images) -> torch.Tensor:
         """One image -> ``(num_kept, 6)`` rows, the reference's NMS output."""

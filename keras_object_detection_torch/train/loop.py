@@ -18,6 +18,11 @@ the parameter EMA. ``TrainConfig.use_pallas_loss`` selects the fused loss
 with its kernels, ``ModelConfig.bn_mode="fused"`` the BN-statistics kernels.
 With ``ModelConfig.freeze_backbone`` the backbone runs in eval mode without
 gradient and the optimizer sees zero gradients for it.
+The stages are host spans (``utils.profiling.span``; recorded only while a
+``torch.profiler`` session records): ``train.step.augment`` (mosaic, mixup
+and the crop), ``train.step.encode``, ``train.step.forward``,
+``train.step.loss`` and ``train.step.backward`` once a microbatch, then
+``train.step.optimizer`` (the update and the EMA).
 
 Unlike the JAX step, which returns a new state, this one updates the model,
 the optimizer moments and the EMA in place (no second copy of ~4x the
@@ -88,6 +93,7 @@ from keras_object_detection_torch.train import optim
 from keras_object_detection_torch.train.checkpoint import CheckpointManager
 from keras_object_detection_torch.train.metrics_logger import MetricLogger
 from keras_object_detection_torch.train.schedules import epoch_schedule
+from keras_object_detection_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -443,27 +449,33 @@ def make_train_step(config: Config, image_size: Optional[int] = None,
             # partners come from the whole (micro)batch: gather it
             images_u8, boxes, valid = (distributed.all_gather_rows(t, group)
                                        for t in (images_u8, boxes, valid))
-        if d.mosaic_prob > 0:
-            images_u8, boxes, valid = mosaic_batch(
-                images_u8, boxes, valid, draws.mosaic, d.mosaic_prob)
-        if d.mixup_prob > 0:
-            images_u8, boxes, valid = mixup_batch(
-                images_u8, boxes, valid, draws.mixup, d.mixup_prob)
-        if mixing and world > 1:
-            images_u8, boxes, valid = images_u8[own], boxes[own], valid[own]
-        if world > 1:
-            draws = draws.rows(own)
-        images, aboxes, avalid = augment_batch(
-            images_u8, boxes, valid, draws.augment, hflip_prob=d.hflip_prob,
-            color_strengths=tuple(d.color_jitter),
-            crop_ratio=tuple(d.crop_ratio), min_visibility=d.min_visibility,
-            out_size=out_size)
-        y_true = encode(aboxes, avalid)
-        y_pred = model(images, draws.keep)
-        if not fpn_head:
-            y_pred = y_pred.reshape(y_true.shape)  # flat heads too
-        terms = loss_terms(y_true, y_pred, aboxes, avalid)
-        terms["total"].backward()
+        with span("train.step.augment"):
+            if d.mosaic_prob > 0:
+                images_u8, boxes, valid = mosaic_batch(
+                    images_u8, boxes, valid, draws.mosaic, d.mosaic_prob)
+            if d.mixup_prob > 0:
+                images_u8, boxes, valid = mixup_batch(
+                    images_u8, boxes, valid, draws.mixup, d.mixup_prob)
+            if mixing and world > 1:
+                images_u8, boxes, valid = (images_u8[own], boxes[own],
+                                           valid[own])
+            if world > 1:
+                draws = draws.rows(own)
+            images, aboxes, avalid = augment_batch(
+                images_u8, boxes, valid, draws.augment,
+                hflip_prob=d.hflip_prob, color_strengths=tuple(d.color_jitter),
+                crop_ratio=tuple(d.crop_ratio),
+                min_visibility=d.min_visibility, out_size=out_size)
+        with span("train.step.encode"):
+            y_true = encode(aboxes, avalid)
+        with span("train.step.forward"):
+            y_pred = model(images, draws.keep)
+            if not fpn_head:
+                y_pred = y_pred.reshape(y_true.shape)  # flat heads too
+        with span("train.step.loss"):
+            terms = loss_terms(y_true, y_pred, aboxes, avalid)
+        with span("train.step.backward"):
+            terms["total"].backward()
         return {k: v.detach() for k, v in terms.items()}
 
     def step(state: TrainState, images_u8, boxes, valid, seed: int,
@@ -517,15 +529,16 @@ def make_train_step(config: Config, image_size: Optional[int] = None,
             summed = distributed.all_reduce_(
                 torch.stack([metrics[k] for k in keys]), group)
             metrics = dict(zip(keys, summed.unbind()))
-        optim.apply_updates(state.opt, params, [
-            torch.zeros_like(p) if p.grad is None and id(p) in frozen else p.grad
-            for p in params])
-        if state.ema is not None:
-            decay = t.ema_decay
-            with torch.no_grad():
-                for n, p in model.named_parameters():
-                    e = state.ema[n]
-                    e.copy_(decay * e + (1.0 - decay) * p)
+        with span("train.step.optimizer"):
+            optim.apply_updates(state.opt, params, [
+                torch.zeros_like(p) if p.grad is None and id(p) in frozen
+                else p.grad for p in params])
+            if state.ema is not None:
+                decay = t.ema_decay
+                with torch.no_grad():
+                    for n, p in model.named_parameters():
+                        e = state.ema[n]
+                        e.copy_(decay * e + (1.0 - decay) * p)
         state.step += 1
         return state, metrics
 

@@ -1,6 +1,9 @@
 """Profiling and tracing (counterpart of
 ``keras_object_detection_tpu/utils/profiling.py``):
 
+- ``span(name)``: a named host span of the port's own (the train step's
+  and ``predict``'s stages), recorded into the trace while a
+  ``torch.profiler`` session records, one flag check otherwise;
 - ``trace(logdir)``: a ``torch.profiler`` trace of everything inside the
   context (CPU and, where there is a GPU, CUDA activities, with a margin
   of host time on both sides), written as a Chrome trace into ``logdir``;
@@ -12,9 +15,7 @@
   traces under a directory read back into per-lane device busy time and a
   per-kernel-category breakdown. A torch trace's device events are its GPU
   kernels, copies and sets (``cat`` ``kernel``, ``gpu_memcpy``,
-  ``gpu_memset``), one lane a stream; the JAX package's trace layout (a
-  device process, its "XLA Ops" lane) is read as JAX reads it, so the same
-  events give the same numbers;
+  ``gpu_memset``), one lane a stream;
 - ``port_kernel`` / ``traced_port_kernels`` / ``port_kernel_launches`` /
   ``launches_since``: the port's hand-written kernels (K1–K5) in a trace,
   by kernel name, and in their wrappers' launch counters;
@@ -24,7 +25,8 @@
 - ``call_latency``: serial and pipelined host time of a call.
 
 ``tools/torch_trace_summary.py`` attributes the device time of a trace to
-the CPU ops that launched it; this module keeps JAX's interface.
+the CPU ops that launched it; this module keeps JAX's interface, less
+``op_category`` (XLA's op names: the port writes torch traces only).
 """
 
 from __future__ import annotations
@@ -41,6 +43,22 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import torch
 
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that marks a stage of the port's work as the host span
+    ``name`` in a ``torch.profiler`` trace (``record_function``), on the
+    host clock onto which the trace maps the device's events. With no
+    session recording it is one shared no-op context: no
+    ``record_function`` (which costs its entry and exit even with no
+    profiler on), no synchronise, no CUDA event. ``_is_profiler_enabled``
+    is torch's own flag, true from a session's start to its stop
+    (``tests/test_torch_spans.py`` holds it)."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 # seconds of host time the capture window opens before the traced work and
@@ -145,44 +163,26 @@ def _lane_names(events: List[dict]) -> Tuple[Dict, Dict]:
     return pnames, tnames
 
 
-def _device_pids(pnames: Dict) -> set:
-    """Accelerator-plane pids of the JAX layout ("/device:TPU:0 ..."),
-    never host threads."""
-    return {pid for pid, name in pnames.items()
-            if ("tpu" in name.lower() or "device" in name.lower())
-            and "host" not in name.lower()}
-
-
 def _device_events(events: List[dict]):
-    """``(event, lane)`` of every timed device event: a torch trace's GPU
-    kernels, copies and sets (lane: the process / stream), or an event on a
-    device plane of the JAX layout (lane: process / thread name)."""
+    """``(event, lane)`` of every timed device event: the trace's GPU
+    kernels, copies and sets (lane: the process / stream)."""
     pnames, tnames = _lane_names(events)
-    dev = _device_pids(pnames)
     for e in events:
-        if e.get("ph") != "X" or not e.get("dur"):
-            continue
-        torch_device = e.get("cat") in DEVICE_CATEGORIES
-        if not torch_device and e.get("pid") not in dev:
+        if (e.get("ph") != "X" or not e.get("dur")
+                or e.get("cat") not in DEVICE_CATEGORIES):
             continue
         pid, tid = e.get("pid"), e.get("tid")
-        lane = tnames.get((pid, tid)) or (f"stream {tid}" if torch_device
-                                          else tid)
+        lane = tnames.get((pid, tid)) or f"stream {tid}"
         yield e, f"{pnames.get(pid, pid)}/{lane}"
 
 
 def device_lane_ms(events: List[dict]) -> Dict[str, float]:
-    """Total duration (ms) per device lane. A torch trace's GPU stream lane
-    holds its kernels one after another, so its sum is that stream's busy
-    time; in the JAX layout the "XLA Modules" lane is (its other lanes
-    stack nested events)."""
+    """Total duration (ms) per device lane. A GPU stream's lane holds its
+    kernels one after another, so its sum is that stream's busy time."""
     lanes: Dict[str, float] = {}
     for e, lane in _device_events(events):
         lanes[lane] = lanes.get(lane, 0.0) + float(e["dur"]) / 1e3
     return lanes
-
-
-_OP_PREFIX = re.compile(r"^%?([a-zA-Z][a-zA-Z_-]*)")
 
 
 def kernel_category(name: str) -> str:
@@ -319,28 +319,10 @@ def device_busy_ms(events: List[dict]) -> Tuple[Optional[float], str]:
                                                  key=lambda kv: -kv[1])[:6])))
 
 
-def op_category(name: str) -> str:
-    """HLO instruction name -> coarse category, JAX's rule ("fusion.123"
-    -> "fusion", "%convolution.5" -> "convolution", "copy-done.2" ->
-    "copy")."""
-    m = _OP_PREFIX.match(name.strip())
-    if not m:
-        return "other"
-    cat = m.group(1).lower()
-    # canonicalize async pairs and numbered variants
-    for base in ("copy", "all-reduce", "all-gather", "reduce-scatter",
-                 "collective-permute", "send", "recv"):
-        if cat.startswith(base):
-            return base
-    return cat
-
-
 def op_breakdown(events: List[dict], top_k: Optional[int] = 25
                  ) -> Dict[str, object]:
-    """The device's leaf ops by category: a torch trace's GPU kernels,
-    copies and sets (``kernel_category``), or the JAX layout's "XLA Ops"
-    lane (``op_category``; its events tile the module execution without
-    nesting, so the sums are additive).
+    """The device's kernels, copies and sets by category
+    (``kernel_category``).
 
     Returns ``{"categories": {cat: ms}, "top_ops": [{name, ms, count},
     ...], "total_ms": float}`` over the whole trace (``top_k`` None: every
@@ -348,14 +330,10 @@ def op_breakdown(events: List[dict], top_k: Optional[int] = 25
     cats: Dict[str, float] = {}
     per_op: Dict[str, List[float]] = {}
     total = 0.0
-    for e, lane in _device_events(events):
-        torch_device = e.get("cat") in DEVICE_CATEGORIES
-        if (not torch_device
-                and "xla ops" not in lane.rsplit("/", 1)[-1].lower()):
-            continue
+    for e, _ in _device_events(events):
         ms = float(e["dur"]) / 1e3
         name = str(e.get("name", ""))
-        cat = kernel_category(name) if torch_device else op_category(name)
+        cat = kernel_category(name)
         cats[cat] = cats.get(cat, 0.0) + ms
         total += ms
         acc = per_op.setdefault(name, [0.0, 0])

@@ -1,0 +1,9 @@
+"""Device idle milliseconds a traced step in the gaps that began while the
+system's ``train.step.backward`` span was the innermost one open
+(``spans.idle_ms``): the ``backward()`` call of the loss."""
+
+from portbench import spans
+
+
+def read(ctx):
+    return spans.idle_ms(ctx.trace, "train.step.backward")

@@ -1,10 +1,8 @@
-"""The port's profiling (``utils/profiling.py``) against the JAX package's
-``utils/profiling.py``: ``op_category`` on JAX's HLO names, and
-``device_lane_ms`` / ``op_breakdown`` on ``tests/test_profiling.py``'s
-synthetic device plane, give JAX's numbers exactly; on a torch trace's
-layout (GPU kernels on stream lanes) they sum the kernels by function
-name; a live CPU ``trace`` is written and read back, its window bracketed
-by the margin; ``StepTimer`` is JAX's."""
+"""The port's profiling (``utils/profiling.py``): ``device_lane_ms`` /
+``op_breakdown`` on a torch trace's layout (GPU kernels on stream lanes)
+sum the kernels by function name; a live CPU ``trace`` is written and read
+back, its window bracketed by the margin; ``StepTimer`` is the JAX
+package's. The port's spans are ``test_torch_spans.py``'s."""
 
 import time
 
@@ -13,23 +11,6 @@ import torch
 
 from keras_object_detection_tpu.utils import profiling as jprof
 from keras_object_detection_torch.utils import profiling as prof
-from test_profiling import _synthetic_events
-
-HLO_NAMES = ["fusion.123", "%convolution.5", "copy-done.2", "copy-start",
-             "all-reduce-start.1", "reduce-window.7", "reduce.3",
-             "select-and-scatter.2", "custom-call.4", "dynamic-slice",
-             "123garbage", "all-gather.9", "collective-permute-done"]
-
-
-@pytest.mark.parametrize("name", HLO_NAMES)
-def test_op_category_is_jax_s_on_hlo_names(name):
-    assert prof.op_category(name) == jprof.op_category(name)
-
-
-def test_jax_s_synthetic_trace_reads_as_in_jax():
-    events = _synthetic_events()
-    assert prof.device_lane_ms(events) == jprof.device_lane_ms(events)
-    assert prof.op_breakdown(events) == jprof.op_breakdown(events)
 
 
 def torch_events():

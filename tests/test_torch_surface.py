@@ -89,6 +89,9 @@ MODULE_EXEMPT = {
     ("data.augment", "sample_crop_window"): (
         "data.augment.crop_windows", "the windows of AugmentDraws drawn "
         "ahead by sample_augment_draws, not from a JAX key"),
+    ("utils.profiling", "op_category"): (
+        None, "XLA's HLO op names; the port writes and reads torch traces "
+        "only, whose kernels kernel_category names"),
 }
 
 
