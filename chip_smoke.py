@@ -9,7 +9,7 @@
 
 Phases, each of which fails the run (non-zero exit) when it goes wrong:
 
-1. build   - compile ops/csrc/{nms,yolo_loss,bn_stats}.cu (and with
+1. build   - compile ops/csrc/{nms,yolo_loss,bn_stats,optim_update}.cu (and with
              --parent the other checkout's, where they differ) with nvcc
              for sm_90a, one nvcc each, all started together;
 2. nms     - the NMS kernel (K1) against its plain PyTorch version on the
@@ -303,6 +303,20 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
              144,133,496 B (dp4 x tp2), 39 sharded leaves, printed beside
              JAX's record (benchmarks/tp_comm_analysis.json, read as data);
              one JSON line "measure".
+21. optim  - (after bn, before train-check) the multi-tensor optimizer
+             update K6 (ops/csrc/optim_update.cu) at the flagship's 102 and
+             YOLOv3's 294 parameter tensors (channels_last, random float32
+             from numpy): each of the 5 optimizers 5 steps, the learning
+             rate swapped after 2, through K6 and through the plain loop on
+             the card, parameters and moments bit-equal (torch.equal), and
+             the config's optimizer again with every tensor one float off a
+             16-byte boundary (the scalar path); launches a step equal to
+             optim_launch_plan's; each optimizer's device time (CUDA graph)
+             and time a call against its bound (28, 12 or 20 bytes a value
+             at 3.35 TB/s), the plain loop's time a call; traces of 2
+             flagship train steps with K6 and with the loop patched in, in
+             turns: under train.step.optimizer K6's launches and no copy or
+             synchronisation; one JSON line "optim".
 
 Then one JSON line describing each kernel (K1's launches add the hard-mode
 serving of phase 14, the int8 serving of phase 15 and phase 20's serving
@@ -339,7 +353,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # dense bf16 on the tensor cores
 
-KERNEL_SOURCES = ("nms", "yolo_loss", "bn_stats")
+KERNEL_SOURCES = ("nms", "yolo_loss", "bn_stats", "optim_update")
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 
 
@@ -563,7 +577,8 @@ def phase_build(parent: str = "") -> None:
         csrc = pathlib.Path(parent) / "keras_object_detection_torch" / "ops" / "csrc"
         # a source the parent shares with this tree builds once
         jobs += [(name, csrc) for name in KERNEL_SOURCES
-                 if (csrc / f"{name}.cu").read_bytes()
+                 if (csrc / f"{name}.cu").exists()
+                 and (csrc / f"{name}.cu").read_bytes()
                  != (_build.CSRC / f"{name}.cu").read_bytes()]
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         built = list(pool.map(lambda job: _build.build(*job), jobs))
@@ -1457,6 +1472,268 @@ def phase_bn(dev, parent: str = "") -> dict:
     return {"max_rel": max_rel, "max_abs": max_abs, "total": tot,
             "largest": largest, "groups": groups, "worst": worst,
             "calls": calls, "call_ms": call_ms}
+
+
+# K6's phase: the flagship's and YOLOv3's parameter lists as the train state
+# holds them
+OPTIM_MODELS = ("flagship", "yolov3")
+OPTIM_STEPS, OPTIM_LR_SWAP = 5, 2  # steps; set_learning_rate after this many
+OPTIM_WEIGHT_DECAY = 5e-4  # adamw's and sgdw's
+OPTIM_CELL = {"flagship": "nadam", "yolov3": "adam"}  # the configs' optimizers
+# bytes a value K6 must move: p and g read, the moments read and written, p
+# written
+OPTIM_BYTES = {"adam": 28, "nadam": 28, "adamw": 28, "sgd": 12, "sgdw": 20}
+
+
+def optim_shapes(tag: str) -> list:
+    """The parameter shapes of the flagship's or YOLOv3's model, in order."""
+    from keras_object_detection_torch.models import build_model
+
+    cfg = train_config(True) if tag == "flagship" else yolov3_config(True)
+    with torch.device("meta"):
+        return [tuple(p.shape) for p in build_model(cfg, None).parameters()]
+
+
+def optim_params(shapes, dev, seed: int, offset: bool = False) -> list:
+    """Random float32 parameters of ``shapes`` (numpy, ``seed``) on ``dev``,
+    4-D ones in ``channels_last`` memory as ``create_train_state`` puts
+    them; ``offset``: each a view one float into a buffer of its own, so
+    that no tensor starts 16-byte aligned (K6's scalar path)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for shape in shapes:
+        host = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+        if offset:
+            buf = torch.empty(host.numel() + 1, device=dev)
+            out.append(buf[1:].view(shape).copy_(host))
+        elif len(shape) == 4:
+            out.append(host.to(dev, memory_format=torch.channels_last))
+        else:
+            out.append(host.to(dev))
+    return out
+
+
+def optim_grads(params, seed: int, steps: int) -> list:
+    """``steps`` lists of random float32 gradients (numpy, ``seed``), each
+    tensor at a scale of 1e-4, 1 or 30, laid out as its parameter (a
+    one-float offset view where the parameter is one)."""
+    rng = np.random.default_rng(seed)
+    total = sum(p.numel() for p in params)
+    out = []
+    for _ in range(steps):
+        flat = torch.from_numpy(rng.standard_normal(total, dtype=np.float32)
+                                ).to(params[0].device)
+        scales = rng.choice([1e-4, 1.0, 30.0], len(params))
+        grads, at = [], 0
+        for p, scale in zip(params, scales):
+            if p.data_ptr() % 16:
+                g = torch.empty(p.numel() + 1, device=p.device)[1:].view(p.shape)
+            else:
+                g = torch.empty_like(p)
+            g.copy_(flat[at:at + p.numel()].view(p.shape) * float(scale))
+            grads.append(g)
+            at += p.numel()
+        out.append(grads)
+    return out
+
+
+def optim_compare(name: str, params, grads) -> dict:
+    """``len(grads)`` steps of ``name`` through K6 (``apply_updates``) and
+    through the plain loop (``apply_updates_plain``) on the card from
+    copies of ``params`` (kept as they are laid out), the learning rate
+    swapped after OPTIM_LR_SWAP: whether parameters and moments end
+    bit-equal, and K6's launches a step."""
+    from keras_object_detection_torch.ops import optim_update
+    from keras_object_detection_torch.train import optim
+
+    runs = {}
+    for how, fn in (("kernel", optim.apply_updates),
+                    ("plain", optim.apply_updates_plain)):
+        ps = [torch.empty_like(p).copy_(p) if p.data_ptr() % 16 == 0 else
+              torch.empty(p.numel() + 1, device=p.device)[1:].view(p.shape)
+              .copy_(p) for p in params]
+        state = optim.init_opt_state(name, ps, 1e-3, OPTIM_WEIGHT_DECAY)
+        before = optim_update.LAUNCHES
+        for i, g in enumerate(grads):
+            if i == OPTIM_LR_SWAP:
+                optim.set_learning_rate(state, 3e-4)
+            fn(state, ps, g)
+        torch.cuda.synchronize()
+        runs[how] = (ps + state.mu + state.nu + state.trace, state.count,
+                     optim_update.LAUNCHES - before)
+    (k, k_count, launched), (p, p_count, _) = runs["kernel"], runs["plain"]
+    return {"bit_equal": k_count == p_count and len(k) == len(p) and all(
+                torch.equal(a, b) for a, b in zip(k, p)),
+            "launches_per_step": launched / len(grads)}
+
+
+def optim_trace_counts(events, span_name: str) -> dict:
+    """What the host spans named ``span_name`` (their ``user_annotation``
+    events) issued in a trace: synchronisations among their CUDA runtime
+    calls, and the device work of those calls by their correlation ids:
+    kernels, host-to-device copies, other copies."""
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+             and e.get("name") == span_name]
+    out = {"spans": len(spans), "span_ms": sum(b - a for a, b in spans) / 1e3,
+           "sync": 0, "kernels": 0, "htod": 0, "other_copies": 0}
+    issued = set()
+    for e in events:
+        if (e.get("ph") == "X" and e.get("cat") == "cuda_runtime"
+                and any(a <= e["ts"] <= b for a, b in spans)):
+            out["sync"] += "Synchronize" in str(e.get("name", ""))
+            issued.add(e.get("args", {}).get("correlation"))
+    for e in events:
+        if (e.get("ph") != "X" or e.get("cat") not in ("kernel", "gpu_memcpy")
+                or e.get("args", {}).get("correlation") not in issued):
+            continue
+        name = str(e.get("name", ""))
+        key = ("kernels" if e["cat"] == "kernel" else "htod"
+               if "HtoD" in name else "other_copies")
+        out[key] += 1
+    return out
+
+
+def optim_step_trace(dev) -> dict:
+    """Traces of 2 flagship train steps (batch 64, kernel path) with K6 and
+    with the plain loop put in its place (``optim.apply_updates`` patched
+    to ``apply_updates_plain``), in turns plain, K6, K6, plain: the
+    runtime calls under ``train.step.optimizer`` (``optim_trace_counts``)."""
+    import tempfile
+
+    from keras_object_detection_torch.train import (create_train_state,
+                                                    make_train_step, optim)
+    from keras_object_detection_torch.utils import profiling
+
+    cfg = train_config(True)
+    state = create_train_state(cfg, torch.Generator().manual_seed(0), dev)
+    step = make_train_step(cfg)
+    batch = synthetic_batch(cfg.data.batch_size, cfg.model.image_size,
+                            cfg.data.max_boxes_per_image, dev)
+    out = {}
+    for how in ("plain", "kernel", "kernel_again", "plain_again"):
+        patch = (unittest.mock.patch.object(optim, "apply_updates",
+                                            optim.apply_updates_plain)
+                 if how.startswith("plain") else contextlib.nullcontext())
+        with patch:
+            for _ in range(2):
+                state, _m = step(state, *batch, 1)
+            with tempfile.TemporaryDirectory() as td:
+                with profiling.trace(td):
+                    for _ in range(2):
+                        state, _m = step(state, *batch, 1)
+                out[how] = optim_trace_counts(profiling.traced_events(td),
+                                              "train.step.optimizer")
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def optim_kernel_entries(optim: dict) -> list:
+    """The kernels line's K6 entries, one a parameter list of phase
+    optim's result."""
+    entries = []
+    for tag, row in optim["models"].items():
+        name = OPTIM_CELL[tag]
+        entries.append({
+            "name": f"optim_update_{tag}", "route": "cuda",
+            "source": "keras_object_detection_torch/ops/csrc/optim_update.cu",
+            "replaces": None,
+            "why": "the plain loop's 17-21 launches a parameter tensor",
+            "checked": True, "bit_equal": row["bit_equal"],
+            "bit_equal_unaligned": row["bit_equal_unaligned"],
+            "shape": f"{row['tensors']} tensors, {row['values']} values",
+            "optimizer": name, "launches_per_step": row["plan_launches"],
+            "blocks": row["blocks"], "ms": row["ms"][name],
+            "call_ms": row["call_ms"][name], "bound_ms": row["bound_ms"][name],
+            "bound_by": "bytes", "plain_ms": row["plain_call_ms"],
+            "library_ms": None,
+            "library_note": "torch.optim's foreach and fused updates are "
+                            "not optax's arithmetic",
+            "ms_by_optimizer": row["ms"], "bound_ms_by_optimizer": row["bound_ms"],
+            "step_trace": optim["step_trace"]})
+    return entries
+
+
+def phase_optim(dev) -> dict:
+    """K6 (module docstring, phase 21)."""
+    from keras_object_detection_torch.ops import optim_update
+    from keras_object_detection_torch.train import optim
+
+    t0 = time.perf_counter()
+    out = {"card": card(), "models": {}}
+    for tag in OPTIM_MODELS:
+        shapes = optim_shapes(tag)
+        sizes = tuple(math.prod(s) for s in shapes)
+        plan = optim_update.optim_launch_plan(sizes)
+        row = {"tensors": len(sizes), "values": sum(sizes),
+               "plan_launches": len(plan),
+               "blocks": sum(launch.chunk_start[-1] for launch in plan),
+               "bit_equal": {}, "ms": {}, "call_ms": {}, "bound_ms": {}}
+        params = optim_params(shapes, dev, 1)
+        grads = optim_grads(params, 2, OPTIM_STEPS)
+        for name in optim_update.OPT_CODES:
+            res = optim_compare(name, params, grads)
+            row["bit_equal"][name] = res["bit_equal"]
+            if res["launches_per_step"] != len(plan):
+                raise SystemExit(f"[optim] {tag} {name}: "
+                                 f"{res['launches_per_step']} launches a step,"
+                                 f" the plan's {len(plan)}")
+        # the scalar path: every tensor one float off its buffer's start
+        off = optim_params(shapes, dev, 3, offset=True)
+        row["bit_equal_unaligned"] = optim_compare(
+            OPTIM_CELL[tag], off, optim_grads(off, 4, 2))["bit_equal"]
+        del off
+        if not all(row["bit_equal"].values()) or not row["bit_equal_unaligned"]:
+            raise SystemExit(f"[optim] {tag}: K6 differs from the plain loop: "
+                             f"{row['bit_equal']}, unaligned "
+                             f"{row['bit_equal_unaligned']}")
+        g = grads[0]
+        for name in optim_update.OPT_CODES:
+            state = optim.init_opt_state(name, params, 1e-3, OPTIM_WEIGHT_DECAY)
+
+            def one(state=state):
+                optim.apply_updates(state, params, g)
+
+            row["ms"][name] = graph_ms(one, reps=20, replays=5)
+            row["call_ms"][name] = cuda_ms(one, reps=20)
+            row["bound_ms"][name] = (OPTIM_BYTES[name] * row["values"]
+                                     / HBM_BYTES_PER_S * 1e3)
+        name = OPTIM_CELL[tag]
+        state = optim.init_opt_state(name, params, 1e-3, OPTIM_WEIGHT_DECAY)
+        row["plain_call_ms"] = cuda_ms(
+            lambda: optim.apply_updates_plain(state, params, g), reps=5,
+            warmup=2)
+        del state, params, grads, g
+        torch.cuda.empty_cache()
+        log(f"[optim] {tag}: {row['tensors']} tensors, {row['values']} values,"
+            f" {row['plan_launches']} launch(es) of {row['blocks']} blocks; "
+            f"K6 = the plain loop bit for bit ({len(row['bit_equal'])} "
+            f"optimizers x {OPTIM_STEPS} steps, lr swapped after "
+            f"{OPTIM_LR_SWAP}; {name} unaligned); "
+            + "; ".join(f"{n} {row['ms'][n]:.4f} ms device ("
+                        f"{row['bound_ms'][n] / row['ms'][n]:.1%} of its bound "
+                        f"{row['bound_ms'][n]:.4f}), {row['call_ms'][n]:.4f} "
+                        f"a call" for n in optim_update.OPT_CODES)
+            + f"; the plain loop's {name} {row['plain_call_ms']:.3f} ms a call")
+        out["models"][tag] = row
+    out["step_trace"] = optim_step_trace(dev)
+    for how, c in out["step_trace"].items():
+        log(f"[optim] 2 flagship steps, {how}: under train.step.optimizer "
+            f"({c['spans']} spans, {c['span_ms']:.3f} ms traced) "
+            f"{c['kernels']} kernels, {c['htod']} host-to-device and "
+            f"{c['other_copies']} other copies, {c['sync']} synchronisations")
+    want = 2 * out["models"]["flagship"]["plan_launches"]
+    for how in ("kernel", "kernel_again"):
+        c = out["step_trace"][how]
+        if (c["spans"] != 2 or c["htod"] or c["other_copies"] or c["sync"]
+                or c["kernels"] != want):
+            raise SystemExit(f"[optim] K6's step, {how}: {c} under "
+                             f"train.step.optimizer, expected {want} kernels"
+                             f" and no copy or synchronisation")
+    out["wall_s"] = time.perf_counter() - t0
+    print(json.dumps({"optim": out}))
+    return out
 
 
 def train_config(kernels: bool):
@@ -4976,7 +5253,7 @@ def tp_profile(dev) -> dict:
         f"categories " + ", ".join(f"{k} {v:.3f}" for k, v in list(
             breakdown["categories"].items())[:5]))
     want = {"nms": 0, "bn_stats": 50, "bn_grad_stats": 50,
-            "yolo_loss_forward": 2, "yolo_loss_backward": 2}
+            "yolo_loss_forward": 2, "yolo_loss_backward": 2, "optim_update": 2}
     if traced != launched or launched != want:
         raise SystemExit(f"[tensor_parallel] (e) traced {traced}, launched "
                          f"{launched}, expected {want}")
@@ -5375,12 +5652,12 @@ def phase_measure(dev) -> dict:
     # the main path: each tool's child process counts from 0 and reports
     # its run's launches (port_kernel_launches)
     out["flagship"] = measure_breakdown(
-        "flagship", train_config(True), dict(FLAGSHIP_BN_LAUNCHES, nms=0),
-        scan=4)
+        "flagship", train_config(True),
+        dict(FLAGSHIP_BN_LAUNCHES, nms=0, optim_update=1), scan=4)
     out["yolov3"] = measure_breakdown(
         "yolov3", yolov3_config(True),
         {"nms": 0, "bn_stats": 72, "bn_grad_stats": 72,
-         "yolo_loss_forward": 0, "yolo_loss_backward": 0})
+         "yolo_loss_forward": 0, "yolo_loss_backward": 0, "optim_update": 1})
     out["serving"] = measure_serving()
     out["launches"] = {k: sum(out[t]["port_kernel_launches"][k] for t in (
         "flagship", "yolov3", "serving")) for k in PORT_KERNELS}
@@ -5446,6 +5723,7 @@ def main() -> int:
     serve = phase_serve(dev, args.profile)
     loss = phase_loss(dev, args.parent)
     bn = phase_bn(dev, args.parent)
+    optim = phase_optim(dev)
     phase_train_check(dev)
     train = phase_train(dev, args.profile)
     fit = phase_fit(dev, train)
@@ -5631,6 +5909,7 @@ def main() -> int:
             **family_kernel_entry(yolov3, name, "yolov3"),
             **parallel_entry(name),
             "tensor_parallel_shapes": tp_shapes(k)})
+    kernels += optim_kernel_entries(optim)
     log(f"[train] kernels path p50 {train['kernels']['p50_ms']:.3f} ms, "
         f"{train['kernels']['images_per_s']:.1f} images/s; plain path p50 "
         f"{train['plain']['p50_ms']:.3f} ms, "

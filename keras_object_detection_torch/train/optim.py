@@ -28,17 +28,24 @@ one step after three steps. So each update repeats optax's
 The learning rate is a float32 tensor in the state (optax's injected
 hyperparameter): ``set_learning_rate`` swaps it without rebuilding anything.
 Parameters are updated in place.
+
+``apply_updates`` sends parameters on the card to the multi-tensor kernel
+(``ops/optim_update.py``, K6: one launch for up to 512 tensors, no copy to
+the device, no synchronisation) and parameters on the CPU to
+``apply_updates_plain``, the loop written out above, which the kernel equals
+bit for bit on the card.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from keras_object_detection_torch.config import OPTIMIZERS
+from keras_object_detection_torch.ops import optim_update
 
 
 def _f32(x) -> float:
@@ -93,17 +100,47 @@ def set_learning_rate(state: OptState, lr: float) -> None:
     state.lr.fill_(lr)
 
 
+def _bias_correction_value(decay: float, count: int) -> np.float32:
+    return np.float32(1.0) - np.float32(np.float64(np.float32(decay)) ** count)
+
+
 def _bias_correction(decay: float, count: int, like: torch.Tensor) -> torch.Tensor:
     # a 0-dim tensor on the device: a true division, as XLA does (a CPU
     # scalar divisor becomes a multiply by its reciprocal on the GPU)
-    value = np.float32(1.0) - np.float32(np.float64(np.float32(decay)) ** count)
-    return torch.tensor(value, dtype=torch.float32, device=like.device)
+    return torch.tensor(_bias_correction_value(decay, count),
+                        dtype=torch.float32, device=like.device)
+
+
+def bias_corrections(count: int) -> Tuple[float, float, float]:
+    """``(bc1, bc2, bc1_next)`` of optax's step ``count``, the float32
+    values ``_bias_correction`` puts on the device, here as host floats:
+    the kernel takes them by value."""
+    return (float(_bias_correction_value(B1, count)),
+            float(_bias_correction_value(B2, count)),
+            float(_bias_correction_value(B1, count + 1)))
+
+
+def apply_updates(state: OptState, params: Sequence[torch.Tensor],
+                  grads: Sequence[torch.Tensor]) -> None:
+    """One optimizer step: update ``params`` in place from ``grads``; on
+    the card in one launch of K6 for up to 512 tensors, on the CPU by
+    ``apply_updates_plain``."""
+    if not (params and params[0].is_cuda):
+        apply_updates_plain(state, params, grads)
+        return
+    count = state.count + 1
+    optim_update.cuda_optim_update(
+        state.name, params, grads, state.mu or state.trace, state.nu, state.lr,
+        (B1, ONE_MINUS_B1, B2, ONE_MINUS_B2, EPS, *bias_corrections(count),
+         state.weight_decay, MOMENTUM))
+    state.count = count
 
 
 @torch.no_grad()
-def apply_updates(state: OptState, params: Sequence[torch.Tensor],
-                  grads: Sequence[torch.Tensor]) -> None:
-    """One optimizer step: update ``params`` in place from ``grads``."""
+def apply_updates_plain(state: OptState, params: Sequence[torch.Tensor],
+                        grads: Sequence[torch.Tensor]) -> None:
+    """One optimizer step, one torch operation at a time: the plain
+    version of K6, on any device."""
     neg_lr = -state.lr
     wd = state.weight_decay
     if state.name == "sgd":

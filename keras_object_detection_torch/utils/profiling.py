@@ -17,7 +17,7 @@
   kernels, copies and sets (``cat`` ``kernel``, ``gpu_memcpy``,
   ``gpu_memset``), one lane a stream;
 - ``port_kernel`` / ``traced_port_kernels`` / ``port_kernel_launches`` /
-  ``launches_since``: the port's hand-written kernels (K1–K5) in a trace,
+  ``launches_since``: the port's hand-written kernels (K1–K6) in a trace,
   by kernel name, and in their wrappers' launch counters;
 - ``checked_trace`` / ``device_busy_ms`` / ``trace_contents``: a trace
   retaken where its port kernels differ from the counters, its busiest
@@ -201,7 +201,8 @@ PORT_KERNELS = {"nms": ("cuda_nms", "LAUNCHES"),
                 "bn_stats": ("bn", "STATS_LAUNCHES"),
                 "bn_grad_stats": ("bn", "GRAD_STATS_LAUNCHES"),
                 "yolo_loss_forward": ("yolo_loss", "FORWARD_LAUNCHES"),
-                "yolo_loss_backward": ("yolo_loss", "BACKWARD_LAUNCHES")}
+                "yolo_loss_backward": ("yolo_loss", "BACKWARD_LAUNCHES"),
+                "optim_update": ("optim_update", "LAUNCHES")}
 
 
 def port_kernel(name: str) -> Optional[str]:
@@ -209,12 +210,14 @@ def port_kernel(name: str) -> Optional[str]:
     this name is, or None: ``ops/csrc/nms.cu``'s ``nms_kernel`` (K1),
     ``bn_stats.cu``'s ``bn_stats_kernel`` with ``GRAD`` false (K2) or true
     (K3), ``yolo_loss.cu``'s ``loss_forward_kernel`` (K4) and
-    ``loss_backward_kernel`` (K5)."""
+    ``loss_backward_kernel`` (K5), ``optim_update.cu``'s
+    ``optim_update_kernel`` (K6)."""
     cat = kernel_category(name)
     if cat == "bn_stats_kernel":
         return "bn_grad_stats" if ", true," in name else "bn_stats"
     return {"nms_kernel": "nms", "loss_forward_kernel": "yolo_loss_forward",
-            "loss_backward_kernel": "yolo_loss_backward"}.get(cat)
+            "loss_backward_kernel": "yolo_loss_backward",
+            "optim_update_kernel": "optim_update"}.get(cat)
 
 
 def port_kernel_launches() -> Dict[str, int]:

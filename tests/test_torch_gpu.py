@@ -1,6 +1,8 @@
 """Tests of the PyTorch port that need an NVIDIA GPU: the CUDA kernels (NMS,
 the fused loss forward and backward, the BN statistics forward and backward,
-at the flagship's, the transfer family's and the multiscale shapes) have no
+at the flagship's, the transfer family's and the multiscale shapes, and the
+multi-tensor optimizer update at the flagship's and YOLOv3's parameter
+lists) have no
 CPU mode, and the paths that run them (serving, the train step, the
 frozen-backbone and GAP-head steps, the recipe step with remat, the mAP
 accumulator, ``Trainer.fit``, the pinned-memory prefetch), and the YOLOv2
@@ -25,7 +27,7 @@ from chip_smoke import NMS_CASES, NMS_TIMED
 from keras_object_detection_torch.config import tiny_cpu_config
 from keras_object_detection_torch.eval import InferenceModel
 from keras_object_detection_torch.models import build_model
-from keras_object_detection_torch.ops import bn, cuda_nms, yolo_loss
+from keras_object_detection_torch.ops import bn, cuda_nms, optim_update, yolo_loss
 from keras_object_detection_torch.ops.nms import batched_non_max_suppression
 from keras_object_detection_torch.train import (create_train_state,
                                                 make_train_step)
@@ -510,6 +512,90 @@ def test_train_step_on_the_gpu_goes_through_the_kernels(cuda, no_tf32):
     for (k, a), b in zip(gpu.model.state_dict().items(),
                          cpu.model.state_dict().values()):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4, msg=k)
+
+
+@pytest.fixture(scope="module")
+def optim_lists():
+    """The flagship's and YOLOv3's parameter shapes and sizes
+    (chip_smoke.optim_shapes), built once."""
+    import math
+
+    from chip_smoke import OPTIM_MODELS, optim_shapes
+
+    shapes = {tag: optim_shapes(tag) for tag in OPTIM_MODELS}
+    return {tag: (sh, tuple(math.prod(s) for s in sh))
+            for tag, sh in shapes.items()}
+
+
+@pytest.mark.parametrize("tag", ["flagship", "yolov3"])
+@pytest.mark.parametrize("name", ["adam", "nadam", "adamw", "sgd", "sgdw"])
+def test_optim_kernel_bit_equal_to_plain_loop(cuda, optim_lists, name, tag):
+    """K6 against the plain loop on the card: 5 steps at the model's
+    parameter list (channels_last weights, random float32 gradients from
+    numpy at scales 1e-4 to 30), the learning rate swapped after step 2;
+    parameters and moments torch.equal, and K6's launches a step
+    optim_launch_plan's count."""
+    from chip_smoke import optim_compare, optim_grads, optim_params
+
+    shapes, sizes = optim_lists[tag]
+    params = optim_params(shapes, cuda, 11)
+    res = optim_compare(name, params, optim_grads(params, 12, 5))
+    assert res["bit_equal"]
+    assert res["launches_per_step"] == len(optim_update.optim_launch_plan(sizes))
+
+
+def test_optim_kernel_scalar_path_bit_equal(cuda):
+    """Tensors one float off a 16-byte boundary take the scalar path, with
+    lengths that leave tails: still the loop's bits."""
+    from chip_smoke import optim_compare, optim_grads, optim_params
+
+    shapes = [(3,), (17, 5), (8, 3, 3, 3), (8193,), (1,)]
+    params = optim_params(shapes, cuda, 13, offset=True)
+    for name in optim_update.OPT_CODES:
+        assert optim_compare(name, params, optim_grads(params, 14, 3))["bit_equal"]
+
+
+def _optim_args(dev, **bad):
+    p = torch.randn(8, 4, 3, 3, device=dev).to(memory_format=torch.channels_last)
+    args = {"params": [p], "grads": [torch.randn_like(p)],
+            "mu": [torch.zeros_like(p)], "nu": [torch.zeros_like(p)]}
+    for key, fn in bad.items():
+        args[key] = [fn(args[key][0])]
+    return args
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(params=lambda p: p.bfloat16(), grads=lambda g: g.bfloat16()),
+     "float32"),
+    (dict(params=lambda p: torch.randn(8, 4, 3, 6, device=p.device)[..., ::2],
+          grads=lambda g: torch.randn(8, 4, 3, 6, device=g.device)[..., ::2],
+          mu=lambda m: torch.zeros(8, 4, 3, 6, device=m.device)[..., ::2],
+          nu=lambda v: torch.zeros(8, 4, 3, 6, device=v.device)[..., ::2]),
+     "not dense"),
+    (dict(grads=lambda g: g.contiguous()), "strides"),
+    (dict(nu=lambda v: v.cpu()), "float32 on cuda"),
+])
+def test_optim_kernel_rejects_what_it_does_not_take(cuda, bad, match):
+    args = _optim_args(cuda, **bad)
+    lr = torch.tensor(1e-3, device=cuda)
+    with pytest.raises(ValueError, match=match):
+        optim_update.cuda_optim_update("adam", args["params"], args["grads"],
+                                       args["mu"], args["nu"], lr, [0.5] * 10)
+
+
+def test_train_step_on_the_gpu_launches_the_optimizer_kernel(cuda):
+    """A train step on the card updates its parameters through K6: the
+    plan's launches a step (one for darknet_micro's list)."""
+    cfg = _micro_config()
+    state = create_train_state(cfg, torch.Generator().manual_seed(0))
+    step = make_train_step(cfg)
+    sizes = tuple(p.numel() for p in state.model.parameters())
+    before = optim_update.LAUNCHES
+    for seed in (5, 6):
+        state, _ = step(state, *_micro_batch(seed), seed)
+    torch.cuda.synchronize()
+    assert optim_update.LAUNCHES - before == 2 * len(
+        optim_update.optim_launch_plan(sizes)) == 2
 
 
 def _transfer_config(backbone, head, kernels, **model):

@@ -56,8 +56,10 @@ def test_torch_trace_breakdown():
     # the port's kernels by name: K2 and K3 by bn_stats_kernel's GRAD
     assert prof.traced_port_kernels(events) == {
         "nms": 0, "bn_stats": 2, "bn_grad_stats": 1, "yolo_loss_forward": 1,
-        "yolo_loss_backward": 0}
+        "yolo_loss_backward": 0, "optim_update": 0}
     assert prof.port_kernel("void nms_kernel<32, true>(float const*)") == "nms"
+    assert prof.port_kernel("void optim_update_kernel<1>(Table, Scalars)") == (
+        "optim_update")
     assert prof.port_kernel("void loss_backward_kernel<2>(float const*)") == (
         "yolo_loss_backward")
     assert prof.port_kernel("sm90_xmma_fprop_bf16") is None
